@@ -1,0 +1,164 @@
+"""The north-star pipeline: simulate an EQ_4 cohort, discover one ODE per
+arm, fine-tune it per patient (INSITE) and score the factual fit.
+
+Stages, each timed between device synchronisations:
+
+  sim+design+QR  simulate the cohort, build the smoothed-finite-difference
+                 design matrix and reduce each arm by QR on the device; only
+                 two F x (F+1) triangles go to the host,
+  STLSQ          the F x F thresholding iteration on the host in float64,
+  fine-tune      the Levenberg-Marquardt loop (gn_iters + 1 launches of the
+                 rollout-with-sensitivities kernel, one rollout launch),
+  metric         the normalised factual RMSE, reduced on the device.
+
+`simulate_cohort` and `discover_and_finetune` are the two halves, so a
+cohort from elsewhere (for example the JAX package's) can be fed to the
+later stages.
+"""
+
+from __future__ import annotations
+
+from time import perf_counter
+
+import numpy as np
+import torch
+
+from insite_tpu_torch.core.constants import MAX_VALUE, STANDARD_DT
+from insite_tpu_torch.core.dtypes import resolve_float
+from insite_tpu_torch.discovery.library import PolynomialLibrary
+from insite_tpu_torch.discovery.stlsq import _qr_reduce, stlsq_from_qr
+from insite_tpu_torch.models.sindy import (_eq4_design,
+                                           insite_gn_finetune_predict)
+from insite_tpu_torch.sim import pkpd
+
+LIBRARY = PolynomialLibrary(n_inputs=3)      # [y, c0, c1]
+INPUT_NAMES = ['x0', 'u0', 'u1']
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def simulate_cohort(n: int, seed: int, equation_name: str = 'EQ_4_D',
+                    conf_coeff: float = 2.0, seq_length: int = 60, *,
+                    device, dtype=None):
+    """Draw parameters and the factual cohort from a generator seeded with
+    ``seed`` on ``device``. Returns (vol [n, seq_length], statics [n, 2],
+    treat [n, seq_length], lengths [n])."""
+    dtype = resolve_float(dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    add_noise = equation_name.split('_')[-1] in ('B', 'C', 'D')
+    params = pkpd.generate_params(n, conf_coeff=conf_coeff, window_size=15,
+                                  lag=0, generator=gen,
+                                  equation=pkpd.Equation[equation_name],
+                                  device=device, dtype=dtype)
+    vol, treat, lengths = pkpd._simulate_factual_full(
+        params, gen, seq_length, add_noise, dtype=dtype)
+    statics = torch.stack([params['observed_static_c_0'],
+                           params['observed_static_c_1']], dim=-1)
+    return vol, statics, treat, lengths
+
+
+def design_qr(cohort, library=LIBRARY):
+    """EQ_4 fit semantics (offset 1, smoothed 4th-order finite differences)
+    and the per-arm QR reduction: returns [(R, Q^T y)] for arms 0 and 1."""
+    vol, statics, treat, lengths = cohort
+    eff_len = torch.clamp(lengths - 1, min=2)
+    theta, y, ok, arm = _eq4_design(vol, statics, treat, eff_len,
+                                    STANDARD_DT, library=library,
+                                    smooth=True, fd_order=4)
+    return [_qr_reduce(theta, y, (ok & (arm == a)).to(theta.dtype))
+            for a in range(2)]
+
+
+def _factual_rmse(preds, vol, lengths):
+    """Normalised factual RMSE in % (orig: per-timestep mean, then sqrt;
+    all: pooled), reduced on the device."""
+    T = preds.shape[1]
+    active = (torch.arange(T, device=preds.device)[None, :]
+              < lengths[:, None]).to(preds.dtype)
+    err2 = torch.where(active > 0, (preds - vol[:, 1:]) ** 2, 0.0)
+    mse_orig = (err2.sum(0) / torch.clamp(active.sum(0), min=1.0)).mean()
+    rmse_orig = torch.sqrt(mse_orig) / MAX_VALUE * 100.0
+    rmse_all = torch.sqrt(err2.sum() / active.sum()) / MAX_VALUE * 100.0
+    return rmse_orig, rmse_all
+
+
+def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
+                          lam: float = 10.0, gn_iters: int = 12,
+                          projection_horizon: int = 1,
+                          max_stlsq_iter: int = 100) -> dict:
+    """Design + QR, host STLSQ, INSITE fine-tune and the factual RMSE on a
+    cohort ``(vol, statics, treat, lengths)`` of tensors on one device.
+    The first stage's time also covers any device work on the cohort still
+    pending when this is called."""
+    vol, statics, treat, lengths = cohort
+    device, dtype = vol.device, vol.dtype
+    seq_length = vol.shape[1]
+    t0 = perf_counter()
+    triangles = [(R.cpu().numpy(), qty.cpu().numpy())
+                 for R, qty in design_qr(cohort)]
+    t_sim_design = perf_counter() - t0
+
+    t1 = perf_counter()
+    # cast to the compute dtype, as the JAX package does
+    coefs = np.stack([
+        stlsq_from_qr(R, qty, threshold, alpha, max_iter=max_stlsq_iter)[0]
+        for R, qty in triangles]).astype(
+            torch.empty((), dtype=dtype).numpy().dtype)
+    t_stlsq = perf_counter() - t1
+
+    active_idx = tuple(int(i) for i in
+                       np.flatnonzero(np.abs(coefs).reshape(-1) > 1e-3))
+    prev = vol[:, :-1]
+    arms = treat[:, :seq_length - 1].to(torch.int32)
+    t2 = perf_counter()
+    preds, _ = insite_gn_finetune_predict(
+        LIBRARY, torch.as_tensor(coefs, dtype=dtype, device=device), prev,
+        statics, arms, lengths, STANDARD_DT, lam=lam,
+        projection_horizon=projection_horizon, gn_iters=gn_iters,
+        y_clip=None, active_idx=active_idx)
+    _sync(device)
+    t_finetune = perf_counter() - t2
+
+    t3 = perf_counter()
+    rmse_orig, rmse_all = (float(v) for v in
+                           _factual_rmse(preds, vol, lengths))
+    t_metric = perf_counter() - t3
+
+    eq_strs = [LIBRARY.pretty_equation(coefs[a], INPUT_NAMES)
+               for a in range(2)]
+    return {
+        'coefs': coefs,
+        'preds': preds,
+        'global_equation_string': ' | '.join(
+            f'Treatment {a}: x_dot = {s}' for a, s in enumerate(eq_strs)),
+        'rmse_orig': rmse_orig, 'rmse_all': rmse_all,
+        't_sim_design': t_sim_design, 't_stlsq': t_stlsq,
+        't_finetune': t_finetune, 't_metric': t_metric,
+        'total': t_sim_design + t_stlsq + t_finetune + t_metric,
+    }
+
+
+def fused_northstar(n_train: int, seed: int = 0,
+                    equation_name: str = 'EQ_4_D', conf_coeff: float = 2.0,
+                    seq_length: int = 60, threshold: float = 0.1,
+                    alpha: float = 0.5, lam: float = 10.0,
+                    gn_iters: int = 12, projection_horizon: int = 1,
+                    max_stlsq_iter: int = 100, dtype=None, *,
+                    device) -> dict:
+    """The whole north-star workload (simulate + discover + fine-tune) on
+    ``device``. Returns the global coefficients and equation string, the
+    fine-tuned predictions, the factual normalised RMSEs (%) and per-stage
+    wall times in seconds."""
+    _sync(device)
+    t0 = perf_counter()
+    cohort = simulate_cohort(n_train, seed, equation_name, conf_coeff,
+                             seq_length, device=device, dtype=dtype)
+    t_sim = perf_counter() - t0          # the rest is timed in the next stage
+    r = discover_and_finetune(cohort, threshold, alpha, lam, gn_iters,
+                              projection_horizon, max_stlsq_iter)
+    r['t_sim_design'] += t_sim
+    r['total'] += t_sim
+    return r

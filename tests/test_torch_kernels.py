@@ -1,0 +1,210 @@
+"""The rollout kernels' dispatch: plain versions on CPU tensors (runs
+everywhere), the CUDA kernels against their plain versions on a card.
+
+This file imports no JAX, so the card-side tests run where JAX is absent:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from insite_tpu_torch.discovery.library import PolynomialLibrary
+from insite_tpu_torch.ops import build, rollout
+
+BASE = np.stack([[0, 0.3, 0, 0, -1.0, 0, 0],
+                 [0, -0.2, 0, 0, 0, -1.0, 0]]).astype(np.float32)
+
+
+def eq4_case(B, T, shared, seed=0, spread=0.1):
+    """(library keywords, coefs, y0, statics, arms, dt) on the EQ_4
+    library."""
+    rng = np.random.RandomState(seed)
+    coefs = (BASE[None] if shared else
+             BASE[None] * (1 + spread * rng.randn(B, 1, 1))).astype(
+                 np.float32)
+    y0 = (np.abs(rng.randn(B)) * 10 + 1).astype(np.float32)
+    statics = rng.rand(B, 2).astype(np.float32)
+    arms = rng.randint(0, 2, (B, T)).astype(np.int32)
+    return dict(n_inputs=3), coefs, y0, statics, arms, 1 / 6
+
+
+def four_arm_case():
+    """Tumor-family layout: 4 arms on the (y, u) library, F=4."""
+    rng = np.random.RandomState(1)
+    B, T, A, F = 9, 7, 4, 4
+    coefs = (0.1 * rng.randn(1, A, F)).astype(np.float32)
+    y0 = (np.abs(rng.randn(B)) + 1).astype(np.float32)
+    statics = rng.rand(B, 1).astype(np.float32)
+    arms = rng.randint(0, A, (B, T)).astype(np.int32)
+    return dict(n_inputs=2), coefs, y0, statics, arms, 1.0
+
+
+def diverging_case(B=8, T=40, y0=5.0):
+    """dy/dt = +y on the (y, u) library: diverges unless clipped."""
+    coefs = np.zeros((1, 2, 4), np.float32)
+    coefs[:, :, 1] = 1.0                      # feature 1 is y
+    return (dict(n_inputs=2), coefs, np.full(B, y0, np.float32),
+            np.ones((B, 1), np.float32), np.zeros((B, T), np.int32), 1.0)
+
+
+DEGREE4 = dict(n_inputs=3, degree=4, interaction_only=False)
+
+
+def wide_support_case(B=7, T=6, seed=3):
+    """The degree-4 ablation library (F=35 over [y, c0, c1]) with 16 active
+    coordinates over both arms: more than 8, so the sensitivity kernel
+    takes its wide (Kr <= 72) instantiation. Decay on y plus 14 small terms
+    keeps the state near 1."""
+    rng = np.random.RandomState(seed)
+    F = PolynomialLibrary(**DEGREE4).n_features
+    coefs = np.zeros((1, 2, F), np.float32)
+    coefs[0, :, 1] = -1.0                     # feature 1 is y
+    others = rng.choice(np.delete(np.arange(2 * F), [1, F + 1]), 14,
+                        replace=False)
+    coefs.reshape(-1)[others] = (0.05 * rng.choice([-1, 1], 14)
+                                 * (0.5 + rng.rand(14)))
+    y0 = (rng.rand(B) + 0.5).astype(np.float32)
+    statics = rng.rand(B, 2).astype(np.float32)
+    arms = rng.randint(0, 2, (B, T)).astype(np.int32)
+    return DEGREE4, coefs, y0, statics, arms, 1 / 6
+
+
+CASES = {'shared': lambda: eq4_case(37, 15, True),
+         'per_patient': lambda: eq4_case(5, 9, False),
+         'per_patient_333': lambda: eq4_case(333, 20, False, seed=2),
+         'four_arms': four_arm_case,
+         'wide_support': wide_support_case}
+
+
+def active(coefs):
+    return tuple(int(i) for i in
+                 np.flatnonzero(np.abs(coefs[0].reshape(-1)) > 1e-3))
+
+
+def run_port(fn, case, *extra, device='cpu', dtype=torch.float32, **kw):
+    spec, coefs, y0, statics, arms, dt = case
+    f = dict(dtype=dtype, device=device)
+    return fn(PolynomialLibrary(**spec), torch.as_tensor(coefs, **f),
+              torch.as_tensor(y0, **f), torch.as_tensor(statics, **f),
+              torch.as_tensor(arms, device=device), dt, *extra, **kw)
+
+
+def test_cpu_tensors_take_the_plain_path():
+    rollout.reset_launch_counts()
+    case = eq4_case(5, 9, False)
+    out = run_port(rollout.batched_rollout, case)
+    ref = run_port(rollout.batched_rollout_plain, case)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    y, s = run_port(rollout.rollout_with_sens, case, active(case[1]))
+    y_ref, s_ref = run_port(rollout.rollout_with_sens_plain, case,
+                            active(case[1]))
+    torch.testing.assert_close((y, s), (y_ref, s_ref), rtol=0, atol=0)
+    assert rollout.ROLLOUT_LAUNCHES == 0 and rollout.SENS_LAUNCHES == 0
+
+
+@pytest.mark.parametrize('fn,extra', [
+    (rollout._rollout_cuda, (rollout.STEPS_FOR_DT, None)),
+    (rollout._sens_cuda, ((1, 4), rollout.STEPS_FOR_DT, None))])
+def test_kernel_wrappers_refuse_cpu_tensors(fn, extra):
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        run_port(fn, eq4_case(5, 9, False), *extra)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.setattr(build, 'DEFAULT_NVCC', tmp_path / 'nvcc')
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        build.find_nvcc()
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, 'find_nvcc', lambda: 'false')
+    monkeypatch.setattr(build, 'BUILD_ROOT', tmp_path)
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        build.build_library()
+    assert not list(tmp_path.rglob('*.so'))
+
+
+def test_sensitivity_is_the_derivative_of_the_rollout():
+    """The plain recurrence against central differences of the plain
+    rollout in f64 (what the kernel is then held to on the card)."""
+    spec, coefs, y0, statics, arms, dt = eq4_case(4, 10, False)
+    coefs = coefs.astype(np.float64)
+    act = active(coefs)
+    _, s = run_port(rollout.rollout_with_sens_plain,
+                    (spec, coefs, y0, statics, arms, dt), act,
+                    dtype=torch.float64)
+    eps = 1e-6
+    for j, i in enumerate(act):
+        up, down = coefs.copy(), coefs.copy()
+        up.reshape(4, -1)[:, i] += eps
+        down.reshape(4, -1)[:, i] -= eps
+        fd = (run_port(rollout.batched_rollout_plain,
+                       (spec, up, y0, statics, arms, dt),
+                       dtype=torch.float64)
+              - run_port(rollout.batched_rollout_plain,
+                         (spec, down, y0, statics, arms, dt),
+                         dtype=torch.float64)) / (2 * eps)
+        # central difference: truncation ~eps^2, rounding ~1e-16/eps
+        torch.testing.assert_close(s[..., j], fd, rtol=1e-7, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# on a CUDA card (skipped without one: a CUDA kernel has no CPU mode)
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels run only on the card')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+# (rtol, atol): f32 kernels contract to FMA and sum in another order than
+# the plain version over T * 5 sub-steps; f64 is held tightly
+TOL = {torch.float32: (2e-5, 1e-5), torch.float64: (1e-10, 1e-12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('name', sorted(CASES) + ['y_clip'])
+def test_kernels_match_plain_on_cuda(cuda, dtype, name):
+    case = diverging_case() if name == 'y_clip' else CASES[name]()
+    clip = (0.0, 10.0) if name == 'y_clip' else None
+    act = active(case[1])
+    rtol, atol = TOL[dtype]
+    rollout.reset_launch_counts()
+    out = run_port(rollout.batched_rollout, case, device=cuda, dtype=dtype,
+                   y_clip=clip)
+    ref = run_port(rollout.batched_rollout_plain, case, device=cuda,
+                   dtype=dtype, y_clip=clip)
+    y, s = run_port(rollout.rollout_with_sens, case, act, device=cuda,
+                    dtype=dtype, y_clip=clip)
+    y_ref, s_ref = run_port(rollout.rollout_with_sens_plain, case, act,
+                            device=cuda, dtype=dtype, y_clip=clip)
+    torch.cuda.synchronize()
+    assert rollout.ROLLOUT_LAUNCHES == 1 and rollout.SENS_LAUNCHES == 1
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_shapes_outside_its_bounds(cuda):
+    # the bounds compiled into the kernels take the degree-4 library over
+    # both arms (F=35, every one of its 70 coordinates) and the tumor
+    # family's 4 arms
+    bound = rollout.kernel_bounds()
+    assert (bound['F'] >= 35 and bound['n_inputs'] >= 3
+            and bound['arms'] >= 4 and bound['Kr'] >= 70)
+    lib = PolynomialLibrary(n_inputs=3, degree=6, interaction_only=False)
+    B, T = 4, 3
+    coefs = torch.zeros(1, 2, lib.n_features, device=cuda)   # F = 84 > 64
+    with pytest.raises(ValueError, match='kernel bounds'):
+        rollout.batched_rollout(lib, coefs, torch.ones(B, device=cuda),
+                                torch.ones(B, 2, device=cuda),
+                                torch.zeros(B, T, dtype=torch.int32,
+                                            device=cuda), 0.1)
