@@ -11,22 +11,36 @@ Phases, in order; any failure exits non-zero:
 3. kernels  each rollout kernel against its plain PyTorch version on the
             card, f32 and f64, at the north-star shape (B=10,000, T=59,
             A=2, F=7, S=2, Kr=3), at B=2048, T=60, in a 4-arm case
-            with y_clip, and on the degree-4 library (F=35) with Kr=16
-            active coordinates, the sensitivity kernel's wide
-            instantiation; timed with CUDA events (median of 20 calls).
+            with y_clip, on the degree-4 library (F=35) with Kr=16
+            active coordinates (the sensitivity kernel's wide
+            instantiation), and at the main table's shapes, taken from an
+            EQ_4_D collection of the default size: the n-step test set
+            (B=59,000, T=64, per-step arms, per-row coefficients, Kr = the
+            fitted support) and the 1-step test set (B=11,800, T=59,
+            shared coefficients); timed with CUDA events (median of 20).
 4. path     the 10,000-patient EQ_4_D north star (simulate -> discover ->
             INSITE fine-tune), after an untimed warm-up and a check of the
             f32 card path against the f64 CPU path on a small cohort;
             asserts that the fine-tune went through the kernels.
+5. table    the EQ_4 main table through the port's sweep: sindy and insite
+            on EQ_4_A..D, one seed, 1,000 / 100 / 100 patients, f32, with
+            faults raised (debug mode); asserts 8 rows, the kernel launches
+            of the path (16 rollout, 104 sensitivity) and the RMSE bands,
+            and prints each run's stage times and peak device memory and
+            the LaTeX tables. Then one EQ_4_D collection (200 / 10 / 10):
+            insite f32 on the card against insite f64 on the host.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 from time import perf_counter
 
 import numpy as np
@@ -34,6 +48,15 @@ import numpy as np
 N_PATIENTS = 10_000
 GN_ITERS = 12
 KERNEL_SOURCE = 'insite_tpu_torch/csrc/rollout.cu'
+DATASETS = ('EQ_4_A', 'EQ_4_B', 'EQ_4_C', 'EQ_4_D')
+# the main table's accuracy bands (normalised RMSE, %), set from the JAX
+# package's 10-seed means: insite 1-step 0.0014 (A) and 0.020-0.021 (B-D),
+# 6-step 0.025-0.049; sindy 0.11-0.14 at both horizons
+BANDS = {('insite', 'encoder_test_rmse_orig'): {'EQ_4_A': 0.01,
+                                                'default': 0.05},
+         ('sindy', 'encoder_test_rmse_orig'): {'default': 0.3},
+         ('insite', 'decoder_test_rmse_6-step'): {'default': 0.15},
+         ('sindy', 'decoder_test_rmse_6-step'): {'default': 0.3}}
 # (rtol, atol), elementwise |kernel - plain| <= atol + rtol * |plain|.
 # f32: nvcc contracts multiply-adds to FMA and the kernel sums the library
 # terms in another order than PyTorch, over T * 5 dependent sub-steps
@@ -143,6 +166,42 @@ def wide_support_case(B, T, seed):
                 active_idx=active, y_clip=None)
 
 
+def main_table_cases(device):
+    """Kernel inputs at the main table's shapes, from one EQ_4_D collection
+    of the default size on the card and the model fitted on it: the n-step
+    test set (per-step arms, per-row coefficients 5 % around the fitted
+    ones) and the 1-step test set (the shared fitted coefficients)."""
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    coll = make_collection('EQ_4_D', {'train': 1000, 'val': 100,
+                                      'test': 100}, seed=0, coeff=2.0,
+                           device=device)
+    model = SINDyRegressor(SINDyConfig(dataset_name='EQ_4_D', insite=True),
+                           coll, device=device).fit(coll.train_f)
+    active = model._active_idx()
+
+    def case(ds, per_row, seed):
+        prev, statics, arms, _ = model._unscaled_arrays(ds)
+        coefs = model.coefs.astype(np.float64)[None]
+        if per_row:
+            rng = np.random.RandomState(seed)
+            coefs = coefs * (1 + 0.05 * rng.randn(len(prev), *coefs.shape[1:]))
+        return dict(library=model.library, coefs=coefs, y0=prev[:, 0],
+                    statics=statics, arms=arms, dt=model.dt,
+                    active_idx=active, y_clip=None)
+
+    n_step = case(coll.test_cf_treatment_seq, True, 5)
+    one_step = case(coll.test_cf_one_step, False, 6)
+    switches = int((np.diff(n_step['arms'], axis=1) != 0).any(1).sum())
+    log(f'  main-table cases: n-step arms {n_step["arms"].shape} '
+        f'({switches} rows switch arm), 1-step arms '
+        f'{one_step["arms"].shape}, Kr={len(active)}: '
+        f'{model.global_equation_string}')
+    assert n_step['arms'].shape == (59_000, 64) and switches > 0
+    assert one_step['arms'].shape == (11_800, 59)
+    return n_step, one_step
+
+
 def tensors(case, dtype, device):
     import torch
     f = dict(dtype=dtype, device=device)
@@ -247,6 +306,146 @@ def check_small_cohort(device):
         raise AssertionError('card and CPU fine-tunes disagree')
 
 
+@contextlib.contextmanager
+def stage_timer(records, device):
+    """Time each sweep run's stages between device synchronisations:
+    collection (simulation + host copy), processing, fit, 1-step and
+    n-step predictions; and its peak device memory. One record per run,
+    in sweep order."""
+    import torch
+    from insite_tpu_torch.harness import runner
+    from insite_tpu_torch.models.sindy import SINDyRegressor
+    hooks = [(runner, '_collection_for', 'collection'),
+             (runner, '_build_model', 'process'),
+             (SINDyRegressor, 'fit', 'fit'),
+             (SINDyRegressor, 'get_predictions', 'predict_1_step'),
+             (SINDyRegressor, 'get_autoregressive_predictions',
+              'predict_n_step')]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
+
+    def timed(fn, stage):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if stage == 'collection':
+                torch.cuda.reset_peak_memory_stats(device)
+                records.append({'run': args[:2]})
+            torch.cuda.synchronize(device)
+            t0 = perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(device)
+            records[-1][stage] = perf_counter() - t0
+            records[-1]['peak_mib'] = \
+                torch.cuda.max_memory_allocated(device) / 2**20
+            return out
+        return inner
+
+    for (owner, name, stage), (_, _, fn) in zip(hooks, saved):
+        setattr(owner, name, timed(fn, stage))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def check_bands(rows):
+    """8 rows, none errored; every RMSE within its band; insite below
+    sindy on every dataset at 1 and 6 steps."""
+    if len(rows) != 2 * len(DATASETS) or any(r['errored'] for r in rows):
+        raise AssertionError(f'expected 8 rows, none errored: {rows}')
+    by = {(r['dataset_name'], r['method_name']): r for r in rows}
+    for (method, metric), band in BANDS.items():
+        for ds in DATASETS:
+            limit = band.get(ds, band['default'])
+            if not by[ds, method][metric] < limit:
+                raise AssertionError(f'{method} {ds} {metric} = '
+                                     f'{by[ds, method][metric]} >= {limit}')
+    for ds in DATASETS:
+        for metric in ('encoder_test_rmse_orig', 'decoder_test_rmse_6-step'):
+            if not by[ds, 'insite'][metric] < by[ds, 'sindy'][metric]:
+                raise AssertionError(f'{ds} {metric}: insite not below sindy')
+
+
+def run_main_table(device):
+    """Phase 5: the port's sweep over the EQ_4 main table on the card."""
+    import torch
+    from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch.harness.logging_utils import (
+        create_logger_in_process, generate_log_file_path)
+    from insite_tpu_torch.harness.runner import sweep
+    from insite_tpu_torch.ops import rollout
+    records = []
+    with tempfile.TemporaryDirectory() as log_dir:
+        cfg = RunConfig(methods=('sindy', 'insite'), datasets=DATASETS,
+                        seed_runs=1, log_dir=log_dir, debug_mode=True)
+        logger = create_logger_in_process(generate_log_file_path('run',
+                                                                 log_dir))
+        with stage_timer(records, device):
+            torch.cuda.synchronize(device)
+            rollout.reset_launch_counts()
+            t0 = perf_counter()
+            rows, tables = sweep(cfg, log=logger, device=device)
+            torch.cuda.synchronize(device)
+            wall = perf_counter() - t0
+            launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                        'sens': rollout.SENS_LAUNCHES}
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+    stages = ('collection', 'process', 'fit', 'predict_1_step',
+              'predict_n_step')
+    for row, rec in zip(rows, records):
+        assert rec['run'] == (row['dataset_name'], row['method_name'])
+        log(f'  {row["dataset_name"]} {row["method_name"]:6s} '
+            f'1-step {row["encoder_test_rmse_orig"]:.6f} % | 6-step '
+            f'{row["decoder_test_rmse_6-step"]:.6f} % | seconds_taken '
+            f'{row["seconds_taken"]:.4f} s | ' + ' '.join(
+                f'{s} {rec[s]:.4f}' for s in stages) +
+            f' s | peak {rec["peak_mib"]:.1f} MiB')
+        log(f'    {row["global_equation_string"]}')
+    log(f'[table] sweep wall {wall:.4f} s; kernel launches: {launches}')
+    for metric, table in tables.items():
+        log(f'[table] LaTeX {metric}:\n{table}')
+    # per run: sindy 2 rollouts; insite 2 rollouts + 2 fine-tunes of
+    # gn_iters + 1 sensitivity launches
+    want = {'rollout': 2 * 2 * len(DATASETS),
+            'sens': 2 * (GN_ITERS + 1) * len(DATASETS)}
+    if launches != want:
+        raise AssertionError(f'expected {want} launches, got {launches}')
+    check_bands(rows)
+    return launches
+
+
+def check_card_against_host(device):
+    """insite f32 on the card against insite f64 on the host, on one
+    EQ_4_D collection (200 / 10 / 10)."""
+    import torch
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    coll = make_collection('EQ_4_D', {'train': 200, 'val': 10, 'test': 10},
+                           seed=7, coeff=2.0, device=device)
+    cfg = SINDyConfig(dataset_name='EQ_4_D', insite=True)
+    out = {}
+    for tag, dev, dtype in (('card', device, None),
+                            ('host', 'cpu', torch.float64)):
+        m = SINDyRegressor(cfg, coll, device=dev, dtype=dtype).fit(
+            coll.train_f)
+        one = m.get_normalised_masked_rmse(coll.test_cf_one_step,
+                                           one_step_counterfactual=True)[0]
+        six = float(m.get_normalised_n_step_rmses(
+            coll.test_cf_treatment_seq)[-1])
+        out[tag] = (m.coefs, one, six)
+    (c_k, one_k, six_k), (c_h, one_h, six_h) = out['card'], out['host']
+    log(f'  card f32 vs host f64: coef max abs diff '
+        f'{np.abs(c_k - c_h).max():.3e}; 1-step {one_k:.6f} vs {one_h:.6f}'
+        f' %; 6-step {six_k:.6f} vs {six_h:.6f} %')
+    if not ((np.abs(c_k) > 1e-3) == (np.abs(c_h) > 1e-3)).all():
+        raise AssertionError(f'support differs: {c_k} vs {c_h}')
+    np.testing.assert_allclose(c_k, c_h, rtol=1e-3, atol=1e-6)
+    if abs(one_k / one_h - 1) > 0.05 or abs(six_k / six_h - 1) > 0.05:
+        raise AssertionError('card and host RMSEs differ by more than 5 %')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -293,6 +492,11 @@ def main():
     run_kernel_case('degree-4 F=35 Kr=16 B=10000 T=59',
                     wide_support_case(N_PATIENTS, 59, 4), device,
                     timed=True)
+    n_step_case, one_step_case = main_table_cases(device)
+    n_step = run_kernel_case('main table n-step B=59000 T=64 per-row',
+                             n_step_case, device, timed=True)
+    one_step = run_kernel_case('main table 1-step B=11800 T=59 shared',
+                               one_step_case, device, timed=True)
     torch.cuda.synchronize()
 
     # 4. main path
@@ -326,24 +530,32 @@ def main():
     if not r['rmse_orig'] < 0.1:
         raise AssertionError(f'rmse_orig {r["rmse_orig"]}% >= 0.1%')
 
-    t_main, t_prof = main_case['times'], profile['times']
-    kernels = [
-        {'name': 'rollout', 'route': 'cuda', 'source': KERNEL_SOURCE,
-         'replaces': 'insite_tpu/ops/pallas_rollout.py:40',
-         'launches': launches['rollout'],
-         'max_abs_err': main_case['f32']['rollout_err'],
-         'ms': t_main['rollout_ms'], 'plain_ms': t_main['rollout_plain_ms'],
-         'ms_b2048_t60': t_prof['rollout_ms'],
-         'plain_ms_b2048_t60': t_prof['rollout_plain_ms']},
-        {'name': 'rollout_with_sens', 'route': 'cuda',
-         'source': KERNEL_SOURCE,
-         'replaces': 'insite_tpu/ops/pallas_rollout.py:85',
-         'launches': launches['sens'],
-         'max_abs_err': main_case['f32']['sens_err'],
-         'ms': t_main['sens_ms'], 'plain_ms': t_main['sens_plain_ms'],
-         'ms_b2048_t60': t_prof['sens_ms'],
-         'plain_ms_b2048_t60': t_prof['sens_plain_ms']},
-    ]
+    # 5. main table
+    log('[table] sweep: sindy, insite x EQ_4_A..D, 1 seed, 1000/100/100')
+    table_launches = run_main_table(device)
+    log('[table] card f32 against host f64, one EQ_4_D collection')
+    check_card_against_host(device)
+
+    kernels = []
+    for name, key, replaces in (('rollout', 'rollout', ':40'),
+                                ('rollout_with_sens', 'sens', ':85')):
+        err = 'rollout_err' if key == 'rollout' else 'sens_err'
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
+            'replaces': 'insite_tpu/ops/pallas_rollout.py' + replaces,
+            'launches': table_launches[key],
+            'launches_northstar': launches[key],
+            'max_abs_err': main_case['f32'][err],
+            'ms': main_case['times'][f'{key}_ms'],
+            'plain_ms': main_case['times'][f'{key}_plain_ms'],
+            'ms_b2048_t60': profile['times'][f'{key}_ms'],
+            'plain_ms_b2048_t60': profile['times'][f'{key}_plain_ms'],
+            'max_abs_err_nstep': n_step['f32'][err],
+            'ms_nstep_b59000_t64': n_step['times'][f'{key}_ms'],
+            'plain_ms_nstep_b59000_t64': n_step['times'][f'{key}_plain_ms'],
+            'ms_1step_shared_b11800_t59': one_step['times'][f'{key}_ms'],
+            'plain_ms_1step_shared_b11800_t59':
+                one_step['times'][f'{key}_plain_ms']})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

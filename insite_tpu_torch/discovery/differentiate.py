@@ -64,7 +64,12 @@ def windowed_filter(x: torch.Tensor, lengths: torch.Tensor,
     idx = s[..., None] + torch.arange(w, device=x.device)  # [..., T, w]
     windows = torch.gather(x, -1, idx.flatten(-2)).view(idx.shape)
     Wj = torch.as_tensor(W, dtype=x.dtype, device=x.device)[r]
-    return torch.sum(windows * Wj, dim=-1)
+    # a fused multiply-add chain in window order: the rounding of the
+    # JAX package's compiled reduction, so float64 results agree bit for bit
+    out = windows[..., 0] * Wj[..., 0]
+    for k in range(1, w):
+        out = torch.addcmul(out, windows[..., k], Wj[..., k])
+    return out
 
 
 def savgol_smooth(x, lengths, window: int = 5, polyorder: int = 3):
@@ -76,7 +81,8 @@ def savgol_smooth(x, lengths, window: int = 5, polyorder: int = 3):
 def finite_difference(x, lengths, dt, order: int = 2, deriv: int = 1):
     """Batched pysindy-compatible ``FiniteDifference(order=order)``."""
     W = fornberg_matrix(order + 1, deriv)
-    return windowed_filter(x, lengths, W) / (dt ** deriv)
+    # times the reciprocal, as the JAX package's compiled division rounds
+    return windowed_filter(x, lengths, W) * (1.0 / dt ** deriv)
 
 
 def smoothed_finite_difference(x, lengths, dt, order: int = 4,

@@ -20,13 +20,21 @@ def _qr_reduce(theta: torch.Tensor, y: torch.Tensor, sample_weight=None):
     directions of the polynomial library (the EQ_4 statics are 0.5 +- 0.05,
     so the '1'/'u0'/'u1'/'u0 u1' block is nearly rank one); QR keeps the
     error at eps * cond(Theta). R is unique up to the sign of each row.
+
+    On the card the QR is cuSOLVER's; on the host it is numpy's LAPACK,
+    whose factorization is the JAX package's host QR bit for bit (torch's
+    CPU build links another LAPACK), so the discovered coefficients and
+    their printed equation match the reference's exactly in float64.
     """
     if sample_weight is not None:
         w = torch.sqrt(sample_weight.to(theta.dtype))
         theta = theta * w[:, None]
         y = y * w
     A = torch.cat([theta, y[:, None]], dim=1)
-    R = torch.linalg.qr(A, mode='r').R
+    if A.device.type == 'cpu':
+        R = torch.from_numpy(np.linalg.qr(A.numpy(), mode='r'))
+    else:
+        R = torch.linalg.qr(A, mode='r').R
     F = theta.shape[-1]
     return R[:F, :F], R[:F, F]
 
@@ -63,3 +71,15 @@ def stlsq_from_qr(R, qty, threshold, alpha, max_iter: int = 100,
     if unbias and mask.any():
         coefs = np.where(mask, solve(mask, 0.0), 0.0)
     return coefs, mask
+
+
+def stlsq_hostsolve(theta, y, threshold, alpha, sample_weight=None,
+                    max_iter: int = 100, initial_mask=None,
+                    unbias: bool = True):
+    """Global-discovery STLSQ: the N-row QR reduction on the tensors'
+    device, the F x F thresholding iteration on the host. Returns numpy
+    (coefs [F], mask [F])."""
+    R, qty = _qr_reduce(theta, y, sample_weight)
+    return stlsq_from_qr(R.cpu().numpy(), qty.cpu().numpy(), threshold,
+                         alpha, max_iter=max_iter, initial_mask=initial_mask,
+                         unbias=unbias)

@@ -1,1 +1,1 @@
-"""The north-star pipeline."""
+"""The north-star pipeline, the sweep harness and its results tools."""

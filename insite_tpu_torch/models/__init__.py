@@ -1,1 +1,1 @@
-"""EQ_4 design matrix and the INSITE fine-tune."""
+"""The estimator base and the SINDy / INSITE estimator."""

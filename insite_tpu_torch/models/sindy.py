@@ -1,20 +1,339 @@
-"""EQ_4 design matrix and the INSITE Levenberg-Marquardt fine-tune.
+"""The A-SINDy / INSITE estimator on the EQ_4 family.
 
-The discovered model is ``(coefs [A, F], PolynomialLibrary)``. INSITE then
-fine-tunes the active coefficients per patient: a damped Gauss-Newton
-(Levenberg-Marquardt) loop over the whole cohort at once, whose residual
-Jacobian comes from the rollout-with-sensitivities kernel, one launch per
-iteration, followed by one launch of the plain rollout kernel for the
-predictions.
+The discovered model is ``(coefs [A, F], PolynomialLibrary)``: one STLSQ
+fit per treatment arm over the EQ_4 design matrix. A-SINDy predicts with
+one rollout of that shared model (the rollout kernel with a coefficient
+batch stride of 0). INSITE then fine-tunes the active coefficients per
+patient: a damped Gauss-Newton (Levenberg-Marquardt) loop over the whole
+cohort at once, whose residual Jacobian comes from the
+rollout-with-sensitivities kernel, one launch per iteration, followed by
+one launch of the rollout kernel for the predictions.
+
+CPU tensors take each kernel's plain PyTorch version and CUDA tensors the
+kernel; nothing falls back from one to the other.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 
+from insite_tpu_torch.core.constants import STANDARD_DT
+from insite_tpu_torch.core.dtypes import resolve_float
 from insite_tpu_torch.discovery.differentiate import (
-    finite_difference, smoothed_finite_difference)
+    finite_difference, savgol_smooth, smoothed_finite_difference)
+from insite_tpu_torch.discovery.library import PolynomialLibrary
+from insite_tpu_torch.discovery.stlsq import stlsq_hostsolve
+from insite_tpu_torch.models.base import CausalEstimator
 from insite_tpu_torch.ops.rollout import batched_rollout, rollout_with_sens
+
+
+@dataclass
+class SINDyConfig:
+    """Hyperparameters; the fields and defaults of
+    `insite_tpu.models.sindy.SINDyConfig`. Values of later slices
+    (`wsindy`, `joint_model`, the degree-4 ablation, the BFGS solver, a
+    non-EQ_4 dataset) raise `NotImplementedError` in `SINDyRegressor`."""
+
+    dataset_name: str = 'EQ_4_A'
+    sindy_threshold: float = 0.1
+    sindy_alpha: float = 0.5
+    lam: float = 10.0
+    insite: bool = False
+    wsindy: bool = False
+    joint_model: bool = False
+    smooth_input_data: bool = False
+    use_smoothed_finite_difference: bool = False
+    ablation_more_complex_basis_functions: bool = False
+    sindy_quantize: bool = False
+    sindy_quantize_global_model_round_to: int = 2
+    wsindy_select: bool = True
+    wsindy_threshold_grid: tuple = (0.25, 0.5, 1.0, 2.0, 4.0)
+    wsindy_alpha_grid: tuple = (0.5, 0.05, 0.005)
+    wsindy_select_tol: float = 0.05
+    wsindy_tumor_window_lens: tuple = (8, 5, 3)
+    projection_horizon: int = 5
+    treatment_mode: str = 'multiclass'
+    max_stlsq_iter: int = 100
+    bfgs_tol: float = 1e-12
+    bfgs_maxiter: Optional[int] = None
+    # 'gauss_newton': the Levenberg-Marquardt fine-tune (the only solver
+    # ported); 'bfgs' is Slice 4
+    insite_solver: str = 'gauss_newton'
+    gn_iters: int = 12
+    # the device of the tensors picks kernel or plain version; 'auto' is
+    # the only value
+    rollout_backend: str = 'auto'
+    # rows per fine-tune call (None: the whole set in one call); the last
+    # chunk is padded by repeating its final row
+    finetune_chunk: Optional[int] = None
+    # 'auto' (EQ_4: no clip), None, or an explicit (lo, hi)
+    y_clip: object = 'auto'
+
+
+def _is_eq4(name: str) -> bool:
+    return 'EQ_4' in name
+
+
+def resolve_y_clip(y_clip, dataset_name: str):
+    """'auto' -> the dataset's outcome range: None on EQ_4, whose decay
+    ODE cannot diverge. The tumor family's clip is Slice 3."""
+    if y_clip != 'auto':
+        return y_clip
+    if _is_eq4(dataset_name):
+        return None
+    raise NotImplementedError(f'{dataset_name}: the tumor family is Slice 3 '
+                              'of the port (ROADMAP.md)')
+
+
+def _unserved(cfg: SINDyConfig) -> list:
+    """The settings of later slices that ``cfg`` asks for."""
+    out = []
+    if not _is_eq4(cfg.dataset_name):
+        out.append(f'dataset_name={cfg.dataset_name!r} (Slice 3)')
+    for name in ('wsindy', 'joint_model',
+                 'ablation_more_complex_basis_functions'):
+        if getattr(cfg, name):
+            out.append(f'{name}=True (Slice 4)')
+    if cfg.insite_solver != 'gauss_newton':
+        out.append(f'insite_solver={cfg.insite_solver!r} (Slice 4)')
+    if cfg.rollout_backend != 'auto':
+        out.append(f'rollout_backend={cfg.rollout_backend!r} (the tensors\' '
+                   'device picks kernel or plain version)')
+    return out
+
+
+class SINDyRegressor(CausalEstimator):
+    """A-SINDy (``cfg.insite`` False) or INSITE on ``device``, in ``dtype``
+    (float32 unless given). Predictions come back as numpy, scaled like
+    the dataset's outputs, ``[rows, T, 1]``."""
+
+    def __init__(self, cfg: SINDyConfig, dataset_collection=None, *, device,
+                 dtype=None):
+        unserved = _unserved(cfg)
+        if unserved:
+            raise NotImplementedError(
+                'not ported yet (ROADMAP.md): ' + ', '.join(unserved))
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = resolve_float(dtype)
+        self.dt = STANDARD_DT
+        self.global_equation_string = ''
+        self.coefs = None          # [A, F] global coefficients, numpy
+        self.library: Optional[PolynomialLibrary] = None
+        self.insite = cfg.insite
+        if dataset_collection is not None and \
+                not dataset_collection.processed_data_multi:
+            dataset_collection.process_data_multi()
+
+    # ------------------------------------------------------------------
+    # helpers
+
+    def _tensor(self, x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype or self.dtype,
+                               device=self.device)
+
+    def _unscaled_arrays(self, dataset):
+        """(prev [N, T] observed y, statics [N, S], arms [N, T] int,
+        lengths [N]) in the data's own units, numpy."""
+        sp = dataset.scaling_params
+        d = dataset.data
+        dim_out = 1
+        dim_static = d['static_features'].shape[-1]
+        prev = np.squeeze(d['prev_outputs'], -1) * sp['output_stds'] \
+            + sp['output_means']
+        statics = d['static_features'] * \
+            sp['inputs_stds'][dim_out:dim_out + dim_static] + \
+            sp['input_means'][dim_out:dim_out + dim_static]
+        treatments = d['current_treatments']
+        if self.cfg.treatment_mode == 'multiclass':
+            arms = np.argmax(treatments, axis=-1)
+        else:
+            arms = np.squeeze(treatments, -1).astype(np.int64) \
+                if treatments.shape[-1] == 1 else treatments
+        lengths = np.asarray(d['sequence_lengths']).astype(np.int64)
+        return prev, statics, arms, lengths
+
+    # ------------------------------------------------------------------
+    # fitting
+
+    def fit(self, train_f, val_f=None):
+        cfg = self.cfg
+        prev, statics, arms, lengths = self._unscaled_arrays(train_f)
+        # the observed trajectory including its final observation
+        unscaled_outputs = np.squeeze(train_f.data['unscaled_outputs'], -1)
+        volumes = np.concatenate([prev[:, :1], unscaled_outputs], axis=1)
+        self.library = PolynomialLibrary(n_inputs=1 + statics.shape[-1])
+        self.coefs = self._fit_eq4(volumes, statics, arms, lengths)
+        round_to = (cfg.sindy_quantize_global_model_round_to
+                    if cfg.sindy_quantize else None)
+        if round_to is not None:
+            # rollouts and the INSITE fine-tune (start and proximal anchor)
+            # all use the quantized model
+            self.coefs = np.round(self.coefs, round_to)
+
+        names = self._input_names()
+        eq_strs = [self.library.pretty_equation(
+            self.coefs[a], names, quantize_round_to=round_to)
+            for a in range(self.coefs.shape[0])]
+        self.global_equation_string = ' | '.join(
+            f'Treatment {a}: x_dot = {s}' for a, s in enumerate(eq_strs))
+        return self
+
+    def _input_names(self):
+        n_controls = self.library.n_inputs - 1
+        return ['x0'] + [f'u{i}' for i in range(n_controls)]
+
+    def _fit_eq4(self, volumes, statics, arms, lengths):
+        """EQ_4: each patient is one constant-arm trajectory of length
+        seq_len - 1, differentiated by smoothed 4th-order finite
+        differences; one STLSQ per arm, cast to the compute dtype."""
+        cfg = self.cfg
+        eff_len = self._tensor(np.maximum(lengths - 1, 2), torch.int64)
+        theta, xdot, ok, arm = _eq4_design(
+            self._tensor(volumes), self._tensor(statics),
+            self._tensor(arms, torch.int64), eff_len, self.dt,
+            library=self.library, smooth=True, fd_order=4)
+        coefs = [stlsq_hostsolve(theta, xdot, cfg.sindy_threshold,
+                                 cfg.sindy_alpha,
+                                 sample_weight=ok & (arm == a),
+                                 max_iter=cfg.max_stlsq_iter)[0]
+                 for a in range(2)]
+        return np.stack(coefs).astype(
+            torch.empty((), dtype=self.dtype).numpy().dtype)
+
+    # ------------------------------------------------------------------
+    # prediction
+
+    def get_predictions(self, dataset) -> np.ndarray:
+        if not self.insite:
+            preds = self._global_rollout(dataset)
+        else:
+            preds = self._fine_tuned_rollout(dataset, projection_horizon=1)
+        assert not np.any(np.isnan(preds)), 'Predictions contain NaN'
+        return preds
+
+    def get_autoregressive_predictions(self, dataset) -> np.ndarray:
+        ph = self.cfg.projection_horizon
+        if not self.insite:
+            preds = self._global_rollout(dataset)
+        else:
+            preds = self._fine_tuned_rollout(dataset, projection_horizon=ph)
+        lengths = np.asarray(dataset.data['sequence_lengths']).astype(int)
+        lower = np.maximum(1, lengths - ph)
+        win = lower[:, None] + np.arange(ph)[None, :]
+        return preds[np.arange(preds.shape[0])[:, None], win]
+
+    def _rollout_args(self, dataset):
+        prev, statics, arms, lengths = self._unscaled_arrays(dataset)
+        return (self._tensor(prev), self._tensor(statics),
+                self._tensor(arms, torch.int32),
+                self._tensor(lengths, torch.int64))
+
+    def _y_clip(self):
+        return resolve_y_clip(self.cfg.y_clip, self.cfg.dataset_name)
+
+    def _scaled_numpy(self, preds, lengths, dataset) -> np.ndarray:
+        """Zero the positions past each row's valid length (no metric reads
+        them, and a diverging rollout may be inf there), scale like the
+        outputs, and copy to the host once: [N, T, 1]."""
+        valid = torch.arange(preds.shape[1], device=preds.device)[None, :] \
+            < lengths[:, None]
+        preds = torch.where(valid, preds, 0.0)
+        sp = dataset.scaling_params
+        preds = (preds - sp['output_means']) / sp['output_stds']
+        return preds.cpu().numpy()[..., None]
+
+    def _global_rollout(self, dataset) -> np.ndarray:
+        prev, statics, arms, lengths = self._rollout_args(dataset)
+        preds = batched_rollout(self.library, self._tensor(self.coefs)[None],
+                                prev[:, 0], statics, arms, self.dt,
+                                y_clip=self._y_clip())
+        return self._scaled_numpy(preds, lengths, dataset)
+
+    def _active_idx(self) -> tuple:
+        """The flat (arm * F + feature) coordinates with |global coef| >
+        1e-3: the coordinates the fine-tune moves."""
+        return tuple(int(i) for i in
+                     np.flatnonzero(np.abs(self.coefs).reshape(-1) > 1e-3))
+
+    def _fine_tune(self, dataset, projection_horizon: int):
+        """Run the per-patient fine-tune; returns (preds [N, T],
+        per-patient coefs [N, A, F]) on the device.
+
+        With ``cfg.finetune_chunk`` the rows go through in chunks of that
+        size, the last one padded by repeating its final row."""
+        cfg = self.cfg
+        prev, statics, arms, lengths = self._rollout_args(dataset)
+        if cfg.smooth_input_data:
+            prev = savgol_smooth(prev, lengths)
+        coefs = self._tensor(self.coefs)
+        active_idx = self._active_idx()
+
+        def solve(prev_c, statics_c, arms_c, lengths_c):
+            if not active_idx:
+                return _empty_support_predict(
+                    self.library, coefs, prev_c, statics_c, arms_c,
+                    lengths_c, self.dt, projection_horizon, self._y_clip())
+            return insite_gn_finetune_predict(
+                self.library, coefs, prev_c, statics_c, arms_c, lengths_c,
+                self.dt, lam=cfg.lam, projection_horizon=projection_horizon,
+                gn_iters=cfg.gn_iters, y_clip=self._y_clip(),
+                active_idx=active_idx)
+
+        chunk = cfg.finetune_chunk
+        n = prev.shape[0]
+        if not chunk or n <= chunk:
+            return solve(prev, statics, arms, lengths)
+        preds_l, coefs_l = [], []
+        for i in range(0, n, chunk):
+            take = min(chunk, n - i)
+
+            def padded(x):
+                xs = x[i:i + take]
+                if take < chunk:
+                    xs = torch.cat([xs, xs[-1:].expand(chunk - take,
+                                                       *xs.shape[1:])])
+                return xs
+
+            p, c = solve(padded(prev), padded(statics), padded(arms),
+                         padded(lengths))
+            preds_l.append(p[:take])
+            coefs_l.append(c[:take])
+        return torch.cat(preds_l), torch.cat(coefs_l)
+
+    def get_fine_tuned_coefficients(self, dataset,
+                                    projection_horizon: int = 1):
+        """Per-patient fine-tuned coefficients [N, A, F], numpy."""
+        _, coefs = self._fine_tune(dataset, projection_horizon)
+        return coefs.cpu().numpy()
+
+    def _fine_tuned_rollout(self, dataset, projection_horizon: int):
+        preds, _ = self._fine_tune(dataset, projection_horizon)
+        lengths = self._tensor(
+            np.asarray(dataset.data['sequence_lengths']).astype(np.int64),
+            torch.int64)
+        preds = self._scaled_numpy(preds, lengths, dataset)
+        assert not np.any(np.isnan(preds) | np.isinf(preds))
+        return preds
+
+
+def _empty_support_predict(library, global_coefs, prev, statics, arms,
+                           lengths, dt, projection_horizon: int,
+                           y_clip=None):
+    """The fine-tune when no global coefficient exceeds 1e-3: nothing can
+    move, so rows longer than the horizon roll out the masked global model
+    ``global * (|global| > 1e-3)`` and the others the full global model,
+    in one rollout. Returns (preds [B, T], coefs [B, A, F])."""
+    masked = global_coefs * (global_coefs.abs() > 1e-3)
+    skip = (lengths <= projection_horizon)[:, None, None]
+    coefs = torch.where(skip, global_coefs[None], masked[None])
+    preds = batched_rollout(library, coefs, prev[:, 0], statics, arms, dt,
+                            y_clip=y_clip)
+    return preds, coefs
 
 
 def _eq4_design(vol_j, statics, arms01, eff_len, dt, library,

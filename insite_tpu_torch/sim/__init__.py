@@ -1,1 +1,1 @@
-"""PKPD cohort simulator (factual path)."""
+"""PKPD cohort simulator (factual and counterfactual test sets)."""

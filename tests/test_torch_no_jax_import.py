@@ -1,5 +1,6 @@
 """The port stands alone: no module of insite_tpu_torch imports jax, flax,
-optax or the JAX package (importing any insite_tpu module imports jax)."""
+optax or the JAX package (importing any insite_tpu module imports jax),
+nor pandas or PyYAML, which the card machine does not have."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,7 @@ from pathlib import Path
 import pytest
 
 PACKAGE = Path(__file__).resolve().parent.parent / 'insite_tpu_torch'
-FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'insite_tpu'}
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'insite_tpu', 'pandas', 'yaml'}
 FILES = sorted(PACKAGE.rglob('*.py'))
 
 

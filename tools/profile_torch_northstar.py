@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's north star, on one NVIDIA
-card.
+"""Where the time goes in the PyTorch port, on one NVIDIA card.
 
-    python3 tools/profile_torch_northstar.py [--trace northstar_trace.json]
+    python3 tools/profile_torch_northstar.py [--path northstar|main-table]
+                                             [--trace trace.json]
 
-After an untimed warm-up, runs the 10,000-patient EQ_4_D `fused_northstar`
-once without the profiler (per-stage wall times) and once under
-torch.profiler, and prints the card's name and power limit, device time by
-kernel, and the device's busy and idle shares of the profiled run (the
-union of device-event intervals over the run's wall time; the profiler's
-own host overhead makes the idle share an upper bound).
+``northstar`` (the default): after an untimed warm-up, runs the
+10,000-patient EQ_4_D `fused_northstar` once without the profiler
+(per-stage wall times) and once under torch.profiler. ``main-table``: the
+same for one insite run of the EQ_4 main table (`run_experiment` on EQ_4_D,
+1,000 / 100 / 100 patients). Prints the card's name and power limit,
+device time by kernel, and the device's busy and idle shares of the
+profiled run (the union of device-event intervals over the run's wall
+time; the profiler's own host overhead makes the idle share an upper
+bound).
 """
 
 import argparse
@@ -26,6 +29,7 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from insite_tpu_torch.harness.northstar import fused_northstar  # noqa: E402
+from insite_tpu_torch.harness.runner import run_experiment  # noqa: E402
 
 N_PATIENTS = 10_000
 STAGES = ('t_sim_design', 't_stlsq', 't_finetune', 't_metric', 'total')
@@ -47,6 +51,8 @@ def busy_us(events):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--path', default='northstar',
+                    choices=('northstar', 'main-table'))
     ap.add_argument('--trace', default=None,
                     help='write a Chrome trace of the profiled run here')
     args = ap.parse_args()
@@ -59,14 +65,27 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
 
-    def run():
-        return fused_northstar(N_PATIENTS, seed=0, equation_name='EQ_4_D',
-                               projection_horizon=1, device=device)
+    if args.path == 'northstar':
+        def run():
+            return fused_northstar(N_PATIENTS, seed=0, equation_name='EQ_4_D',
+                                   projection_horizon=1, device=device)
 
-    fused_northstar(64, seed=1, device=device)
+        def report(r):
+            return ', '.join(f'{k} {r[k]:.4f}' for k in STAGES)
+
+        fused_northstar(64, seed=1, device=device)
+    else:
+        def run():
+            return run_experiment('EQ_4_D', 'insite', seed=0, domain_conf=2.0,
+                                  device=device)
+
+        def report(r):
+            return (f'seconds_taken {r["seconds_taken"]:.4f}, 1-step '
+                    f'{r["encoder_test_rmse_orig"]:.6f} %')
+
+        run()
     r = run()
-    print('stages (s, no profiler): ' + ', '.join(
-        f'{k} {r[k]:.4f}' for k in STAGES))
+    print('stages (s, no profiler): ' + report(r))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -75,8 +94,7 @@ def main():
         r = run()
         torch.cuda.synchronize()
         wall_us = (perf_counter() - t0) * 1e6
-    print('stages (s, profiled):    ' + ', '.join(
-        f'{k} {r[k]:.4f}' for k in STAGES))
+    print('stages (s, profiled):    ' + report(r))
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
