@@ -7,17 +7,27 @@ card.
 Phases, in order; any failure exits non-zero:
 
 1. device   require CUDA; print the card and its power limit; TF32 off.
-2. build    compile csrc/rollout.cu with nvcc for sm_90a (timed).
+2. build    compile csrc/rollout.cu with nvcc for sm_90a (timed); print
+            each kernel's registers, stack and spills from ptxas, and
+            fail unless ptxas lists all 8 instantiations and no
+            SmallModel one spills or uses a stack.
 3. kernels  each rollout kernel against its plain PyTorch version on the
             card, f32 and f64, at the north-star shape (B=10,000, T=59,
             A=2, F=7, S=2, Kr=3), at B=2048, T=60, in a 4-arm case
             with y_clip, on the degree-4 library (F=35) with Kr=16
-            active coordinates (the sensitivity kernel's wide
-            instantiation), and at the main table's shapes, taken from an
-            EQ_4_D collection of the default size: the n-step test set
-            (B=59,000, T=64, per-step arms, per-row coefficients, Kr = the
-            fitted support) and the 1-step test set (B=11,800, T=59,
-            shared coefficients); timed with CUDA events (median of 20).
+            active coordinates (the kernels' shared-memory model), and at
+            the main table's shapes, taken from an EQ_4_D collection of
+            the default size: the n-step test set (B=59,000, T=64,
+            per-step arms, per-row coefficients, Kr = the fitted support)
+            and the 1-step test set (B=11,800, T=59, shared
+            coefficients). First, before any plain version runs, the
+            device time of one launch of each kernel (torch.profiler,
+            median of 20 launches, one session) at the north-star,
+            n-step, 1-step and degree-4 shapes, each beside its bound: the
+            larger of the bytes the call must move over 3.35 TB/s and the
+            floating-point operations of the collapsed recurrence over
+            67 TFLOP/s (f32). Timed shapes also get the call time (CUDA
+            events, median of 20 calls) of kernel and plain version.
 4. path     the 10,000-patient EQ_4_D north star (simulate -> discover ->
             INSITE fine-tune), after an untimed warm-up and a check of the
             f32 card path against the f64 CPU path on a small cohort;
@@ -37,6 +47,7 @@ The last two lines of stdout are a JSON summary of the kernels and
 import contextlib
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +75,17 @@ BANDS = {('insite', 'encoder_test_rmse_orig'): {'EQ_4_A': 0.01,
 # f64: the same differences at 1e-16 per rounding.
 TOL = {'f32': {'y': (1e-4, 1e-4), 'sens': (1e-3, 1e-3)},
        'f64': {'y': (1e-10, 1e-10), 'sens': (1e-9, 1e-9)}}
+# NVIDIA H100 SXM at its 700 W limit (data sheet): device memory rate and
+# the float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+KERNEL_NAMES = {'rollout': 'rollout_kernel<', 'sens': 'rollout_sens_kernel<'}
+# every instantiation in csrc/rollout.cu, as ptxas_report labels it: the
+# no-spill gate must see each SmallModel one
+PTXAS_KERNELS = [f'{k}<{r}, {m}<{r}>>'
+                 for k in ('rollout_kernel', 'rollout_sens_kernel')
+                 for r in ('float', 'double')
+                 for m in ('SmallModel', 'GeneralModel')]
 
 
 def log(msg):
@@ -87,6 +109,143 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_times(jobs, reps=20):
+    """{label: median device time of one launch (ms)} for jobs of
+    (label, kernel key, fn), from one torch.profiler session: each fn runs
+    reps times, after a warm-up call outside the session, and a fill kernel
+    marks the boundary between jobs. One session only: the profiler has
+    returned no kernel events at all in a later session of the same process.
+    A launch the profiler misses costs one sample, not the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _, _, fn in jobs:
+        fn()
+    marker = torch.zeros(1, device='cuda')
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        marker.fill_(1.0)
+        for _, _, fn in jobs:
+            marker.fill_(1.0)
+            for _ in range(reps):
+                fn()
+        marker.fill_(1.0)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    spans, span = [], []
+    for e in events:
+        if 'FillFunctor' in e.name:
+            if span:
+                spans.append(span)
+            span = []
+        else:
+            span.append(e)
+    if len(spans) != len(jobs):
+        raise AssertionError(f'the profiler session split into {len(spans)} '
+                             f'spans for {len(jobs)} jobs')
+    out = {}
+    for (label, kernel, _), span in zip(jobs, spans):
+        us = [e.time_range.end - e.time_range.start for e in span
+              if KERNEL_NAMES[kernel] in e.name]
+        if len(us) < reps // 2:
+            raise AssertionError(f'the profiler saw {len(us)} {kernel} '
+                                 f'kernel launches in {reps} calls ({label})')
+        out[label] = statistics.median(us) / 1e3
+    return out
+
+
+def kernel_times(cases, device):
+    """Device time of one launch and the bound of both kernels, f32, at the
+    given shapes: {tag: {'rollout_device_ms', 'rollout_bound_ms',
+    'rollout_bound_by', and the same for 'sens'}}."""
+    import torch
+    from insite_tpu_torch.ops import rollout
+    jobs = []
+    for tag, case in cases.items():
+        a = tensors(case, torch.float32, device)
+        act, clip = case['active_idx'], case['y_clip']
+        jobs.append(((tag, 'rollout'), 'rollout',
+                     lambda a=a, clip=clip: rollout.batched_rollout(
+                         *a, y_clip=clip)))
+        jobs.append(((tag, 'sens'), 'sens',
+                     lambda a=a, act=act, clip=clip: rollout.rollout_with_sens(
+                         *a, act, y_clip=clip)))
+    dev = device_times(jobs)
+    out = {}
+    for tag, case in cases.items():
+        t = out[tag] = {}
+        for key in ('rollout', 'sens'):
+            t[f'{key}_device_ms'] = dev[tag, key]
+            t[f'{key}_bound_ms'], t[f'{key}_bound_by'] = kernel_bound(case,
+                                                                      key)
+            dev_ms, bound = t[f'{key}_device_ms'], t[f'{key}_bound_ms']
+            log(f'  {tag} f32 {key} device time per launch (profiler, median '
+                f'of 20) {dev_ms:.4f} ms; bound {bound:.4f} ms '
+                f'({t[f"{key}_bound_by"]}), {100 * bound / dev_ms:.1f} % of '
+                'it')
+    return out
+
+
+def kernel_bound(case, kernel):
+    """The least time (ms) the card could take for one f32 call: the larger
+    of the bytes it must move (each input read once: coefficients, y0,
+    statics, int32 arms; each output written once: y [B, T] and, for the
+    sensitivities, [B, T, Kr]) over the memory rate, and the floating-point
+    operations of the collapsed recurrence over the f32 rate. Per sub-step
+    of a patient: Horner's rule for p (2 D), the update y + h p (2); the
+    sensitivities add Horner for p' (2 (D - 1)) and, per coordinate j,
+    y^e_j for its drive (e_j) and s + h (p' s + drive) (4). Per patient,
+    2 A F for the collapse of the library. Returns (ms, 'bytes' or
+    'operations')."""
+    from insite_tpu_torch.core.constants import STEPS_FOR_DT
+    coefs, arms = np.asarray(case['coefs']), case['arms']
+    B, T = arms.shape
+    A, F = coefs.shape[-2:]
+    S = case['statics'].shape[1]
+    exps = case['library'].exponents()
+    D = int(exps[:, 0].max())
+    n_bytes = 4 * (coefs.size + B + B * S + B * T)
+    per_substep = 2 * D + 2
+    n_out = 1
+    if kernel == 'sens':
+        act = case['active_idx']
+        n_out += len(act)
+        per_substep += (2 * max(D - 1, 0) + 4 * len(act)
+                        + sum(int(exps[i % F, 0]) for i in act))
+    n_bytes += 4 * B * T * n_out
+    flops = B * T * STEPS_FOR_DT * per_substep + 2 * B * A * F
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def ptxas_report(log_text):
+    """Per kernel in nvcc's -Xptxas -v output: (label, registers, stack
+    bytes, spill store bytes, spill load bytes)."""
+    rows, name, frame = [], None, None
+    for line in log_text.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            name = m.group(1)
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            frame = tuple(map(int, m.groups()))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name and frame and 'kernel' in name:
+            kernel = ('rollout_sens_kernel' if 'rollout_sens_kernel' in name
+                      else 'rollout_kernel')
+            real = 'double' if f'{len(kernel)}{kernel}Id' in name else 'float'
+            model = ('SmallModel' if 'SmallModel' in name
+                     else 'GeneralModel') + f'<{real}>'
+            rows.append((f'{kernel}<{real}, {model}>', int(m.group(1)))
+                        + frame)
+            name = frame = None
+    return rows
 
 
 def check_close(name, got, want, rtol, atol, rows=None):
@@ -471,15 +630,30 @@ def main():
     t0 = perf_counter()
     build.load_library()
     log(f'[build] nvcc sm_90a build + load: {perf_counter() - t0:.2f} s')
-    for line in (build.build_dir() / 'nvcc.log').read_text().splitlines():
-        if 'registers' in line or 'spill' in line:
-            log(f'  {line.strip()}')
+    report = ptxas_report((build.build_dir() / 'nvcc.log').read_text())
+    for label, regs, stack, spill_st, spill_ld in report:
+        log(f'  {label}: {regs} registers, {stack} bytes stack, '
+            f'{spill_st} / {spill_ld} bytes spill stores / loads')
+        if 'SmallModel' in label and (stack or spill_st or spill_ld):
+            raise AssertionError(f'{label} uses a stack or spills')
+    if sorted(r[0] for r in report) != sorted(PTXAS_KERNELS):
+        raise AssertionError(f'ptxas reported {[r[0] for r in report]}; '
+                             f'expected {PTXAS_KERNELS}')
 
-    # 3. kernels against their plain versions
+    # 3. kernels: device time and bound, then against their plain versions
+    northstar_case = eq4_case(N_PATIENTS, 59, True, 0)
+    degree4_case = wide_support_case(N_PATIENTS, 59, 4)
+    n_step_case, one_step_case = main_table_cases(device)
+    log('[kernels] device time per launch, f32, before any plain version '
+        'runs')
+    dev_times = kernel_times({'northstar': northstar_case,
+                              'nstep_b59000_t64': n_step_case,
+                              '1step_shared_b11800_t59': one_step_case,
+                              'degree4_f35_kr16_b10000_t59': degree4_case},
+                             device)
     log('[kernels] kernel vs plain PyTorch version on the card')
-    main_case = run_kernel_case(
-        'northstar B=10000 T=59 per-patient',
-        eq4_case(N_PATIENTS, 59, True, 0), device, timed=True)
+    main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
+                                northstar_case, device, timed=True)
     run_kernel_case('northstar B=10000 T=59 shared',
                     eq4_case(N_PATIENTS, 59, False, 1), device,
                     timed=False)
@@ -489,10 +663,8 @@ def main():
     run_kernel_case('4-arm y_clip B=10000 T=59',
                     four_arm_clip_case(N_PATIENTS, 59, 3), device,
                     timed=False)
-    run_kernel_case('degree-4 F=35 Kr=16 B=10000 T=59',
-                    wide_support_case(N_PATIENTS, 59, 4), device,
-                    timed=True)
-    n_step_case, one_step_case = main_table_cases(device)
+    run_kernel_case('degree-4 F=35 Kr=16 B=10000 T=59', degree4_case,
+                    device, timed=True)
     n_step = run_kernel_case('main table n-step B=59000 T=64 per-row',
                              n_step_case, device, timed=True)
     one_step = run_kernel_case('main table 1-step B=11800 T=59 shared',
@@ -540,6 +712,12 @@ def main():
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
         err = 'rollout_err' if key == 'rollout' else 'sens_err'
+        per_shape = {}
+        for tag, t in dev_times.items():
+            dev, bound = t[f'{key}_device_ms'], t[f'{key}_bound_ms']
+            per_shape.update({f'device_ms_{tag}': dev,
+                              f'bound_ms_{tag}': bound,
+                              f'bound_share_{tag}': bound / dev})
         kernels.append({
             'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
             'replaces': 'insite_tpu/ops/pallas_rollout.py' + replaces,
@@ -548,6 +726,10 @@ def main():
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],
+            'bound_ms': dev_times['northstar'][f'{key}_bound_ms'],
+            'bound_by': dev_times['northstar'][f'{key}_bound_by'],
+            # no single PyTorch call computes the recurrence
+            'library_ms': None,
             'ms_b2048_t60': profile['times'][f'{key}_ms'],
             'plain_ms_b2048_t60': profile['times'][f'{key}_plain_ms'],
             'max_abs_err_nstep': n_step['f32'][err],
@@ -555,7 +737,8 @@ def main():
             'plain_ms_nstep_b59000_t64': n_step['times'][f'{key}_plain_ms'],
             'ms_1step_shared_b11800_t59': one_step['times'][f'{key}_ms'],
             'plain_ms_1step_shared_b11800_t59':
-                one_step['times'][f'{key}_plain_ms']})
+                one_step['times'][f'{key}_plain_ms'],
+            **per_shape})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -145,13 +145,39 @@ def kernel_bounds() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _int_table(rows: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(rows, dtype=torch.int32, device=device).contiguous()
+def _library_table(library) -> np.ndarray:
+    """The library's exponent table [F, n_inputs] as a host int32 array,
+    which the launch copies into the kernel's parameters. Cached per
+    library: the wrappers run it on every launch."""
+    exps = library.exponents()
+    bound = kernel_bounds()
+    F = exps.shape[0]
+    if F > bound['F'] or library.n_inputs > bound['n_inputs']:
+        raise ValueError(f'F={F}, n_inputs={library.n_inputs} exceed the '
+                         f'kernel bounds {bound["F"]}, {bound["n_inputs"]}')
+    table = np.ascontiguousarray(exps, dtype=np.int32)
+    table.flags.writeable = False
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _active_table(active: tuple, A: int, F: int) -> np.ndarray:
+    """(arm, feature) of each active flat coordinate, a host int32 array."""
+    bound = kernel_bounds()['Kr']
+    if not 1 <= len(active) <= bound:
+        raise ValueError(f'Kr={len(active)} active coordinates; the kernel '
+                         f'takes 1..{bound}')
+    if any(not 0 <= int(i) < A * F for i in active):
+        raise ValueError(f'active_idx {active} outside [0, {A * F})')
+    table = np.array([divmod(int(i), F) for i in active], dtype=np.int32)
+    table.flags.writeable = False
+    return table
 
 
 def _checked(library, coefs, y0, statics, arms):
     """Validate what the kernels take; returns contiguous operands, the
-    shape tuple and the device exponent table."""
+    shape tuple (B, T, A, F, S), the coefficient batch stride and the host
+    exponent table."""
     dev = y0.device
     if dev.type != 'cuda':
         raise ValueError(f'the rollout kernels take CUDA tensors, got {dev}')
@@ -174,16 +200,13 @@ def _checked(library, coefs, y0, statics, arms):
     if y0.shape != (B,) or statics.shape != (B, S):
         raise ValueError(f'y0 {tuple(y0.shape)} / statics '
                          f'{tuple(statics.shape)} do not match B={B}')
-    exps = library.exponents()
-    if library.n_inputs != 1 + S or exps.shape[0] != F:
+    table = _library_table(library)
+    if library.n_inputs != 1 + S or table.shape[0] != F:
         raise ValueError('the library must take [y, statics] and have one '
                          'feature per coefficient (no joint mode)')
-    bound = kernel_bounds()
-    if F > bound['F'] or 1 + S > bound['n_inputs'] or A > bound['arms']:
-        raise ValueError(f'F={F}, n_inputs={1 + S}, A={A} exceed the '
-                         f'kernel bounds {bound["F"]}, {bound["n_inputs"]}, '
-                         f'{bound["arms"]}')
-    table = _int_table(tuple(map(int, exps.reshape(-1))), dev)
+    if A > kernel_bounds()['arms']:
+        raise ValueError(f'A={A} exceeds the kernel bounds '
+                         f'{kernel_bounds()["arms"]}')
     coef_bstride = 0 if coefs.shape[0] == 1 else A * F
     return ((coefs.contiguous(), y0.contiguous(), statics.contiguous(),
              arms.to(torch.int32).contiguous()), (B, T, A, F, S),
@@ -215,7 +238,7 @@ def _rollout_cuda(library, coefs, y0, statics, arms, dt, substeps, y_clip):
     stream = torch.cuda.current_stream(y0.device).cuda_stream
     c, y, u, ar = ops
     err = fn(c.data_ptr(), bstride, y.data_ptr(), u.data_ptr(),
-             ar.data_ptr(), table.data_ptr(), out.data_ptr(), B, T, A, F, S,
+             ar.data_ptr(), table.ctypes.data, out.data_ptr(), B, T, A, F, S,
              substeps, dt / substeps, *_clip_args(y_clip), stream)
     _raise_on(err, 'rollout_kernel')
     ROLLOUT_LAUNCHES += 1
@@ -227,14 +250,8 @@ def _sens_cuda(library, coefs, y0, statics, arms, dt, active_idx, substeps,
     global SENS_LAUNCHES
     ops, (B, T, A, F, S), bstride, table = _checked(library, coefs, y0,
                                                     statics, arms)
+    act = _active_table(tuple(active_idx), A, F)
     Kr = len(active_idx)
-    if not 1 <= Kr <= kernel_bounds()['Kr']:
-        raise ValueError(f'Kr={Kr} active coordinates; the kernel takes '
-                         f'1..{kernel_bounds()["Kr"]}')
-    if any(not 0 <= int(i) < A * F for i in active_idx):
-        raise ValueError(f'active_idx {active_idx} outside [0, {A * F})')
-    act = _int_table(tuple(v for i in active_idx
-                           for v in (int(i) // F, int(i) % F)), y0.device)
     out = torch.empty((B, T), dtype=y0.dtype, device=y0.device)
     sens = torch.empty((B, T, Kr), dtype=y0.dtype, device=y0.device)
     if B == 0 or T == 0:
@@ -243,7 +260,7 @@ def _sens_cuda(library, coefs, y0, statics, arms, dt, active_idx, substeps,
     stream = torch.cuda.current_stream(y0.device).cuda_stream
     c, y, u, ar = ops
     err = fn(c.data_ptr(), bstride, y.data_ptr(), u.data_ptr(),
-             ar.data_ptr(), table.data_ptr(), act.data_ptr(), Kr,
+             ar.data_ptr(), table.ctypes.data, act.ctypes.data, Kr,
              out.data_ptr(), sens.data_ptr(), B, T, A, F, S, substeps,
              dt / substeps, *_clip_args(y_clip), stream)
     _raise_on(err, 'rollout_sens_kernel')

@@ -52,30 +52,66 @@ def diverging_case(B=8, T=40, y0=5.0):
 DEGREE4 = dict(n_inputs=3, degree=4, interaction_only=False)
 
 
-def wide_support_case(B=7, T=6, seed=3):
-    """The degree-4 ablation library (F=35 over [y, c0, c1]) with 16 active
-    coordinates over both arms: more than 8, so the sensitivity kernel
-    takes its wide (Kr <= 72) instantiation. Decay on y plus 14 small terms
-    keeps the state near 1."""
+def wide_support_case(B=7, T=6, seed=3, n_small=14):
+    """The degree-4 ablation library (F=35 over [y, c0, c1], powers of y up
+    to 4) with 2 + n_small active coordinates over both arms: with the
+    default 16, more than 8. Both take the kernels' shared-memory model.
+    Decay on y plus n_small small terms keeps the state near 1."""
     rng = np.random.RandomState(seed)
     F = PolynomialLibrary(**DEGREE4).n_features
     coefs = np.zeros((1, 2, F), np.float32)
     coefs[0, :, 1] = -1.0                     # feature 1 is y
-    others = rng.choice(np.delete(np.arange(2 * F), [1, F + 1]), 14,
+    others = rng.choice(np.delete(np.arange(2 * F), [1, F + 1]), n_small,
                         replace=False)
-    coefs.reshape(-1)[others] = (0.05 * rng.choice([-1, 1], 14)
-                                 * (0.5 + rng.rand(14)))
+    coefs.reshape(-1)[others] = (0.05 * rng.choice([-1, 1], n_small)
+                                 * (0.5 + rng.rand(n_small)))
     y0 = (rng.rand(B) + 0.5).astype(np.float32)
     statics = rng.rand(B, 2).astype(np.float32)
     arms = rng.randint(0, 2, (B, T)).astype(np.int32)
     return DEGREE4, coefs, y0, statics, arms, 1 / 6
 
 
+def statics_zero_case():
+    """Statics that are exactly 0 in some rows: every monomial of them is
+    0, and their zeroth power is 1."""
+    spec, coefs, y0, statics, arms, dt = eq4_case(50, 11, False, seed=8)
+    statics[::3, 0] = 0
+    statics[1::4, 1] = 0
+    return spec, coefs, y0, statics, arms, dt
+
+
+def eq4_six_coordinate_case():
+    """The EQ_4 library with two more small terms: Kr = 6 active
+    coordinates at D = 1, more than the register model's 4."""
+    spec, coefs, y0, statics, arms, dt = eq4_case(41, 17, False, seed=9)
+    coefs[:, 0, 2] = 0.05
+    coefs[:, 1, 6] = -0.05
+    return spec, coefs, y0, statics, arms, dt
+
+
+def four_input_case():
+    """The interaction-only library over four inputs [y, c0, c1, c2]: F=11,
+    more than the 8 features of one of the kernel prologue's chunks."""
+    rng = np.random.RandomState(11)
+    B, T = 37, 12
+    coefs = (0.2 * rng.randn(B, 2, 11)).astype(np.float32)
+    return (dict(n_inputs=4), coefs, (rng.rand(B) + 0.5).astype(np.float32),
+            rng.rand(B, 3).astype(np.float32),
+            rng.randint(0, 2, (B, T)).astype(np.int32), 0.25)
+
+
 CASES = {'shared': lambda: eq4_case(37, 15, True),
          'per_patient': lambda: eq4_case(5, 9, False),
          'per_patient_333': lambda: eq4_case(333, 20, False, seed=2),
          'four_arms': four_arm_case,
-         'wide_support': wide_support_case}
+         'wide_support': wide_support_case,
+         # the degree-4 library with Kr = 6 <= 8
+         'degree4_small_kr': lambda: wide_support_case(40, 13, n_small=4),
+         # B a multiple of neither block, T of no time tile
+         'ragged_b70_t37': lambda: eq4_case(70, 37, False, seed=5),
+         'statics_zero': statics_zero_case,
+         'eq4_kr6': eq4_six_coordinate_case,
+         'four_inputs': four_input_case}
 
 
 def active(coefs):
@@ -208,3 +244,66 @@ def test_kernel_rejects_shapes_outside_its_bounds(cuda):
                                 torch.ones(B, 2, device=cuda),
                                 torch.zeros(B, T, dtype=torch.int32,
                                             device=cuda), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('A', [4, 8])
+def test_out_of_range_arm_selects_arm_zero_on_cuda(cuda, dtype, A):
+    """Arms -1 and A select arm 0's coefficients, as the Pallas kernel's
+    select chain does, and also drive arm 0's sensitivities (the Pallas
+    kernel tests the raw arm there), so the sensitivities stay derivatives
+    of the output. The plain version, which indexes by the arm, is given
+    arm 0 there. A=4 takes the register model, A=8 the shared-memory one."""
+    rng = np.random.RandomState(4)
+    B, T, F = 45, 23, 4
+    coefs = (0.3 * rng.randn(B, A, F)).astype(np.float32)
+    arms = rng.randint(-1, A + 1, (B, T)).astype(np.int32)
+    assert (arms == -1).any() and (arms == A).any()
+    in_range = np.where((arms >= 0) & (arms < A), arms, 0)
+    spec, y0 = dict(n_inputs=2), (np.abs(rng.randn(B)) + 1).astype(np.float32)
+    statics = rng.rand(B, 1).astype(np.float32)
+    act = (1, 3, 6, 4 * F - 1)
+    case = (spec, coefs, y0, statics, arms, 0.5)
+    ref_case = (spec, coefs, y0, statics, in_range, 0.5)
+    rtol, atol = TOL[dtype]
+    out = run_port(rollout.batched_rollout, case, device=cuda, dtype=dtype)
+    ref = run_port(rollout.batched_rollout_plain, ref_case, device=cuda,
+                   dtype=dtype)
+    y, s = run_port(rollout.rollout_with_sens, case, act, device=cuda,
+                    dtype=dtype)
+    y_ref, s_ref = run_port(rollout.rollout_with_sens_plain, ref_case, act,
+                            device=cuda, dtype=dtype)
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_unclipped_divergence_is_non_finite_on_cuda(cuda, dtype):
+    """dy/dt = +y without y_clip: the rows that start near the type's
+    largest value overflow within the 200 sub-steps, and exactly those
+    rows are non-finite in the kernels' outputs and the plain versions'.
+    The other rows stay finite and agree."""
+    spec, coefs, _, statics, arms, dt = diverging_case()
+    big = 1e30 if dtype == torch.float32 else 1e300
+    y0 = np.array([5.0, big] * 4)
+    case = (spec, coefs, y0, statics, arms, dt)
+    act = active(coefs)
+    rtol, atol = TOL[dtype]
+    out = run_port(rollout.batched_rollout, case, device=cuda, dtype=dtype)
+    ref = run_port(rollout.batched_rollout_plain, case, device=cuda,
+                   dtype=dtype)
+    y, s = run_port(rollout.rollout_with_sens, case, act, device=cuda,
+                    dtype=dtype)
+    y_ref, s_ref = run_port(rollout.rollout_with_sens_plain, case, act,
+                            device=cuda, dtype=dtype)
+    overflow = torch.tensor([False, True] * 4, device=cuda)
+    for got, want in ((out, ref), (y, y_ref), (s, s_ref)):
+        assert torch.equal(~torch.isfinite(want).flatten(1).all(1), overflow)
+        assert torch.equal(~torch.isfinite(got).flatten(1).all(1), overflow)
+    torch.testing.assert_close(out[~overflow], ref[~overflow], rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(s[~overflow], s_ref[~overflow],
+                               rtol=10 * rtol, atol=10 * atol)
