@@ -20,10 +20,15 @@ Phases, in order; any failure exits non-zero:
             the default size: the n-step test set (B=59,000, T=64,
             per-step arms, per-row coefficients, Kr = the fitted support)
             and the 1-step test set (B=11,800, T=59, shared
-            coefficients). First, before any plain version runs, the
-            device time of one launch of each kernel (torch.profiler,
-            median of 20 launches, one session) at the north-star,
-            n-step, 1-step and degree-4 shapes, each beside its bound: the
+            coefficients), and at the tumor main table's shapes, taken from
+            a cancer_sim and an EQ_5_D collection of the default size (4
+            arms switching per step, y_clip (0, TUMOUR_DEATH_THRESHOLD),
+            Kr = the fitted support, ~16: the shared-memory model; n-step
+            with per-row coefficients, 1-step shared). First, before any
+            plain version runs, the device time of one launch of each
+            kernel (torch.profiler, median of 20 launches, one session) at
+            the north-star, n-step, 1-step, degree-4 and tumor shapes, each
+            beside its bound: the
             larger of the bytes the call must move over 3.35 TB/s and the
             floating-point operations of the collapsed recurrence over
             67 TFLOP/s (f32). Timed shapes also get the call time (CUDA
@@ -38,7 +43,19 @@ Phases, in order; any failure exits non-zero:
             of the path (16 rollout, 104 sensitivity) and the RMSE bands,
             and prints each run's stage times and peak device memory and
             the LaTeX tables. Then one EQ_4_D collection (200 / 10 / 10):
-            insite f32 on the card against insite f64 on the host.
+            insite f32 on the card against insite f64 on the host (the
+            same support, coefficients within rtol 1e-3, RMSEs within 5 %).
+6. tumor    the tumor main table through the port's sweep: sindy and insite
+            on cancer_sim and EQ_5_A..D, seed 0, 1,000 / 100 / 100, f32,
+            debug mode; asserts 10 rows, the launches of the path (20
+            rollout; 130 sensitivity unless a fit has an empty support,
+            which it then names), every 1-step and 6-step RMSE within 1 %
+            of the JAX package's at the same seed (`TUMOR_REF`), and insite
+            below sindy at 1 step on every dataset; prints each run's stage
+            times, peak device memory and fitted Kr. Then one cancer_sim
+            collection (200 / 10 / 10): insite f32 on the card against
+            insite f64 on the host, as for EQ_4_D (the same support,
+            coefficients within rtol 1e-3, RMSEs within 5 %).
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +77,27 @@ N_PATIENTS = 10_000
 GN_ITERS = 12
 KERNEL_SOURCE = 'insite_tpu_torch/csrc/rollout.cu'
 DATASETS = ('EQ_4_A', 'EQ_4_B', 'EQ_4_C', 'EQ_4_D')
+TUMOR_DATASETS = ('cancer_sim', 'EQ_5_A', 'EQ_5_B', 'EQ_5_C', 'EQ_5_D')
+# The JAX package's tumor main table at seed 0, 1,000 / 100 / 100 patients,
+# float64 on the CPU: (encoder_test_rmse_orig, decoder_test_rmse_6-step), %,
+# from `JAX_PLATFORMS=cpu python3 tools/tumor_reference_rmses.py --seed 0`.
+# On EQ_5_A and EQ_5_B the JAX package's unbias refit raises LinAlgError
+# (their single patient type makes 'u0' a copy of '1'); their values are the
+# same command's rerun with the minimum-norm refit, which the port takes.
+TUMOR_REF = {
+    ('cancer_sim', 'sindy'): (1.375753841190088, 1.1567399989461096),
+    ('cancer_sim', 'insite'): (0.9495069999323345, 0.9166988174165825),
+    ('EQ_5_A', 'sindy'): (1.092156744755332, 1.5449219959967768),
+    ('EQ_5_A', 'insite'): (0.6309203215798459, 1.0836684597035349),
+    ('EQ_5_B', 'sindy'): (1.5722963802898904, 1.0111978452568968),
+    ('EQ_5_B', 'insite'): (1.1344229551012321, 0.7550049068694608),
+    ('EQ_5_C', 'sindy'): (0.969143904860586, 1.2316755144716176),
+    ('EQ_5_C', 'insite'): (0.5085251061091012, 0.7123398744724335),
+    ('EQ_5_D', 'sindy'): (1.3093144947186854, 1.1824034119827571),
+    ('EQ_5_D', 'insite'): (0.7795798356068124, 0.8881275139276769)}
+# card f32 against the JAX package's f64 at the same cohort: the largest gap
+# measured is 0.003 % (EQ_5_B insite, 1 step)
+TUMOR_RTOL = 0.01
 # the main table's accuracy bands (normalised RMSE, %), set from the JAX
 # package's 10-seed means: insite 1-step 0.0014 (A) and 0.020-0.021 (B-D),
 # 6-step 0.025-0.049; sindy 0.11-0.14 at both horizons
@@ -325,19 +363,22 @@ def wide_support_case(B, T, seed):
                 active_idx=active, y_clip=None)
 
 
-def main_table_cases(device):
-    """Kernel inputs at the main table's shapes, from one EQ_4_D collection
-    of the default size on the card and the model fitted on it: the n-step
-    test set (per-step arms, per-row coefficients 5 % around the fitted
-    ones) and the 1-step test set (the shared fitted coefficients)."""
+def table_cases(name, device, seeds):
+    """Kernel inputs at a main table's shapes, from one collection of
+    ``name`` of the default size on the card and the INSITE model fitted
+    on it: the n-step test set (per-step arms, per-row coefficients 5 %
+    around the fitted ones, drawn from ``seeds[0]``) and the 1-step test
+    set (the shared fitted coefficients), both with the model's clip."""
     from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.harness.config import (model_dataset_name,
+                                                 sindy_params_for)
     from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
-    coll = make_collection('EQ_4_D', {'train': 1000, 'val': 100,
-                                      'test': 100}, seed=0, coeff=2.0,
-                           device=device)
-    model = SINDyRegressor(SINDyConfig(dataset_name='EQ_4_D', insite=True),
-                           coll, device=device).fit(coll.train_f)
-    active = model._active_idx()
+    coll = make_collection(name, {'train': 1000, 'val': 100, 'test': 100},
+                           seed=0, coeff=2.0, device=device)
+    cfg = SINDyConfig(dataset_name=model_dataset_name(name),
+                      sindy_threshold=sindy_params_for(name)[0], insite=True)
+    model = SINDyRegressor(cfg, coll, device=device).fit(coll.train_f)
+    active, clip = model._active_idx(), model._y_clip()
 
     def case(ds, per_row, seed):
         prev, statics, arms, _ = model._unscaled_arrays(ds)
@@ -347,17 +388,17 @@ def main_table_cases(device):
             coefs = coefs * (1 + 0.05 * rng.randn(len(prev), *coefs.shape[1:]))
         return dict(library=model.library, coefs=coefs, y0=prev[:, 0],
                     statics=statics, arms=arms, dt=model.dt,
-                    active_idx=active, y_clip=None)
+                    active_idx=active, y_clip=clip)
 
-    n_step = case(coll.test_cf_treatment_seq, True, 5)
-    one_step = case(coll.test_cf_one_step, False, 6)
+    n_step = case(coll.test_cf_treatment_seq, True, seeds[0])
+    one_step = case(coll.test_cf_one_step, False, seeds[1])
     switches = int((np.diff(n_step['arms'], axis=1) != 0).any(1).sum())
-    log(f'  main-table cases: n-step arms {n_step["arms"].shape} '
-        f'({switches} rows switch arm), 1-step arms '
-        f'{one_step["arms"].shape}, Kr={len(active)}: '
+    log(f'  {name} cases: n-step arms {n_step["arms"].shape} ({switches} '
+        f'rows switch arm), 1-step arms {one_step["arms"].shape}, '
+        f'F={model.coefs.shape[1]}, Kr={len(active)}, y_clip {clip}: '
         f'{model.global_equation_string}')
-    assert n_step['arms'].shape == (59_000, 64) and switches > 0
-    assert one_step['arms'].shape == (11_800, 59)
+    assert n_step['arms'].shape[1] == 64 and switches > 0
+    assert one_step['arms'].shape[1] == 59
     return n_step, one_step
 
 
@@ -493,6 +534,8 @@ def stage_timer(records, device):
             out = fn(*args, **kwargs)
             torch.cuda.synchronize(device)
             records[-1][stage] = perf_counter() - t0
+            if stage == 'fit':          # the fitted support, Kr
+                records[-1]['kr'] = len(args[0]._active_idx())
             records[-1]['peak_mib'] = \
                 torch.cuda.max_memory_allocated(device) / 2**20
             return out
@@ -525,8 +568,10 @@ def check_bands(rows):
                 raise AssertionError(f'{ds} {metric}: insite not below sindy')
 
 
-def run_main_table(device):
-    """Phase 5: the port's sweep over the EQ_4 main table on the card."""
+def run_sweep(device, datasets, tag):
+    """The port's sweep of sindy and insite over ``datasets`` on the card
+    (one seed, 1,000 / 100 / 100, debug mode), with each run's stage times,
+    peak memory and Kr printed. Returns (rows, records, launches)."""
     import torch
     from insite_tpu_torch.harness.config import RunConfig
     from insite_tpu_torch.harness.logging_utils import (
@@ -535,7 +580,7 @@ def run_main_table(device):
     from insite_tpu_torch.ops import rollout
     records = []
     with tempfile.TemporaryDirectory() as log_dir:
-        cfg = RunConfig(methods=('sindy', 'insite'), datasets=DATASETS,
+        cfg = RunConfig(methods=('sindy', 'insite'), datasets=datasets,
                         seed_runs=1, log_dir=log_dir, debug_mode=True)
         logger = create_logger_in_process(generate_log_file_path('run',
                                                                  log_dir))
@@ -560,13 +605,29 @@ def run_main_table(device):
             f'{row["decoder_test_rmse_6-step"]:.6f} % | seconds_taken '
             f'{row["seconds_taken"]:.4f} s | ' + ' '.join(
                 f'{s} {rec[s]:.4f}' for s in stages) +
-            f' s | peak {rec["peak_mib"]:.1f} MiB')
+            f' s | peak {rec["peak_mib"]:.1f} MiB | Kr {rec["kr"]}')
         log(f'    {row["global_equation_string"]}')
-    log(f'[table] sweep wall {wall:.4f} s; kernel launches: {launches}')
+    log(f'[{tag}] sweep wall {wall:.4f} s; kernel launches: {launches}')
     for metric, table in tables.items():
-        log(f'[table] LaTeX {metric}:\n{table}')
-    # per run: sindy 2 rollouts; insite 2 rollouts + 2 fine-tunes of
-    # gn_iters + 1 sensitivity launches
+        log(f'[{tag}] LaTeX {metric}:\n{table}')
+    if len(rows) != 2 * len(datasets) or any(r['errored'] for r in rows):
+        raise AssertionError(f'expected {2 * len(datasets)} rows, none '
+                             f'errored: {rows}')
+    return rows, records, launches
+
+
+def expected_launches(rows, records):
+    """Per run: 2 rollouts (1-step and n-step predictions); an insite run
+    with a non-empty support adds 2 fine-tunes of gn_iters + 1 sensitivity
+    launches (with an empty support nothing moves and none is launched)."""
+    sens = sum(2 * (GN_ITERS + 1) for row, rec in zip(rows, records)
+               if row['method_name'] == 'insite' and rec['kr'] > 0)
+    return {'rollout': 2 * len(rows), 'sens': sens}
+
+
+def run_main_table(device):
+    """Phase 5: the port's sweep over the EQ_4 main table on the card."""
+    rows, records, launches = run_sweep(device, DATASETS, 'table')
     want = {'rollout': 2 * 2 * len(DATASETS),
             'sens': 2 * (GN_ITERS + 1) * len(DATASETS)}
     if launches != want:
@@ -575,15 +636,48 @@ def run_main_table(device):
     return launches
 
 
-def check_card_against_host(device):
+def run_tumor_table(device):
+    """Phase 6: the port's sweep over the tumor main table on the card,
+    held to the JAX package's RMSEs at the same seed."""
+    rows, records, launches = run_sweep(device, TUMOR_DATASETS, 'tumor')
+    want = expected_launches(rows, records)
+    if want != {'rollout': 20, 'sens': 130}:
+        empty = [r['dataset_name'] for r, rec in zip(rows, records)
+                 if r['method_name'] == 'insite' and rec['kr'] == 0]
+        log(f'[tumor] insite fits with an empty support on {empty}: the '
+            f'path launches {want}, not 20 rollouts and 130 sensitivities')
+    if launches != want:
+        raise AssertionError(f'expected {want} launches, got {launches}')
+    by = {(r['dataset_name'], r['method_name']): r for r in rows}
+    for (ds, method), ref in TUMOR_REF.items():
+        for metric, want_v in zip(('encoder_test_rmse_orig',
+                                   'decoder_test_rmse_6-step'), ref):
+            got = by[ds, method][metric]
+            log(f'  {ds} {method} {metric}: card {got:.6f} % vs JAX '
+                f'{want_v:.6f} % ({100 * (got / want_v - 1):+.2f} %)')
+            if not abs(got / want_v - 1) <= TUMOR_RTOL:
+                raise AssertionError(f'{ds} {method} {metric} = {got} is not '
+                                     f'within {TUMOR_RTOL:.0%} of {want_v}')
+    for ds in TUMOR_DATASETS:
+        if not (by[ds, 'insite']['encoder_test_rmse_orig'] <
+                by[ds, 'sindy']['encoder_test_rmse_orig']):
+            raise AssertionError(f'{ds}: insite not below sindy at 1 step')
+    return launches
+
+
+def check_card_against_host(device, name='EQ_4_D'):
     """insite f32 on the card against insite f64 on the host, on one
-    EQ_4_D collection (200 / 10 / 10)."""
+    collection of ``name`` (200 / 10 / 10): the same support, coefficients
+    within rtol 1e-3 and RMSEs within 5 %."""
     import torch
     from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.harness.config import (model_dataset_name,
+                                                 sindy_params_for)
     from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
-    coll = make_collection('EQ_4_D', {'train': 200, 'val': 10, 'test': 10},
+    coll = make_collection(name, {'train': 200, 'val': 10, 'test': 10},
                            seed=7, coeff=2.0, device=device)
-    cfg = SINDyConfig(dataset_name='EQ_4_D', insite=True)
+    cfg = SINDyConfig(dataset_name=model_dataset_name(name),
+                      sindy_threshold=sindy_params_for(name)[0], insite=True)
     out = {}
     for tag, dev, dtype in (('card', device, None),
                             ('host', 'cpu', torch.float64)):
@@ -595,9 +689,11 @@ def check_card_against_host(device):
             coll.test_cf_treatment_seq)[-1])
         out[tag] = (m.coefs, one, six)
     (c_k, one_k, six_k), (c_h, one_h, six_h) = out['card'], out['host']
-    log(f'  card f32 vs host f64: coef max abs diff '
-        f'{np.abs(c_k - c_h).max():.3e}; 1-step {one_k:.6f} vs {one_h:.6f}'
-        f' %; 6-step {six_k:.6f} vs {six_h:.6f} %')
+    log(f'  {name} card f32 vs host f64: coef max abs diff '
+        f'{np.abs(c_k - c_h).max():.3e} (max rel '
+        f'{(np.abs(c_k - c_h) / np.maximum(np.abs(c_h), 1e-12)).max():.3e});'
+        f' 1-step {one_k:.6f} vs {one_h:.6f} %; 6-step {six_k:.6f} vs '
+        f'{six_h:.6f} %')
     if not ((np.abs(c_k) > 1e-3) == (np.abs(c_h) > 1e-3)).all():
         raise AssertionError(f'support differs: {c_k} vs {c_h}')
     np.testing.assert_allclose(c_k, c_h, rtol=1e-3, atol=1e-6)
@@ -643,13 +739,24 @@ def main():
     # 3. kernels: device time and bound, then against their plain versions
     northstar_case = eq4_case(N_PATIENTS, 59, True, 0)
     degree4_case = wide_support_case(N_PATIENTS, 59, 4)
-    n_step_case, one_step_case = main_table_cases(device)
+    n_step_case, one_step_case = table_cases('EQ_4_D', device, (5, 6))
+    assert n_step_case['arms'].shape == (59_000, 64)
+    assert one_step_case['arms'].shape == (11_800, 59)
+    tumor_cases = {}
+    for ds, short in (('cancer_sim', 'cancer_sim'), ('EQ_5_D', 'eq5d')):
+        n_case, one_case = table_cases(ds, device, (7, 8))
+        # 4 arms; the tumor fits' support takes the sensitivity kernel's
+        # shared-memory model
+        assert n_case['coefs'].shape[1] == 4 and len(n_case['active_idx']) > 4
+        tumor_cases[f'tumor_{short}_nstep'] = n_case
+        tumor_cases[f'tumor_{short}_1step_shared'] = one_case
     log('[kernels] device time per launch, f32, before any plain version '
         'runs')
     dev_times = kernel_times({'northstar': northstar_case,
                               'nstep_b59000_t64': n_step_case,
                               '1step_shared_b11800_t59': one_step_case,
-                              'degree4_f35_kr16_b10000_t59': degree4_case},
+                              'degree4_f35_kr16_b10000_t59': degree4_case,
+                              **tumor_cases},
                              device)
     log('[kernels] kernel vs plain PyTorch version on the card')
     main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
@@ -669,6 +776,10 @@ def main():
                              n_step_case, device, timed=True)
     one_step = run_kernel_case('main table 1-step B=11800 T=59 shared',
                                one_step_case, device, timed=True)
+    tumor = {tag: run_kernel_case(
+        f'{tag} B={case["arms"].shape[0]} T={case["arms"].shape[1]} '
+        f'Kr={len(case["active_idx"])}', case, device, timed=True)
+        for tag, case in tumor_cases.items()}
     torch.cuda.synchronize()
 
     # 4. main path
@@ -708,6 +819,13 @@ def main():
     log('[table] card f32 against host f64, one EQ_4_D collection')
     check_card_against_host(device)
 
+    # 6. tumor main table
+    log('[tumor] sweep: sindy, insite x cancer_sim, EQ_5_A..D, seed 0, '
+        '1000/100/100')
+    tumor_launches = run_tumor_table(device)
+    log('[tumor] card f32 against host f64, one cancer_sim collection')
+    check_card_against_host(device, 'cancer_sim')
+
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
@@ -718,11 +836,17 @@ def main():
             per_shape.update({f'device_ms_{tag}': dev,
                               f'bound_ms_{tag}': bound,
                               f'bound_share_{tag}': bound / dev})
+        for tag, res in tumor.items():
+            per_shape.update({f'max_abs_err_{tag}': res['f32'][err],
+                              f'ms_{tag}': res['times'][f'{key}_ms'],
+                              f'plain_ms_{tag}':
+                                  res['times'][f'{key}_plain_ms']})
         kernels.append({
             'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
             'replaces': 'insite_tpu/ops/pallas_rollout.py' + replaces,
             'launches': table_launches[key],
             'launches_northstar': launches[key],
+            'launches_tumor_table': tumor_launches[key],
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

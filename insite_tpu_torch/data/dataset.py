@@ -1,4 +1,4 @@
-"""Dataset container and the sequence processing the EQ_4 main table needs.
+"""Dataset container and the sequence processing the main table needs.
 
 Pure numpy, as in `insite_tpu.data.dataset`: the unified data dict of one
 subset (train_f / val_f / test_cf_*) with keys
@@ -26,7 +26,8 @@ class SeqDataset:
 
     ``data`` is a dict of numpy arrays with a leading row dimension.
     ``norm_const`` is the normalisation constant of the RMSE protocol
-    (MAX_VALUE for EQ_4).
+    (MAX_VALUE for EQ_4, the tumour death threshold for cancer_sim and
+    EQ_5).
     """
 
     def __init__(self, data: dict, subset_name: str, norm_const: float):
@@ -77,7 +78,8 @@ class SeqDataset:
         seq2seq['unscaled_outputs'] = (
             seq2seq['outputs'] * self.scaling_params['output_stds'] +
             self.scaling_params['output_means'])
-        for k in ('observed_static_c_0', 'observed_static_c_1'):
+        for k in ('observed_static_c_0', 'observed_static_c_1',
+                  'patient_types'):
             if k in d:
                 seq2seq[k] = d[k]
 
@@ -98,6 +100,12 @@ class SeqDataset:
             self.data['sequence_lengths'] - projection_horizon
         self.processed_autoregressive = True
         return self.data
+
+
+def one_hot_pairs(app_a: np.ndarray, app_b: np.ndarray) -> np.ndarray:
+    """4-class one-hot of two binary applications (chemo, radio):
+    (0,0)->e0, (1,0)->e1, (0,1)->e2, (1,1)->e3."""
+    return np.eye(4)[(app_a + 2 * app_b).astype(np.int64)]
 
 
 def one_hot_binary(app: np.ndarray) -> np.ndarray:

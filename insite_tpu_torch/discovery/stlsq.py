@@ -5,6 +5,14 @@ feature matrix); only the F x (F+1) triangle goes to the host, where the
 tiny STLSQ thresholding iteration runs in float64 numpy
 (`stlsq_from_qr`), with the semantics of pysindy's STLSQ plus the unbias
 refit.
+
+One deliberate difference from `insite_tpu.discovery.stlsq`: where the
+support's columns are linearly dependent (the EQ_5 A/B design, whose
+single patient type makes the 'u0' column a copy of '1' and 'x0 u0' one of
+'x0'), the unbias refit takes the minimum-norm least-squares solution, as
+the reference's unbias (a scikit-learn LinearRegression) does; the JAX
+package raises `LinAlgError` there. Elsewhere both solve the same normal
+equations, bit for bit.
 """
 
 from __future__ import annotations
@@ -43,10 +51,15 @@ def stlsq_from_qr(R, qty, threshold, alpha, max_iter: int = 100,
                   initial_mask=None, unbias: bool = True):
     """The F x F STLSQ thresholding iteration on a QR-reduced problem, in
     float64 on the host. Takes numpy (R, Q^T y); returns numpy
-    (coefs [F], mask [F])."""
-    R = np.asarray(R, np.float64)
-    qty = np.asarray(qty, np.float64)
+    (coefs [F], mask [F]). The unbias refit treats the support as rank
+    deficient when the smallest singular value of its columns of R is at
+    most F times the epsilon of R's own type (the precision of the QR)
+    times the largest."""
+    R = np.asarray(R)
     F = R.shape[0]
+    rcond = F * np.finfo(R.dtype).eps
+    R = R.astype(np.float64)
+    qty = np.asarray(qty, np.float64)
     gram = R.T @ R
     rhs = R.T @ qty
 
@@ -69,7 +82,12 @@ def stlsq_from_qr(R, qty, threshold, alpha, max_iter: int = 100,
             break
         mask = new_mask
     if unbias and mask.any():
-        coefs = np.where(mask, solve(mask, 0.0), 0.0)
+        sv = np.linalg.svd(R[:, mask], compute_uv=False)
+        if sv[-1] > rcond * sv[0]:
+            coefs = np.where(mask, solve(mask, 0.0), 0.0)
+        else:
+            coefs = np.zeros(F)
+            coefs[mask] = np.linalg.lstsq(R[:, mask], qty, rcond=rcond)[0]
     return coefs, mask
 
 

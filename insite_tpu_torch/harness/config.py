@@ -24,6 +24,13 @@ def sindy_params_for(dataset_name: str):
     return thr[0], lam[0]
 
 
+def model_dataset_name(dataset_name: str) -> str:
+    """The name a model config and a collection give a run's dataset: the
+    run name 'cancer_sim' is 'CANCER_SIM' there, as in the JAX package;
+    every other name is the same."""
+    return 'CANCER_SIM' if dataset_name == 'cancer_sim' else dataset_name
+
+
 @dataclass
 class RunConfig:
     """Outer sweep config."""

@@ -7,9 +7,10 @@ The '[Exp evaluation complete] {...}' log lines are the results database:
 read them back. Every value in a row is a plain Python float, int, bool or
 str, so the row's repr is a Python literal.
 
-This slice serves the MAIN_TABLE experiment for the ``sindy`` and
-``insite`` methods on the EQ_4 family; the rest raises
-`NotImplementedError` naming the slice of ROADMAP.md that brings it.
+The port serves the MAIN_TABLE experiment for the ``sindy`` and
+``insite`` methods on the EQ_4 family, cancer_sim and EQ_5; the rest
+raises `NotImplementedError` naming the slice of ROADMAP.md that brings
+it.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 
 from insite_tpu_torch.data.collection import make_collection
 from insite_tpu_torch.harness.config import (RunConfig, SINDY_ALPHA,
+                                             model_dataset_name,
                                              sindy_params_for)
 from insite_tpu_torch.harness.results import generate_main_results_table
 
@@ -47,7 +49,7 @@ class Experiment(Enum):
 
 
 def _require_served(cfg: RunConfig, experiment: Experiment,
-                    methods=(), datasets=()) -> None:
+                    methods=()) -> None:
     """Raise for what this slice does not serve."""
     later = []
     if experiment != Experiment.MAIN_TABLE:
@@ -61,7 +63,6 @@ def _require_served(cfg: RunConfig, experiment: Experiment,
             later.append(f'{name}={getattr(cfg, name)!r} (Slice 7)')
     later += [f'method {m} ({LATER_METHODS.get(m, "not in the JAX package")})'
               for m in methods if m not in METHODS]
-    later += [f'dataset {d} (Slice 3)' for d in datasets if 'EQ_4' not in d]
     if later:
         raise NotImplementedError('not ported yet (ROADMAP.md): ' +
                                   ', '.join(later))
@@ -112,12 +113,15 @@ def _apply_model_overrides(mcfg, cfg: RunConfig, method_name: str,
 def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
                  domain_conf: float = 2.0, *, device, dtype=None):
     """The SINDy-family estimator of one run (`method_name` sindy or
-    insite), with the dataset's hyperparameters and the run's overlays."""
+    insite), with the dataset's hyperparameters and the run's overlays. On
+    EQ_5 the chemo dosage joins the covariates."""
     from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
     if not coll.processed_data_multi:
-        coll.process_data_multi()
+        coll.process_data_multi(
+            include_continuous_treatment='EQ_5' in dataset_name)
     thr, lam = sindy_params_for(dataset_name)
-    mcfg = SINDyConfig(dataset_name=dataset_name, sindy_threshold=thr,
+    mcfg = SINDyConfig(dataset_name=model_dataset_name(dataset_name),
+                       sindy_threshold=thr,
                        sindy_alpha=SINDY_ALPHA, lam=lam,
                        insite=(method_name == 'insite'),
                        treatment_mode=coll.treatment_mode)
@@ -134,7 +138,7 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
     training cohort, then the 1-step and the 2..(ph+1)-step
     counterfactual RMSEs (%) of the test cohort."""
     cfg = cfg or RunConfig()
-    _require_served(cfg, experiment, (method_name,), (dataset_name,))
+    _require_served(cfg, experiment, (method_name,))
     t0 = time.perf_counter()
     coll = _collection_for(dataset_name, method_name, seed, domain_conf,
                            cfg, device=device, dtype=dtype)
@@ -190,7 +194,7 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
     log = log or logger
     if cfg.flush_mode:
         cfg.flush()
-    _require_served(cfg, experiment, cfg.methods, cfg.datasets)
+    _require_served(cfg, experiment, cfg.methods)
 
     args_for_runs = [(dataset_name, method_name, seed, cfg.domain_conf)
                      for seed in range(cfg.seed_start,

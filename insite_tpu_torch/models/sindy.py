@@ -1,7 +1,8 @@
-"""The A-SINDy / INSITE estimator on the EQ_4 family.
+"""The A-SINDy / INSITE estimator on the EQ_4 and the tumor families.
 
 The discovered model is ``(coefs [A, F], PolynomialLibrary)``: one STLSQ
-fit per treatment arm over the EQ_4 design matrix. A-SINDy predicts with
+fit per treatment arm (2 on EQ_4, 4 on cancer_sim and EQ_5) over the
+family's design matrix. A-SINDy predicts with
 one rollout of that shared model (the rollout kernel with a coefficient
 batch stride of 0). INSITE then fine-tunes the active coefficients per
 patient: a damped Gauss-Newton (Levenberg-Marquardt) loop over the whole
@@ -29,14 +30,16 @@ from insite_tpu_torch.discovery.library import PolynomialLibrary
 from insite_tpu_torch.discovery.stlsq import stlsq_hostsolve
 from insite_tpu_torch.models.base import CausalEstimator
 from insite_tpu_torch.ops.rollout import batched_rollout, rollout_with_sens
+from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
 
 
 @dataclass
 class SINDyConfig:
     """Hyperparameters; the fields and defaults of
     `insite_tpu.models.sindy.SINDyConfig`. Values of later slices
-    (`wsindy`, `joint_model`, the degree-4 ablation, the BFGS solver, a
-    non-EQ_4 dataset) raise `NotImplementedError` in `SINDyRegressor`."""
+    (`wsindy`, `joint_model`, the degree-4 ablation, the BFGS solver) raise
+    `NotImplementedError` in `SINDyRegressor`, as does a dataset that is
+    none of EQ_4_*, CANCER_SIM and EQ_5_*."""
 
     dataset_name: str = 'EQ_4_A'
     sindy_threshold: float = 0.1
@@ -70,7 +73,8 @@ class SINDyConfig:
     # rows per fine-tune call (None: the whole set in one call); the last
     # chunk is padded by repeating its final row
     finetune_chunk: Optional[int] = None
-    # 'auto' (EQ_4: no clip), None, or an explicit (lo, hi)
+    # 'auto' (EQ_4: no clip; tumor family: [0, TUMOUR_DEATH_THRESHOLD]),
+    # None, or an explicit (lo, hi)
     y_clip: object = 'auto'
 
 
@@ -78,22 +82,27 @@ def _is_eq4(name: str) -> bool:
     return 'EQ_4' in name
 
 
+def _is_tumor(name: str) -> bool:
+    return name.upper() == 'CANCER_SIM' or 'EQ_5' in name
+
+
 def resolve_y_clip(y_clip, dataset_name: str):
     """'auto' -> the dataset's outcome range: None on EQ_4, whose decay
-    ODE cannot diverge. The tumor family's clip is Slice 3."""
+    ODE cannot diverge; [0, TUMOUR_DEATH_THRESHOLD] on the tumor family,
+    the range its simulators clip the true volume to at every step."""
     if y_clip != 'auto':
         return y_clip
     if _is_eq4(dataset_name):
         return None
-    raise NotImplementedError(f'{dataset_name}: the tumor family is Slice 3 '
-                              'of the port (ROADMAP.md)')
+    return (0.0, float(TUMOUR_DEATH_THRESHOLD))
 
 
 def _unserved(cfg: SINDyConfig) -> list:
     """The settings of later slices that ``cfg`` asks for."""
     out = []
-    if not _is_eq4(cfg.dataset_name):
-        out.append(f'dataset_name={cfg.dataset_name!r} (Slice 3)')
+    if not (_is_eq4(cfg.dataset_name) or _is_tumor(cfg.dataset_name)):
+        out.append(f'dataset_name={cfg.dataset_name!r} (not a simulated '
+                   'benchmark: real data is Slice 6)')
     for name in ('wsindy', 'joint_model',
                  'ablation_more_complex_basis_functions'):
         if getattr(cfg, name):
@@ -127,7 +136,12 @@ class SINDyRegressor(CausalEstimator):
         self.insite = cfg.insite
         if dataset_collection is not None and \
                 not dataset_collection.processed_data_multi:
-            dataset_collection.process_data_multi()
+            dataset_collection.process_data_multi(
+                include_continuous_treatment='EQ_5' in cfg.dataset_name)
+
+    @property
+    def _n_arms(self) -> int:
+        return 2 if _is_eq4(self.cfg.dataset_name) else 4
 
     # ------------------------------------------------------------------
     # helpers
@@ -167,7 +181,10 @@ class SINDyRegressor(CausalEstimator):
         unscaled_outputs = np.squeeze(train_f.data['unscaled_outputs'], -1)
         volumes = np.concatenate([prev[:, :1], unscaled_outputs], axis=1)
         self.library = PolynomialLibrary(n_inputs=1 + statics.shape[-1])
-        self.coefs = self._fit_eq4(volumes, statics, arms, lengths)
+        fit = self._fit_eq4 if _is_eq4(cfg.dataset_name) else self._fit_tumor
+        # the host STLSQ solves in float64; keep the compute dtype's values
+        self.coefs = fit(volumes, statics, arms, lengths).astype(
+            torch.empty((), dtype=self.dtype).numpy().dtype)
         round_to = (cfg.sindy_quantize_global_model_round_to
                     if cfg.sindy_quantize else None)
         if round_to is not None:
@@ -190,20 +207,35 @@ class SINDyRegressor(CausalEstimator):
     def _fit_eq4(self, volumes, statics, arms, lengths):
         """EQ_4: each patient is one constant-arm trajectory of length
         seq_len - 1, differentiated by smoothed 4th-order finite
-        differences; one STLSQ per arm, cast to the compute dtype."""
-        cfg = self.cfg
+        differences; one STLSQ per arm."""
         eff_len = self._tensor(np.maximum(lengths - 1, 2), torch.int64)
         theta, xdot, ok, arm = _eq4_design(
             self._tensor(volumes), self._tensor(statics),
             self._tensor(arms, torch.int64), eff_len, self.dt,
             library=self.library, smooth=True, fd_order=4)
-        coefs = [stlsq_hostsolve(theta, xdot, cfg.sindy_threshold,
-                                 cfg.sindy_alpha,
-                                 sample_weight=ok & (arm == a),
-                                 max_iter=cfg.max_stlsq_iter)[0]
-                 for a in range(2)]
-        return np.stack(coefs).astype(
-            torch.empty((), dtype=self.dtype).numpy().dtype)
+        return self._stlsq_per_arm(theta, xdot, ok, arm)
+
+    def _fit_tumor(self, volumes, statics, arms, lengths):
+        """cancer_sim / EQ_5: a sample at step j belongs to the system of
+        arm[j] whenever j < seq_len; forward differences (order 1) pair
+        (x_j, x_{j+1}) within the arm's segment. ``use_smoothed_finite_
+        difference`` changes nothing here: the reference's smoother fits a
+        line through 2 points, which reproduces them."""
+        theta, xdot, ok, arm = _tumor_design(
+            self._tensor(volumes), self._tensor(statics),
+            self._tensor(arms, torch.int64),
+            self._tensor(lengths, torch.int64), self.dt,
+            library=self.library)
+        return self._stlsq_per_arm(theta, xdot, ok, arm)
+
+    def _stlsq_per_arm(self, theta, xdot, ok, arm):
+        """One STLSQ per arm over the samples of that arm: [A, F]."""
+        cfg = self.cfg
+        return np.stack([stlsq_hostsolve(theta, xdot, cfg.sindy_threshold,
+                                         cfg.sindy_alpha,
+                                         sample_weight=ok & (arm == a),
+                                         max_iter=cfg.max_stlsq_iter)[0]
+                         for a in range(self._n_arms)])
 
     # ------------------------------------------------------------------
     # prediction
@@ -358,6 +390,27 @@ def _eq4_design(vol_j, statics, arms01, eff_len, dt, library,
     F = theta.shape[-1]
     return (theta.reshape(-1, F), xdot.reshape(-1), sample_ok.reshape(-1),
             arms01[:, :1].expand(B, T).reshape(-1))
+
+
+def _tumor_design(vol_j, statics, arms_idx, lengths, dt, library):
+    """Tumor-family design build: forward differences of order 1, the
+    features of each step's state and the sample masks, flattened over
+    patients x steps.
+
+    vol_j [B, T]; statics [B, S]; arms_idx [B, T-1] arm per step; lengths
+    [B] valid transitions. Returns (theta [B*(T-1), F], xdot [B*(T-1)],
+    sample_ok, arm)."""
+    B, T = vol_j.shape
+    xdot = (vol_j[:, 1:] - vol_j[:, :-1]) * (1.0 / dt)
+    sample_ok = (torch.arange(T - 1, device=vol_j.device)[None, :]
+                 < lengths[:, None])
+    X = torch.cat([vol_j[:, :-1, None],
+                   statics[:, None, :].expand(B, T - 1, statics.shape[-1])],
+                  dim=-1)
+    theta = library(X)
+    F = theta.shape[-1]
+    return (theta.reshape(-1, F), xdot.reshape(-1), sample_ok.reshape(-1),
+            arms_idx.reshape(-1))
 
 
 def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,

@@ -1,11 +1,11 @@
-"""Benchmark sweep CLI of the PyTorch port: the EQ_4 main table for the
-``sindy`` and ``insite`` methods.
+"""Benchmark sweep CLI of the PyTorch port: the main table for the
+``sindy`` and ``insite`` methods on the EQ_4 family, cancer_sim and EQ_5.
 
 Usage:
     python -m insite_tpu_torch.run --flush --datasets EQ_4_D \
         --methods sindy insite                      # on the card
-    python -m insite_tpu_torch.run --device cpu --flush --datasets EQ_4_D \
-        --methods sindy insite                      # on the host
+    python -m insite_tpu_torch.run --device cpu --flush --datasets \
+        cancer_sim EQ_5_D --methods sindy insite    # on the host
 
 Each run logs an '[Exp evaluation complete] {...}' line into
 ``<log dir>/run-<timestamp>.txt`` (the results database, read back by

@@ -122,7 +122,8 @@ def get_standard_params(num_patients: int, equation: Equation,
         C_1 = c_1 + modes[torch.randint(0, 2, (num_patients,),
                                         generator=generator, device=device)]
     elif 'EQ_5' in name:
-        raise NotImplementedError('EQ_5 is not ported yet')
+        raise NotImplementedError(
+            'EQ_5 lives in insite_tpu_torch.sim.continuous')
 
     initial_volumes = torch.rand(num_patients, **kw) * (MAX_VALUE - 1.0) + 1.0
 

@@ -100,6 +100,32 @@ def four_input_case():
             rng.randint(0, 2, (B, T)).astype(np.int32), 0.25)
 
 
+TUMOUR_DEATH_THRESHOLD = 4.0 / 3.0 * np.pi * 6.5 ** 3
+
+
+def tumor_case(B=61, T=29, seed=12):
+    """The EQ_5 main table's layout: 4 arms switching per step on the
+    interaction-only library over [y, patient type, dosage] (F=7), the
+    four features 1, y, u0, y*u0 active on every arm (Kr=16: the kernels'
+    shared-memory model), volumes up to the death threshold, and the state
+    clipped to (0, TUMOUR_DEATH_THRESHOLD). Arms 0 and 1 grow into the
+    upper bound, arm 3 decays into the lower one."""
+    rng = np.random.RandomState(seed)
+    base = np.array([[0.5, 0.6, 0.2, 0, -0.004, 0, 0],
+                     [0.2, 0.3, 0.1, 0, 0.02, 0, 0],
+                     [1.0, -0.2, -0.3, 0, 0.03, 0, 0],
+                     [-40.0, -0.5, 2.0, 0, -0.05, 0, 0]])
+    coefs = (base[None] * (1 + 0.1 * rng.randn(B, 4, 7))).astype(np.float32)
+    y0 = (rng.rand(B) * TUMOUR_DEATH_THRESHOLD).astype(np.float32)
+    statics = np.stack([rng.randint(1, 4, B), 10 * rng.rand(B)],
+                       axis=1).astype(np.float32)
+    arms = rng.randint(0, 4, (B, T)).astype(np.int32)
+    return dict(n_inputs=3), coefs, y0, statics, arms, 1 / 6
+
+
+TUMOR_CLIP = (0.0, TUMOUR_DEATH_THRESHOLD)
+
+
 CASES = {'shared': lambda: eq4_case(37, 15, True),
          'per_patient': lambda: eq4_case(5, 9, False),
          'per_patient_333': lambda: eq4_case(333, 20, False, seed=2),
@@ -162,6 +188,23 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match='nvcc failed'):
         build.build_library()
     assert not list(tmp_path.rglob('*.so'))
+
+
+def test_tumor_case_plain_versions_agree():
+    """Both plain versions on the tumor layout in f64: the same clipped
+    states, both bounds reached, and sensitivities zero wherever a step
+    was clipped."""
+    case = tumor_case()
+    act = active(case[1])
+    assert len(act) == 16
+    y = run_port(rollout.batched_rollout_plain, case, dtype=torch.float64,
+                 y_clip=TUMOR_CLIP)
+    ys, s = run_port(rollout.rollout_with_sens_plain, case, act,
+                     dtype=torch.float64, y_clip=TUMOR_CLIP)
+    torch.testing.assert_close(ys, y, rtol=0, atol=0)
+    at_bound = (y == 0) | (y == TUMOR_CLIP[1])
+    assert (y == 0).any() and (y == TUMOR_CLIP[1]).any()
+    assert not s[at_bound].any() and s[~at_bound].abs().sum() > 0
 
 
 def test_sensitivity_is_the_derivative_of_the_rollout():
@@ -307,3 +350,29 @@ def test_unclipped_divergence_is_non_finite_on_cuda(cuda, dtype):
                                atol=atol)
     torch.testing.assert_close(s[~overflow], s_ref[~overflow],
                                rtol=10 * rtol, atol=10 * atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_tumor_shape_matches_plain_on_cuda(cuda, dtype):
+    """A = 4, F = 7 over 3 inputs, Kr = 16 (the shared-memory model) and
+    y_clip = (0, TUMOUR_DEATH_THRESHOLD): the kernels against their plain
+    versions."""
+    case = tumor_case()
+    act = active(case[1])
+    rtol, atol = TOL[dtype]
+    rollout.reset_launch_counts()
+    out = run_port(rollout.batched_rollout, case, device=cuda, dtype=dtype,
+                   y_clip=TUMOR_CLIP)
+    ref = run_port(rollout.batched_rollout_plain, case, device=cuda,
+                   dtype=dtype, y_clip=TUMOR_CLIP)
+    y, s = run_port(rollout.rollout_with_sens, case, act, device=cuda,
+                    dtype=dtype, y_clip=TUMOR_CLIP)
+    y_ref, s_ref = run_port(rollout.rollout_with_sens_plain, case, act,
+                            device=cuda, dtype=dtype, y_clip=TUMOR_CLIP)
+    torch.cuda.synchronize()
+    assert rollout.ROLLOUT_LAUNCHES == 1 and rollout.SENS_LAUNCHES == 1
+    assert (ref == 0).any() and (ref == TUMOR_CLIP[1]).any()
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)

@@ -103,7 +103,7 @@ def test_ci_and_format():
     dict(tune_hparams=True), dict(load_from_cache=True),
     dict(resume_log='logs/run.txt'), dict(isolate_runs=True),
     dict(metrics_jsonl='logs/metrics.jsonl'), dict(methods=('ct',)),
-    dict(datasets=('cancer_sim',))])
+    dict(methods=('wsindy',))])
 def test_later_slices_raise(change):
     cfg = RunConfig(methods=('sindy',), datasets=('EQ_4_A',), seed_runs=1,
                     **TINY)

@@ -15,11 +15,13 @@ import torch
 from insite_tpu.data.collection import PkpdDatasetCollection as JaxCollection
 from insite_tpu.models.sindy import SINDyConfig as JaxConfig
 from insite_tpu.models.sindy import SINDyRegressor as JaxRegressor
+from insite_tpu.models.sindy import resolve_y_clip as jax_resolve_y_clip
 from insite_tpu_torch import convert
 from insite_tpu_torch.data.collection import SUBSETS, make_collection
 from insite_tpu_torch.data.dataset import SeqDataset
 from insite_tpu_torch.models.sindy import (SINDyConfig, SINDyRegressor,
                                            resolve_y_clip)
+from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
 
 F64 = dict(device='cpu', dtype=torch.float64)
 # the plain rollouts are thousands of small ops: intra-op threads only add
@@ -122,7 +124,7 @@ def test_empty_support_matches_jax(pristine):
 @pytest.mark.parametrize('field, value', [
     ('wsindy', True), ('joint_model', True),
     ('ablation_more_complex_basis_functions', True),
-    ('insite_solver', 'bfgs'), ('dataset_name', 'EQ_5_A'),
+    ('insite_solver', 'bfgs'), ('dataset_name', 'MIMIC'),
     ('rollout_backend', 'xla')])
 def test_later_slices_raise(field, value):
     with pytest.raises(NotImplementedError):
@@ -132,8 +134,11 @@ def test_later_slices_raise(field, value):
 def test_y_clip_resolution():
     assert resolve_y_clip('auto', 'EQ_4_B') is None
     assert resolve_y_clip((0.0, 1.0), 'EQ_4_B') == (0.0, 1.0)
-    with pytest.raises(NotImplementedError):
-        resolve_y_clip('auto', 'cancer_sim')
-    with pytest.raises(NotImplementedError):
-        make_collection('cancer_sim', {'train': 4, 'val': 2, 'test': 2},
+    # the tumor family: the range its simulators clip the volume to
+    for name in ('CANCER_SIM', 'EQ_5_A', 'EQ_5_D'):
+        assert resolve_y_clip('auto', name) == \
+            jax_resolve_y_clip('auto', name) == \
+            (0.0, float(TUMOUR_DEATH_THRESHOLD))
+    with pytest.raises(ValueError, match='unknown dataset'):
+        make_collection('MIMIC', {'train': 4, 'val': 2, 'test': 2},
                         seed=0, coeff=2.0, **F64)

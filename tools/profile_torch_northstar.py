@@ -2,13 +2,15 @@
 """Where the time goes in the PyTorch port, on one NVIDIA card.
 
     python3 tools/profile_torch_northstar.py [--path northstar|main-table]
+                                             [--dataset EQ_4_D]
                                              [--trace trace.json]
 
 ``northstar`` (the default): after an untimed warm-up, runs the
 10,000-patient EQ_4_D `fused_northstar` once without the profiler
 (per-stage wall times) and once under torch.profiler. ``main-table``: the
-same for one insite run of the EQ_4 main table (`run_experiment` on EQ_4_D,
-1,000 / 100 / 100 patients). Prints the card's name and power limit,
+same for one insite run of the main table (`run_experiment` on
+``--dataset``, EQ_4_D unless given, e.g. cancer_sim or EQ_5_D; 1,000 / 100
+/ 100 patients). Prints the card's name and power limit,
 device time by kernel, and the device's busy and idle shares of the
 profiled run (the union of device-event intervals over the run's wall
 time; the profiler's own host overhead makes the idle share an upper
@@ -53,6 +55,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--path', default='northstar',
                     choices=('northstar', 'main-table'))
+    ap.add_argument('--dataset', default='EQ_4_D',
+                    help='the main-table run\'s dataset')
     ap.add_argument('--trace', default=None,
                     help='write a Chrome trace of the profiled run here')
     args = ap.parse_args()
@@ -76,8 +80,8 @@ def main():
         fused_northstar(64, seed=1, device=device)
     else:
         def run():
-            return run_experiment('EQ_4_D', 'insite', seed=0, domain_conf=2.0,
-                                  device=device)
+            return run_experiment(args.dataset, 'insite', seed=0,
+                                  domain_conf=2.0, device=device)
 
         def report(r):
             return (f'seconds_taken {r["seconds_taken"]:.4f}, 1-step '
