@@ -24,11 +24,26 @@ Phases, in order; any failure exits non-zero:
             a cancer_sim and an EQ_5_D collection of the default size (4
             arms switching per step, y_clip (0, TUMOUR_DEATH_THRESHOLD),
             Kr = the fitted support, ~16: the shared-memory model; n-step
-            with per-row coefficients, 1-step shared). First, before any
-            plain version runs, the device time of one launch of each
-            kernel (torch.profiler, median of 20 launches, one session) at
-            the north-star, n-step, 1-step, degree-4 and tumor shapes, each
-            beside its bound: the
+            with per-row coefficients, 1-step shared), and at the shapes
+            of phase 7, per-row coefficients throughout: the joint
+            (one-ODE) model of a cancer_sim and of an EQ_4_D fit folded
+            onto the kernels (4 combinations x 4 reduced features, up to 16
+            effective coordinates; 2 x 7, up to 14), on the n-step and 1-step
+            test sets, the kernels at the folded shape and, at n-step, the
+            fold's rollout and ``s_eff @ M`` against the plain joint
+            rollout and sensitivity recurrence; one chunk of the degree-4
+            fine-tune on EQ_4_D (the first 2,048 rows of the n-step and of
+            the 1-step test set, F=35, the fitted support); the recovery's
+            validation cohort (B=100, T=59); and a 4-arm degree-4 case
+            with 100 active coordinates, which goes through the
+            sensitivity kernel in two
+            groups. Every case asserts its launches. First, before any
+            plain version runs, the device time of one call of each
+            kernel (torch.profiler, median of 20 calls, one session; a
+            call is one launch, two for the case that goes in groups, and
+            the session must hold every launch of such a call) at the
+            north-star, n-step, 1-step, degree-4, tumor and phase-7
+            shapes, each beside its bound: the
             larger of the bytes the call must move over 3.35 TB/s and the
             floating-point operations of the collapsed recurrence over
             67 TFLOP/s (f32). Timed shapes also get the call time (CUDA
@@ -56,6 +71,25 @@ Phases, in order; any failure exits non-zero:
             collection (200 / 10 / 10): insite f32 on the card against
             insite f64 on the host, as for EQ_4_D (the same support,
             coefficients within rtol 1e-3, RMSEs within 5 %).
+7. family   the rest of the SINDy family through the port's sweep, seed 0,
+            1,000 / 100 / 100, f32, debug mode, each part's launches
+            asserted exactly: (a) wsindy on EQ_4_A..D, cancer_sim and
+            EQ_5_A..D (9 rows; 18 rollout launches, no sensitivity launch);
+            (b) ABLATION_ONE_ODE, sindy and insite on EQ_4_D and cancer_sim
+            (4 rows; the joint model folded onto the kernels: 8 rollout and
+            52 sensitivity launches); (c) the degree-4 ablation, sindy and
+            insite on EQ_4_D (2 rows; the fine-tune in chunks of 2,048 rows:
+            per chunk 1 rollout and 13 sensitivity launches per group of 72
+            active coordinates); (d) INSIGHT_RECOVER_PARAMETRIC_DIST, insite
+            on EQ_4_D (1 row; the validation cohort is fine-tuned once: 3
+            rollout and 39 sensitivity launches), with both arms' Pearson r
+            between recovered and hidden decay constants above 0.99. Gates
+            (`SINDY_FAMILY_REF`: the JAX package at seed 0, f64 on the CPU,
+            from `tools/sindy_family_reference.py`): tumor-family rows, whose
+            cohorts equal the JAX package's, within 1 %; EQ_4 rows, whose
+            cohorts come from another generator, inside bands 2-3.1x above
+            the JAX package's value (`FAMILY_BANDS`); insite below sindy at
+            1 step wherever both ran.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -98,6 +132,57 @@ TUMOR_REF = {
 # card f32 against the JAX package's f64 at the same cohort: the largest gap
 # measured is 0.003 % (EQ_5_B insite, 1 step)
 TUMOR_RTOL = 0.01
+# The JAX package's values for phase 7 at seed 0, 1,000 / 100 / 100 patients,
+# float64 on the CPU: (encoder_test_rmse_orig, decoder_test_rmse_6-step), %,
+# from `JAX_PLATFORMS=cpu python3 tools/sindy_family_reference.py --seed 0
+# --degree4-insite`. Its recovery run gave Pearson r 0.99999 (arm 0) and
+# 0.99978 (arm 1).
+SINDY_FAMILY_REF = {
+    ('MAIN_TABLE', 'EQ_4_A', 'wsindy'):
+        (0.11149814452920724, 0.10762660073174721),
+    ('MAIN_TABLE', 'EQ_4_B', 'wsindy'):
+        (0.11179434875485214, 0.1081825907019281),
+    ('MAIN_TABLE', 'EQ_4_C', 'wsindy'):
+        (0.1257148506574914, 0.11853013063857584),
+    ('MAIN_TABLE', 'EQ_4_D', 'wsindy'):
+        (0.11491651432142917, 0.12431666302953646),
+    ('MAIN_TABLE', 'cancer_sim', 'wsindy'):
+        (1.285279107306778, 0.9968521314669468),
+    ('MAIN_TABLE', 'EQ_5_A', 'wsindy'):
+        (1.0754092405222897, 1.577265176385164),
+    ('MAIN_TABLE', 'EQ_5_B', 'wsindy'):
+        (1.5407965013747953, 1.0441303762750553),
+    ('MAIN_TABLE', 'EQ_5_C', 'wsindy'):
+        (1.02823636650314, 1.4494338353753906),
+    ('MAIN_TABLE', 'EQ_5_D', 'wsindy'):
+        (1.323420660499555, 1.1637321710135953),
+    ('ABLATION_ONE_ODE', 'EQ_4_D', 'sindy'):
+        (1.113608592748673, 0.8039541750965564),
+    ('ABLATION_ONE_ODE', 'EQ_4_D', 'insite'):
+        (0.19348056318873064, 0.4115931792526939),
+    ('ABLATION_ONE_ODE', 'cancer_sim', 'sindy'):
+        (1.3901352171716772, 1.1538701584860442),
+    ('ABLATION_ONE_ODE', 'cancer_sim', 'insite'):
+        (0.8183083332482903, 1.3726092697018502),
+    ('ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS', 'EQ_4_D', 'sindy'):
+        (0.11444516103182682, 0.12379586379311668),
+    ('ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS', 'EQ_4_D', 'insite'):
+        (0.02059411963965915, 0.05844668899721181),
+    ('INSIGHT_RECOVER_PARAMETRIC_DIST', 'EQ_4_D', 'insite'):
+        (0.020592835193914624, 0.05833500336190106)}
+# phase 7's EQ_4 rows (the port's EQ_4 cohorts are not the JAX package's):
+# upper limits (1-step, 6-step), %, 2-3.1x above `SINDY_FAMILY_REF`
+FAMILY_BANDS = {
+    ('MAIN_TABLE', 'wsindy'): (0.3, 0.3),
+    ('ABLATION_ONE_ODE', 'sindy'): (3.0, 2.5),
+    ('ABLATION_ONE_ODE', 'insite'): (0.6, 1.2),
+    ('ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS', 'sindy'): (0.3, 0.3),
+    ('ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS', 'insite'): (0.05, 0.15),
+    ('INSIGHT_RECOVER_PARAMETRIC_DIST', 'insite'): (0.05, 0.15)}
+RECOVERY_MIN_PEARSON_R = 0.99
+# rows per fine-tune call with the degree-4 library
+# (models/sindy.py::SINDyRegressor._fine_tune)
+DEGREE4_CHUNK = 2048
 # the main table's accuracy bands (normalised RMSE, %), set from the JAX
 # package's 10-seed means: insite 1-step 0.0014 (A) and 0.020-0.021 (B-D),
 # 6-step 0.025-0.049; sindy 0.11-0.14 at both horizons
@@ -150,22 +235,27 @@ def time_ms(fn, reps=20, warmup=3):
 
 
 def device_times(jobs, reps=20):
-    """{label: median device time of one launch (ms)} for jobs of
-    (label, kernel key, fn), from one torch.profiler session: each fn runs
-    reps times, after a warm-up call outside the session, and a fill kernel
-    marks the boundary between jobs. One session only: the profiler has
-    returned no kernel events at all in a later session of the same process.
-    A launch the profiler misses costs one sample, not the run."""
+    """{label: median device time of one call (ms)} for jobs of
+    (label, kernel key, fn, launches a call), from one torch.profiler
+    session: each fn runs reps times, after a warm-up call outside the
+    session, and a fill kernel marks the boundary between jobs. A call is
+    one launch, or one launch per group of coordinates where the
+    sensitivities go in groups: the call's time is then the sum of its
+    launches, and the session must hold every one of them, since a missing
+    one would pair launches of different calls. Where a call is one launch,
+    a launch the profiler misses costs one sample, not the run. One session
+    only: the profiler has returned no kernel events at all in a later
+    session of the same process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _, _, fn in jobs:
+    for _, _, fn, _ in jobs:
         fn()
     marker = torch.zeros(1, device='cuda')
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         marker.fill_(1.0)
-        for _, _, fn in jobs:
+        for _, _, fn, _ in jobs:
             marker.fill_(1.0)
             for _ in range(reps):
                 fn()
@@ -186,32 +276,36 @@ def device_times(jobs, reps=20):
         raise AssertionError(f'the profiler session split into {len(spans)} '
                              f'spans for {len(jobs)} jobs')
     out = {}
-    for (label, kernel, _), span in zip(jobs, spans):
+    for (label, kernel, _, n), span in zip(jobs, spans):
         us = [e.time_range.end - e.time_range.start for e in span
               if KERNEL_NAMES[kernel] in e.name]
-        if len(us) < reps // 2:
-            raise AssertionError(f'the profiler saw {len(us)} {kernel} '
-                                 f'kernel launches in {reps} calls ({label})')
-        out[label] = statistics.median(us) / 1e3
+        if len(us) > reps * n or len(us) < (reps * n if n > 1
+                                            else reps // 2):
+            raise AssertionError(
+                f'the profiler saw {len(us)} {kernel} kernel launches in '
+                f'{reps} calls of {n} ({label})')
+        calls = [sum(us[i:i + n]) for i in range(0, len(us), n)]
+        out[label] = statistics.median(calls) / 1e3
     return out
 
 
 def kernel_times(cases, device):
-    """Device time of one launch and the bound of both kernels, f32, at the
+    """Device time of one call and the bound of both kernels, f32, at the
     given shapes: {tag: {'rollout_device_ms', 'rollout_bound_ms',
     'rollout_bound_by', and the same for 'sens'}}."""
     import torch
     from insite_tpu_torch.ops import rollout
+    bound = rollout.kernel_bounds()['Kr']
     jobs = []
     for tag, case in cases.items():
         a = tensors(case, torch.float32, device)
         act, clip = case['active_idx'], case['y_clip']
         jobs.append(((tag, 'rollout'), 'rollout',
                      lambda a=a, clip=clip: rollout.batched_rollout(
-                         *a, y_clip=clip)))
+                         *a, y_clip=clip), 1))
         jobs.append(((tag, 'sens'), 'sens',
                      lambda a=a, act=act, clip=clip: rollout.rollout_with_sens(
-                         *a, act, y_clip=clip)))
+                         *a, act, y_clip=clip), -(-len(act) // bound)))
     dev = device_times(jobs)
     out = {}
     for tag, case in cases.items():
@@ -221,7 +315,7 @@ def kernel_times(cases, device):
             t[f'{key}_bound_ms'], t[f'{key}_bound_by'] = kernel_bound(case,
                                                                       key)
             dev_ms, bound = t[f'{key}_device_ms'], t[f'{key}_bound_ms']
-            log(f'  {tag} f32 {key} device time per launch (profiler, median '
+            log(f'  {tag} f32 {key} device time per call (profiler, median '
                 f'of 20) {dev_ms:.4f} ms; bound {bound:.4f} ms '
                 f'({t[f"{key}_bound_by"]}), {100 * bound / dev_ms:.1f} % of '
                 'it')
@@ -363,43 +457,145 @@ def wide_support_case(B, T, seed):
                 active_idx=active, y_clip=None)
 
 
-def table_cases(name, device, seeds):
-    """Kernel inputs at a main table's shapes, from one collection of
-    ``name`` of the default size on the card and the INSITE model fitted
-    on it: the n-step test set (per-step arms, per-row coefficients 5 %
-    around the fitted ones, drawn from ``seeds[0]``) and the 1-step test
-    set (the shared fitted coefficients), both with the model's clip."""
+def split_case(B, T, seed, n_active=100):
+    """The degree-4 library over 4 arms (4 x 35 = 140 coordinates) with 100
+    of them active: more than the sensitivity kernel takes at once, so
+    `rollout_with_sens` goes through it in groups. Decay on y plus small
+    terms keeps the state near 1."""
+    from insite_tpu_torch.discovery.library import PolynomialLibrary
+    rng = np.random.RandomState(seed)
+    library = PolynomialLibrary(n_inputs=3, degree=4, interaction_only=False)
+    F = library.n_features
+    base = np.zeros((4, F))
+    base[:, 1] = -1.0                            # feature 1 is y
+    others = rng.choice(np.delete(np.arange(4 * F),
+                                  [a * F + 1 for a in range(4)]),
+                        n_active - 4, replace=False)
+    base.reshape(-1)[others] = (0.02 * rng.choice([-1, 1], n_active - 4)
+                                * (0.5 + rng.rand(n_active - 4)))
+    active = tuple(int(i) for i in np.flatnonzero(base.reshape(-1)))
+    assert len(active) == n_active
+    return dict(library=library,
+                coefs=base[None] * (1 + 0.05 * rng.randn(B, 4, F)),
+                y0=rng.rand(B) + 0.5, statics=rng.rand(B, 2),
+                arms=rng.randint(0, 4, (B, T)), dt=1 / 6,
+                active_idx=active, y_clip=None)
+
+
+def fitted_model(name, device, treatment_mode='multiclass', **flags):
+    """One collection of ``name`` of the default size (1,000 / 100 / 100,
+    seed 0) on the card and the INSITE model fitted on it, with the
+    dataset's threshold; ``flags`` go to `SINDyConfig`."""
     from insite_tpu_torch.data.collection import make_collection
     from insite_tpu_torch.harness.config import (model_dataset_name,
                                                  sindy_params_for)
     from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
     coll = make_collection(name, {'train': 1000, 'val': 100, 'test': 100},
-                           seed=0, coeff=2.0, device=device)
+                           seed=0, coeff=2.0, treatment_mode=treatment_mode,
+                           device=device)
     cfg = SINDyConfig(dataset_name=model_dataset_name(name),
-                      sindy_threshold=sindy_params_for(name)[0], insite=True)
-    model = SINDyRegressor(cfg, coll, device=device).fit(coll.train_f)
-    active, clip = model._active_idx(), model._y_clip()
+                      sindy_threshold=sindy_params_for(name)[0], insite=True,
+                      treatment_mode=treatment_mode, **flags)
+    return coll, SINDyRegressor(cfg, coll, device=device).fit(coll.train_f)
 
-    def case(ds, per_row, seed):
-        prev, statics, arms, _ = model._unscaled_arrays(ds)
-        coefs = model.coefs.astype(np.float64)[None]
-        if per_row:
-            rng = np.random.RandomState(seed)
-            coefs = coefs * (1 + 0.05 * rng.randn(len(prev), *coefs.shape[1:]))
-        return dict(library=model.library, coefs=coefs, y0=prev[:, 0],
-                    statics=statics, arms=arms, dt=model.dt,
-                    active_idx=active, y_clip=clip)
 
-    n_step = case(coll.test_cf_treatment_seq, True, seeds[0])
-    one_step = case(coll.test_cf_one_step, False, seeds[1])
+def model_case(model, ds, seed=None, rows=slice(None)):
+    """The kernel inputs a fitted model gives on ``rows`` of dataset ``ds``,
+    with its support and clip: the shared fitted coefficients or, with
+    ``seed``, per-row ones 5 % around them. A joint (one-ODE) model gives
+    the folded per-arm case the kernels run (the reduced library, one arm
+    per combination of the treatment inputs, the effective coordinates);
+    its entry 'joint' holds the joint library, the [B, 1, F_joint]
+    coefficients and the per-step treatment inputs for the plain joint
+    versions."""
+    import torch
+    from insite_tpu_torch.ops.joint_fold import combination_index
+    prev, statics, arms, _ = model._unscaled_arrays(ds)
+    prev, statics, arms = prev[rows], statics[rows], arms[rows]
+    coefs = model.coefs.astype(np.float64)[None]
+    if seed is not None:
+        rng = np.random.RandomState(seed)
+        coefs = coefs * (1 + 0.05 * rng.randn(len(prev), *coefs.shape[1:]))
+    case = dict(library=model.library, coefs=coefs, y0=prev[:, 0],
+                statics=statics, arms=arms, dt=model.dt,
+                active_idx=model._active_idx(), y_clip=model._y_clip())
+    fold = model._fold
+    if fold is None:
+        return case
+    del case['arms']
+    joint = dict(case, fold=fold, treatments=arms)
+    return dict(case, library=fold.library,
+                coefs=fold.effective(torch.as_tensor(coefs)).numpy(),
+                arms=combination_index(arms),
+                active_idx=fold.effective_active(case['active_idx'])[0],
+                joint=joint)
+
+
+def table_cases(name, device, seeds):
+    """Kernel inputs at a main table's shapes, from the INSITE model fitted
+    on one collection of ``name``: the n-step test set (per-step arms,
+    per-row coefficients drawn from ``seeds[0]``) and the 1-step test set
+    (the shared fitted coefficients)."""
+    coll, model = fitted_model(name, device)
+    n_step = model_case(model, coll.test_cf_treatment_seq, seeds[0])
+    one_step = model_case(model, coll.test_cf_one_step)
     switches = int((np.diff(n_step['arms'], axis=1) != 0).any(1).sum())
     log(f'  {name} cases: n-step arms {n_step["arms"].shape} ({switches} '
         f'rows switch arm), 1-step arms {one_step["arms"].shape}, '
-        f'F={model.coefs.shape[1]}, Kr={len(active)}, y_clip {clip}: '
-        f'{model.global_equation_string}')
+        f'F={model.coefs.shape[1]}, Kr={len(n_step["active_idx"])}, y_clip '
+        f'{n_step["y_clip"]}: {model.global_equation_string}')
     assert n_step['arms'].shape[1] == 64 and switches > 0
     assert one_step['arms'].shape[1] == 59
     return n_step, one_step
+
+
+def family_cases(device):
+    """Kernel inputs at the shapes of the rest of the SINDy family, all
+    with per-row coefficients, as the fine-tune's launches have them:
+
+    - the one-ODE model of a cancer_sim and of an EQ_4_D fit folded onto the
+      kernels, on the n-step and 1-step test sets (4 combinations x 4
+      reduced features, up to 16 effective coordinates; 2 x 7, up to 14);
+    - one chunk of the degree-4 fine-tune on EQ_4_D: the first 2,048 rows
+      of the n-step (T=64) and of the 1-step (T=59) test set, F=35, the
+      fitted support;
+    - the recovery's validation cohort on EQ_4_D (B=100, T=59);
+    - 4 arms x the degree-4 library with 100 active coordinates, which go
+      through the sensitivity kernel in two groups."""
+    cases = {}
+    for name, short, n_arms in (('cancer_sim', 'cancer_sim', 4),
+                                ('EQ_4_D', 'eq4d', 2)):
+        coll, model = fitted_model(name, device, treatment_mode='multilabel',
+                                   joint_model=True)
+        for i, (tag, ds) in enumerate((('nstep', coll.test_cf_treatment_seq),
+                                       ('1step', coll.test_cf_one_step))):
+            case = model_case(model, ds, seed=9 + i)
+            cases[f'fold_{short}_{tag}'] = case
+            assert case['coefs'].shape[1] == n_arms and case['active_idx']
+        joint = case['joint']
+        log(f'  {name} one-ODE fold: joint F={model.coefs.shape[1]} Kr='
+            f'{len(joint["active_idx"])} -> {n_arms} combinations x F='
+            f'{case["library"].n_features}, Kr_eff='
+            f'{len(case["active_idx"])}: '
+            f'{model.global_equation_string}')
+    coll, model = fitted_model('EQ_4_D', device,
+                               ablation_more_complex_basis_functions=True)
+    chunk = slice(0, DEGREE4_CHUNK)
+    cases['degree4_chunk_nstep_b2048_t64'] = model_case(
+        model, coll.test_cf_treatment_seq, seed=11, rows=chunk)
+    cases['degree4_chunk_1step_b2048_t59'] = model_case(
+        model, coll.test_cf_one_step, seed=12, rows=chunk)
+    log(f'  EQ_4_D degree-4 chunk: F={model.coefs.shape[1]}, Kr='
+        f'{len(model._active_idx())}: {model.global_equation_string}')
+    assert model.coefs.shape[1] == 35 and model._active_idx()
+    coll, model = fitted_model('EQ_4_D', device)
+    cases['recovery_val_b100_t59'] = model_case(model, coll.val_f, seed=13)
+    cases['split_a4_f35_kr100_b10000_t59'] = split_case(N_PATIENTS, 59, 10)
+    for tag, case in cases.items():
+        B, T = case['arms'].shape
+        log(f'  {tag}: B={B} T={T} A={case["coefs"].shape[1]} '
+            f'F={case["coefs"].shape[2]} Kr={len(case["active_idx"])}')
+    return cases
 
 
 def tensors(case, dtype, device):
@@ -431,9 +627,16 @@ def run_kernel_case(name, case, device, timed):
     for tag, dtype in (('f32', torch.float32), ('f64', torch.float64)):
         args = tensors(case, dtype, device)
         act, clip = case['active_idx'], case['y_clip']
+        rollout.reset_launch_counts()
         y_k = rollout.batched_rollout(*args, y_clip=clip)
-        y_p = rollout.batched_rollout_plain(*args, y_clip=clip)
         ys_k, s_k = rollout.rollout_with_sens(*args, act, y_clip=clip)
+        groups = -(-len(act) // rollout.kernel_bounds()['Kr'])
+        if (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES) != (1, groups):
+            raise AssertionError(
+                f'{name} {tag}: expected 1 rollout and {groups} sensitivity '
+                f'launches, got {rollout.ROLLOUT_LAUNCHES} and '
+                f'{rollout.SENS_LAUNCHES}')
+        y_p = rollout.batched_rollout_plain(*args, y_clip=clip)
         ys_p, s_p = rollout.rollout_with_sens_plain(*args, act, y_clip=clip)
         torch.cuda.synchronize()
         tol = TOL[tag]
@@ -471,6 +674,53 @@ def run_kernel_case(name, case, device, timed):
                 f'{t["rollout_plain_ms"]:.2f} ms; sens {t["sens_ms"]:.4f} '
                 f'ms vs plain {t["sens_plain_ms"]:.2f} ms')
             out['times'] = t
+    return out
+
+
+def run_fold_case(name, case, device):
+    """The joint model through the kernels (`JointFold`: one launch of each
+    kernel, then ``s_eff @ M``) against the plain joint rollout and the
+    plain joint sensitivity recurrence, f32 and f64, within `TOL`."""
+    import torch
+    from insite_tpu_torch.ops import rollout
+    from insite_tpu_torch.ops.joint_fold import combination_index
+    fold, lib = case['fold'], case['library']
+    act, clip, dt = case['active_idx'], case['y_clip'], case['dt']
+    arms = torch.as_tensor(combination_index(case['treatments']),
+                           device=device)
+    zeros = torch.zeros_like(arms)
+    out = {}
+    for tag, dtype in (('f32', torch.float32), ('f64', torch.float64)):
+        f = dict(dtype=dtype, device=device)
+        c, y0, u, tr = (torch.as_tensor(case[k], **f) for k in
+                        ('coefs', 'y0', 'statics', 'treatments'))
+        rollout.reset_launch_counts()
+        y_k = fold.rollout(c, y0, u, arms, dt, y_clip=clip)
+        ys_k, s_k = fold.rollout_with_sens(c, y0, u, arms, dt, act,
+                                           y_clip=clip)
+        if (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES) != (1, 1):
+            raise AssertionError(f'{name} {tag}: the fold launched '
+                                 f'{rollout.ROLLOUT_LAUNCHES} rollouts and '
+                                 f'{rollout.SENS_LAUNCHES} sensitivities')
+        y_p = rollout.batched_rollout_plain(lib, c, y0, u, zeros, dt,
+                                            y_clip=clip, treatments=tr)
+        ys_p, s_p = rollout.rollout_with_sens_plain(
+            lib, c, y0, u, zeros, dt, act, y_clip=clip, treatments=tr)
+        torch.cuda.synchronize()
+        tol = TOL[tag]
+        err_roll = check_close(f'{name} {tag} rollout', y_k, y_p, *tol['y'])
+        err_y = check_close(f'{name} {tag} sens y', ys_k, ys_p, *tol['y'])
+        flips = clip_flips(ys_k, ys_p, clip)
+        n_flip = 0 if flips is None else int(flips.sum())
+        if n_flip > max(1, ys_k.shape[0] // 1000):
+            raise AssertionError(f'{name} {tag}: {n_flip} rows with '
+                                 'different clip decisions')
+        err_s = check_close(f'{name} {tag} sens', s_k, s_p, *tol['sens'],
+                            rows=None if flips is None else ~flips)
+        log(f'  {name} {tag}: max abs err rollout {err_roll:.3e}, sens y '
+            f'{err_y:.3e}, sens (s_eff @ M vs the joint recurrence) '
+            f'{err_s:.3e}; {n_flip} rows differ in a clip decision')
+        out[tag] = {'rollout_err': err_roll, 'sens_err': max(err_y, err_s)}
     return out
 
 
@@ -534,8 +784,17 @@ def stage_timer(records, device):
             out = fn(*args, **kwargs)
             torch.cuda.synchronize(device)
             records[-1][stage] = perf_counter() - t0
-            if stage == 'fit':          # the fitted support, Kr
-                records[-1]['kr'] = len(args[0]._active_idx())
+            if stage == 'fit':
+                # the fitted support, Kr, and the coordinates a sensitivity
+                # call hands the kernel (the joint model: the folded ones)
+                model = args[0]
+                active = model._active_idx()
+                records[-1]['kr'] = records[-1]['kr_kernel'] = len(active)
+                if model._fold is not None and active:
+                    records[-1]['kr_kernel'] = len(
+                        model._fold.effective_active(active)[0])
+            if stage.startswith('predict'):
+                records[-1]['rows_' + stage] = len(args[1])
             records[-1]['peak_mib'] = \
                 torch.cuda.max_memory_allocated(device) / 2**20
             return out
@@ -568,27 +827,29 @@ def check_bands(rows):
                 raise AssertionError(f'{ds} {metric}: insite not below sindy')
 
 
-def run_sweep(device, datasets, tag):
-    """The port's sweep of sindy and insite over ``datasets`` on the card
-    (one seed, 1,000 / 100 / 100, debug mode), with each run's stage times,
+def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
+              experiment='MAIN_TABLE'):
+    """The port's sweep of ``methods`` over ``datasets`` on the card (one
+    seed, 1,000 / 100 / 100, debug mode), with each run's stage times,
     peak memory and Kr printed. Returns (rows, records, launches)."""
     import torch
     from insite_tpu_torch.harness.config import RunConfig
     from insite_tpu_torch.harness.logging_utils import (
         create_logger_in_process, generate_log_file_path)
-    from insite_tpu_torch.harness.runner import sweep
+    from insite_tpu_torch.harness.runner import Experiment, sweep
     from insite_tpu_torch.ops import rollout
     records = []
     with tempfile.TemporaryDirectory() as log_dir:
-        cfg = RunConfig(methods=('sindy', 'insite'), datasets=datasets,
-                        seed_runs=1, log_dir=log_dir, debug_mode=True)
+        cfg = RunConfig(methods=methods, datasets=datasets, seed_runs=1,
+                        log_dir=log_dir, debug_mode=True)
         logger = create_logger_in_process(generate_log_file_path('run',
                                                                  log_dir))
         with stage_timer(records, device):
             torch.cuda.synchronize(device)
             rollout.reset_launch_counts()
             t0 = perf_counter()
-            rows, tables = sweep(cfg, log=logger, device=device)
+            rows, tables = sweep(cfg, Experiment[experiment], log=logger,
+                                 device=device)
             torch.cuda.synchronize(device)
             wall = perf_counter() - t0
             launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
@@ -610,19 +871,38 @@ def run_sweep(device, datasets, tag):
     log(f'[{tag}] sweep wall {wall:.4f} s; kernel launches: {launches}')
     for metric, table in tables.items():
         log(f'[{tag}] LaTeX {metric}:\n{table}')
-    if len(rows) != 2 * len(datasets) or any(r['errored'] for r in rows):
-        raise AssertionError(f'expected {2 * len(datasets)} rows, none '
-                             f'errored: {rows}')
+    n_rows = len(methods) * len(datasets)
+    if len(rows) != n_rows or any(r['errored'] for r in rows):
+        raise AssertionError(f'expected {n_rows} rows, none errored: {rows}')
     return rows, records, launches
 
 
-def expected_launches(rows, records):
-    """Per run: 2 rollouts (1-step and n-step predictions); an insite run
-    with a non-empty support adds 2 fine-tunes of gn_iters + 1 sensitivity
-    launches (with an empty support nothing moves and none is launched)."""
-    sens = sum(2 * (GN_ITERS + 1) for row, rec in zip(rows, records)
-               if row['method_name'] == 'insite' and rec['kr'] > 0)
-    return {'rollout': 2 * len(rows), 'sens': sens}
+def expected_launches(rows, records, experiment='MAIN_TABLE'):
+    """What the runs must launch. A sindy or wsindy run: 1 rollout per
+    evaluation set (1-step, n-step). An insite run fine-tunes each set,
+    and under INSIGHT_RECOVER_PARAMETRIC_DIST the validation cohort too:
+    per fine-tune call 1 rollout and, with a non-empty support, gn_iters +
+    1 sensitivity calls of one launch per group of the kernel's Kr bound
+    (with an empty support nothing moves and none is launched). The
+    degree-4 ablation makes one fine-tune call per chunk of 2,048 rows."""
+    from insite_tpu_torch.ops import rollout
+    bound = rollout.kernel_bounds()['Kr']
+    want = {'rollout': 0, 'sens': 0}
+    for row, rec in zip(rows, records):
+        sets = [rec['rows_predict_1_step'], rec['rows_predict_n_step']]
+        if row['method_name'] != 'insite':
+            want['rollout'] += len(sets)
+            continue
+        if experiment == 'INSIGHT_RECOVER_PARAMETRIC_DIST':
+            sets.append(1)              # the validation cohort, one call
+        calls = sum(-(-n // DEGREE4_CHUNK) if experiment ==
+                    'ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS' else 1
+                    for n in sets)
+        want['rollout'] += calls
+        if rec['kr'] > 0:
+            want['sens'] += (calls * (GN_ITERS + 1)
+                             * -(-rec['kr_kernel'] // bound))
+    return want
 
 
 def run_main_table(device):
@@ -663,6 +943,87 @@ def run_tumor_table(device):
                 by[ds, 'sindy']['encoder_test_rmse_orig']):
             raise AssertionError(f'{ds}: insite not below sindy at 1 step')
     return launches
+
+
+def run_sindy_family(device):
+    """Phase 7: wsindy on both families, the one-ODE and degree-4
+    ablations and the parametric-distribution recovery through the port's
+    sweep on the card; launches asserted per part, RMSEs held to the JAX
+    package's (`SINDY_FAMILY_REF`). Returns the launches of all parts."""
+    parts = (
+        ('wsindy', 'MAIN_TABLE', DATASETS + TUMOR_DATASETS, ('wsindy',),
+         {'rollout': 18, 'sens': 0}),
+        ('one-ode', 'ABLATION_ONE_ODE', ('EQ_4_D', 'cancer_sim'),
+         ('sindy', 'insite'), {'rollout': 8, 'sens': 52}),
+        ('degree-4', 'ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS', ('EQ_4_D',),
+         ('sindy', 'insite'), None),
+        ('recovery', 'INSIGHT_RECOVER_PARAMETRIC_DIST', ('EQ_4_D',),
+         ('insite',), {'rollout': 3, 'sens': 39}))
+    total = {'rollout': 0, 'sens': 0}
+    metrics = ('encoder_test_rmse_orig', 'decoder_test_rmse_6-step')
+    for tag, experiment, datasets, methods, fixed in parts:
+        log(f'[family] {tag}: {experiment}, {", ".join(methods)} x '
+            f'{", ".join(datasets)}, seed 0, 1000/100/100')
+        rows, records, launches = run_sweep(device, datasets, tag, methods,
+                                            experiment)
+        want = expected_launches(rows, records, experiment)
+        if fixed is not None and want != fixed:
+            raise AssertionError(f'{tag}: the fits give {want} launches, '
+                                 f'not {fixed}: Kr '
+                                 f'{[rec["kr"] for rec in records]}')
+        if launches != want:
+            raise AssertionError(f'{tag}: expected {want} launches, got '
+                                 f'{launches}')
+        if tag == 'degree-4':
+            rec = records[-1]
+            log(f'[family] degree-4 insite: Kr {rec["kr"]}, '
+                f'{-(-rec["rows_predict_1_step"] // DEGREE4_CHUNK)} + '
+                f'{-(-rec["rows_predict_n_step"] // DEGREE4_CHUNK)} chunks, '
+                f'launches {launches}')
+        for k in total:
+            total[k] += launches[k]
+        by = {(r['dataset_name'], r['method_name']): r for r in rows}
+        for (ds, method), row in by.items():
+            ref = SINDY_FAMILY_REF[experiment, ds, method]
+            tumor = ds in TUMOR_DATASETS
+            for i, metric in enumerate(metrics):
+                got = row[metric]
+                limit = (None if tumor
+                         else FAMILY_BANDS[experiment, method][i])
+                log(f'  {ds} {method} {metric}: card {got:.6f} % vs JAX '
+                    f'{ref[i]:.6f} % ({100 * (got / ref[i] - 1):+.2f} %)'
+                    + ('' if tumor else f'; band < {limit}'))
+                if tumor and not abs(got / ref[i] - 1) <= TUMOR_RTOL:
+                    raise AssertionError(
+                        f'{tag} {ds} {method} {metric} = {got} is not within '
+                        f'{TUMOR_RTOL:.0%} of {ref[i]}')
+                if not tumor and not got < limit:
+                    raise AssertionError(f'{tag} {ds} {method} {metric} = '
+                                         f'{got} >= {limit}')
+        for ds in datasets:
+            if (ds, 'sindy') in by and (ds, 'insite') in by and not (
+                    by[ds, 'insite'][metrics[0]] <
+                    by[ds, 'sindy'][metrics[0]]):
+                raise AssertionError(f'{tag} {ds}: insite not below sindy '
+                                     'at 1 step')
+        if tag == 'recovery':
+            row = rows[0]
+            for a in (0, 1):
+                r = row[f'recover_arm{a}_pearson_r']
+                log(f'  recovery arm {a}: Pearson r {r:.6f} over '
+                    f'{row[f"recover_arm{a}_n"]} patients; decay constant '
+                    f'true {row[f"recover_arm{a}_true_mean"]:.4f} +- '
+                    f'{row[f"recover_arm{a}_true_std"]:.4f}, recovered '
+                    f'{row[f"recover_arm{a}_recovered_mean"]:.4f} +- '
+                    f'{row[f"recover_arm{a}_recovered_std"]:.4f}')
+                if not r > RECOVERY_MIN_PEARSON_R:
+                    raise AssertionError(f'recovery arm {a}: Pearson r {r} '
+                                         f'<= {RECOVERY_MIN_PEARSON_R}')
+            if np.shape(row['coef_mean']) != (2, 7) or \
+                    np.shape(row['coef_std']) != (2, 7):
+                raise AssertionError('coef_mean / coef_std are not [2][7]')
+    log(f'[family] kernel launches of all parts: {total}')
+    return total
 
 
 def check_card_against_host(device, name='EQ_4_D'):
@@ -750,13 +1111,14 @@ def main():
         assert n_case['coefs'].shape[1] == 4 and len(n_case['active_idx']) > 4
         tumor_cases[f'tumor_{short}_nstep'] = n_case
         tumor_cases[f'tumor_{short}_1step_shared'] = one_case
-    log('[kernels] device time per launch, f32, before any plain version '
+    sindy_family_cases = family_cases(device)
+    log('[kernels] device time per call, f32, before any plain version '
         'runs')
     dev_times = kernel_times({'northstar': northstar_case,
                               'nstep_b59000_t64': n_step_case,
                               '1step_shared_b11800_t59': one_step_case,
                               'degree4_f35_kr16_b10000_t59': degree4_case,
-                              **tumor_cases},
+                              **tumor_cases, **sindy_family_cases},
                              device)
     log('[kernels] kernel vs plain PyTorch version on the card')
     main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
@@ -776,10 +1138,15 @@ def main():
                              n_step_case, device, timed=True)
     one_step = run_kernel_case('main table 1-step B=11800 T=59 shared',
                                one_step_case, device, timed=True)
-    tumor = {tag: run_kernel_case(
+    shaped = {tag: run_kernel_case(
         f'{tag} B={case["arms"].shape[0]} T={case["arms"].shape[1]} '
         f'Kr={len(case["active_idx"])}', case, device, timed=True)
-        for tag, case in tumor_cases.items()}
+        for tag, case in {**tumor_cases, **sindy_family_cases}.items()}
+    fold_res = {tag: run_fold_case(
+        f'{tag} vs plain joint B={len(case["y0"])} '
+        f'T={case["arms"].shape[1]}', case['joint'], device)
+        for tag, case in sindy_family_cases.items()
+        if 'joint' in case and 'nstep' in tag}
     torch.cuda.synchronize()
 
     # 4. main path
@@ -826,6 +1193,9 @@ def main():
     log('[tumor] card f32 against host f64, one cancer_sim collection')
     check_card_against_host(device, 'cancer_sim')
 
+    # 7. the rest of the SINDy family
+    family_launches = run_sindy_family(device)
+
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
@@ -836,7 +1206,7 @@ def main():
             per_shape.update({f'device_ms_{tag}': dev,
                               f'bound_ms_{tag}': bound,
                               f'bound_share_{tag}': bound / dev})
-        for tag, res in tumor.items():
+        for tag, res in shaped.items():
             per_shape.update({f'max_abs_err_{tag}': res['f32'][err],
                               f'ms_{tag}': res['times'][f'{key}_ms'],
                               f'plain_ms_{tag}':
@@ -847,6 +1217,7 @@ def main():
             'launches': table_launches[key],
             'launches_northstar': launches[key],
             'launches_tumor_table': tumor_launches[key],
+            'launches_sindy_family': family_launches[key],
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],
@@ -856,6 +1227,8 @@ def main():
             'library_ms': None,
             'ms_b2048_t60': profile['times'][f'{key}_ms'],
             'plain_ms_b2048_t60': profile['times'][f'{key}_plain_ms'],
+            **{f'max_abs_err_{tag}_vs_plain_joint': res['f32'][err]
+               for tag, res in fold_res.items()},
             'max_abs_err_nstep': n_step['f32'][err],
             'ms_nstep_b59000_t64': n_step['times'][f'{key}_ms'],
             'plain_ms_nstep_b59000_t64': n_step['times'][f'{key}_plain_ms'],

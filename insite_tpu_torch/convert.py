@@ -42,15 +42,20 @@ def coefs_from_numpy(c, device, dtype) -> torch.Tensor:
 
 def collection_from_numpy(raw_subsets: dict, scaling_params,
                           equation_name: str, *, projection_horizon: int,
-                          treatment_mode: str):
+                          treatment_mode: str, sim_params: dict = None):
     """The port's collection of ``equation_name`` (EQ_4_*: PKPD;
     CANCER_SIM or cancer_sim: cancer; EQ_5_*: continuous) over simulated,
     unprocessed subsets: ``raw_subsets`` maps train_f / val_f /
     test_cf_one_step / test_cf_treatment_seq to the simulator's numpy dicts
     (for example copies of a JAX collection's ``.data`` taken before
     processing), and ``scaling_params`` is the ``(means, stds)`` pair of
-    the training subset. The dicts are copied shallowly; processing adds
-    keys to the copies and writes into no array."""
+    the training subset. ``treatment_mode`` is 'multiclass' or 'multilabel'
+    (the raw binary treatment columns, as the one-ODE ablation reads them).
+    ``sim_params`` optionally maps a subset's name to its simulator
+    parameters (numpy), which become that subset's ``sim_params`` (the
+    hidden constants the recovery analysis reads). The dicts are copied
+    shallowly; processing adds keys to the copies and writes into no
+    array."""
     equation_name = model_dataset_name(equation_name)
     if 'EQ_4' in equation_name:
         cls = PkpdDatasetCollection
@@ -60,8 +65,12 @@ def collection_from_numpy(raw_subsets: dict, scaling_params,
         cls = ContinuousDatasetCollection
     else:
         raise ValueError(f'unknown dataset {equation_name}')
-    return cls.from_subsets(
+    coll = cls.from_subsets(
         {k: {n: np.asarray(a) for n, a in d.items()}
          for k, d in raw_subsets.items()},
         scaling_params, equation_name,
         projection_horizon=projection_horizon, treatment_mode=treatment_mode)
+    for subset, params in (sim_params or {}).items():
+        getattr(coll, subset).sim_params = {
+            k: np.asarray(v) for k, v in params.items()}
+    return coll

@@ -5,12 +5,15 @@ their faults, and log one row per run.
 The '[Exp evaluation complete] {...}' log lines are the results database:
 `harness/results.py::rows_from_log` and the JAX package's `df_from_log`
 read them back. Every value in a row is a plain Python float, int, bool or
-str, so the row's repr is a Python literal.
+str, or a (nested) list of such, so the row's repr is a Python literal.
 
-The port serves the MAIN_TABLE experiment for the ``sindy`` and
-``insite`` methods on the EQ_4 family, cancer_sim and EQ_5; the rest
-raises `NotImplementedError` naming the slice of ROADMAP.md that brings
-it.
+The port serves the ``sindy``, ``wsindy`` and ``insite`` methods on the
+EQ_4 family, cancer_sim and EQ_5, in the experiments MAIN_TABLE,
+ABLATION_ONE_ODE (one joint ODE over multilabel treatments),
+ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS (the degree-4 library) and
+INSIGHT_RECOVER_PARAMETRIC_DIST (the per-patient coefficient distribution
+of the validation cohort); the rest raises `NotImplementedError` naming
+the slice of ROADMAP.md that brings it.
 """
 
 from __future__ import annotations
@@ -28,14 +31,14 @@ from insite_tpu_torch.data.collection import make_collection
 from insite_tpu_torch.harness.config import (RunConfig, SINDY_ALPHA,
                                              model_dataset_name,
                                              sindy_params_for)
+from insite_tpu_torch.harness.insights import recover_parametric_dist
 from insite_tpu_torch.harness.results import generate_main_results_table
 
 logger = logging.getLogger('insite_tpu_torch')
 
-METHODS = ('sindy', 'insite')
-LATER_METHODS = {'wsindy': 'Slice 4', 'msm': 'Slice 5', 'ct': 'Slice 6',
-                 'crn': 'Slice 6', 'rmsn': 'Slice 6', 'gnet': 'Slice 6',
-                 'edct': 'Slice 6'}
+METHODS = ('sindy', 'insite', 'wsindy')
+LATER_METHODS = {'msm': 'Slice 5', 'ct': 'Slice 6', 'crn': 'Slice 6',
+                 'rmsn': 'Slice 6', 'gnet': 'Slice 6', 'edct': 'Slice 6'}
 
 
 class Experiment(Enum):
@@ -48,12 +51,19 @@ class Experiment(Enum):
     INSIGHT_LESS_SAMPLES = 7
 
 
+# each runs (dataset, method, seed) cells at one gamma; the other three
+# sweep gamma, the noise scale or the cohort size
+SERVED_EXPERIMENTS = (Experiment.MAIN_TABLE, Experiment.ABLATION_ONE_ODE,
+                      Experiment.ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS,
+                      Experiment.INSIGHT_RECOVER_PARAMETRIC_DIST)
+
+
 def _require_served(cfg: RunConfig, experiment: Experiment,
                     methods=()) -> None:
     """Raise for what this slice does not serve."""
     later = []
-    if experiment != Experiment.MAIN_TABLE:
-        later.append(f'experiment {experiment.name} (Slices 4 and 7)')
+    if experiment not in SERVED_EXPERIMENTS:
+        later.append(f'experiment {experiment.name} (Slice 7)')
     for name in ('tune_hparams', 'load_from_cache', 'force_recache',
                  'isolate_runs'):
         if getattr(cfg, name):
@@ -69,14 +79,19 @@ def _require_served(cfg: RunConfig, experiment: Experiment,
 
 
 def _collection_for(dataset_name, method_name, seed, domain_conf,
-                    cfg: RunConfig, *, device, dtype=None):
+                    cfg: RunConfig, experiment=Experiment.MAIN_TABLE, *,
+                    device, dtype=None):
     """A fresh collection per run (the dataset cache is Slice 7); the
-    SINDy family runs multiclass."""
+    SINDy family runs multiclass, and multilabel under ABLATION_ONE_ODE,
+    whose joint library reads the raw treatment columns."""
     num_patients = {'train': cfg.train_samples, 'val': cfg.val_samples,
                     'test': cfg.test_samples}
     return make_collection(dataset_name, num_patients, seed,
                            coeff=float(domain_conf),
-                           treatment_mode='multiclass',
+                           treatment_mode=(
+                               'multilabel'
+                               if experiment == Experiment.ABLATION_ONE_ODE
+                               else 'multiclass'),
                            cf_seq_mode=cfg.cf_seq_mode,
                            noise_scale=cfg.noise_scale, device=device,
                            dtype=dtype)
@@ -111,10 +126,12 @@ def _apply_model_overrides(mcfg, cfg: RunConfig, method_name: str,
 
 
 def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
-                 domain_conf: float = 2.0, *, device, dtype=None):
-    """The SINDy-family estimator of one run (`method_name` sindy or
-    insite), with the dataset's hyperparameters and the run's overlays. On
-    EQ_5 the chemo dosage joins the covariates."""
+                 domain_conf: float = 2.0,
+                 experiment=Experiment.MAIN_TABLE, *, device, dtype=None):
+    """The SINDy-family estimator of one run (`method_name` sindy, wsindy
+    or insite), with the dataset's hyperparameters, the experiment's
+    ablation and the run's overlays. On EQ_5 the chemo dosage joins the
+    covariates."""
     from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
     if not coll.processed_data_multi:
         coll.process_data_multi(
@@ -124,6 +141,11 @@ def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
                        sindy_threshold=thr,
                        sindy_alpha=SINDY_ALPHA, lam=lam,
                        insite=(method_name == 'insite'),
+                       wsindy=(method_name == 'wsindy'),
+                       joint_model=(experiment == Experiment.ABLATION_ONE_ODE),
+                       ablation_more_complex_basis_functions=(
+                           experiment ==
+                           Experiment.ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS),
                        treatment_mode=coll.treatment_mode)
     mcfg = _apply_model_overrides(mcfg, cfg, method_name, dataset_name,
                                   domain_conf)
@@ -136,14 +158,17 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
                    device, dtype=None) -> dict:
     """One (dataset, method, seed, gamma) run on ``device``: fit on the
     training cohort, then the 1-step and the 2..(ph+1)-step
-    counterfactual RMSEs (%) of the test cohort."""
+    counterfactual RMSEs (%) of the test cohort. Under
+    INSIGHT_RECOVER_PARAMETRIC_DIST an insite run adds the mean and std of
+    the validation cohort's fine-tuned coefficients and, on the EQ_4
+    family, how well they recover the hidden decay constants."""
     cfg = cfg or RunConfig()
     _require_served(cfg, experiment, (method_name,))
     t0 = time.perf_counter()
     coll = _collection_for(dataset_name, method_name, seed, domain_conf,
-                           cfg, device=device, dtype=dtype)
+                           cfg, experiment, device=device, dtype=dtype)
     model = _build_model(method_name, dataset_name, coll, cfg, domain_conf,
-                         device=device, dtype=dtype)
+                         experiment, device=device, dtype=dtype)
     model.fit(coll.train_f, coll.val_f)
 
     rmse_orig, rmse_all, rmse_last = model.get_normalised_masked_rmse(
@@ -156,23 +181,41 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
                     for k, v in enumerate(np.asarray(n_step))})
     results['global_equation_string'] = model.global_equation_string
     results['fine_tuned'] = bool(model.insite)
+    if experiment == Experiment.INSIGHT_RECOVER_PARAMETRIC_DIST and \
+            method_name == 'insite':
+        c = model.get_fine_tuned_coefficients(coll.val_f)
+        # accumulated and rounded in float64, so the log's literals are
+        # 6-decimal numbers in float32 runs too
+        c = np.asarray(c, np.float64)
+        results['coef_mean'] = np.mean(c, axis=0).round(6).tolist()
+        results['coef_std'] = np.std(c, axis=0).round(6).tolist()
+        if 'hidden_C_0' in (getattr(coll.val_f, 'sim_params', None) or {}):
+            # the one fine-tune above serves the recovery too
+            rec = recover_parametric_dist(model, coll.val_f, coefs=c)
+            for arm, stats in rec.items():
+                for k, v in stats.items():
+                    results[f'recover_{arm}_{k}'] = v
     results.update({'method': method_name, 'seed': int(seed),
                     'seconds_taken': time.perf_counter() - t0})
     return results
 
 
+def _plain_value(k, v):
+    if isinstance(v, np.generic):
+        v = v.item()
+    if isinstance(v, (list, tuple)):
+        return [_plain_value(k, x) for x in v]
+    if not isinstance(v, (bool, int, float, str)):
+        raise TypeError(f'row value {k}={v!r} is not a plain float, int, '
+                        'bool or str, nor a list of such')
+    return v
+
+
 def _plain(row: dict) -> dict:
     """Numpy scalars to Python's (the repr of np.float64 is not a
-    literal); anything else that is not a plain scalar is an error."""
-    out = {}
-    for k, v in row.items():
-        if isinstance(v, np.generic):
-            v = v.item()
-        if not isinstance(v, (bool, int, float, str)):
-            raise TypeError(f'row value {k}={v!r} is not a plain float, '
-                            'int, bool or str')
-        out[k] = v
-    return out
+    literal), also inside (nested) lists; anything else that is not a
+    plain scalar is an error."""
+    return {k: _plain_value(k, v) for k, v in row.items()}
 
 
 def _sweep_fingerprint(cfg: RunConfig, experiment_name: str) -> dict:

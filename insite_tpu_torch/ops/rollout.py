@@ -13,8 +13,15 @@ plain PyTorch version beside it:
 
 Each dispatches on the device of its inputs: CPU tensors take the plain
 version, CUDA tensors launch the kernel, and a failed build or launch
-raises. The module counts kernel launches in `ROLLOUT_LAUNCHES` and
-`SENS_LAUNCHES`, so a run can show that it went through the kernels.
+raises. More active coordinates than the sensitivity kernel takes go
+through it in groups, one launch a group. The module counts kernel launches
+in `ROLLOUT_LAUNCHES` and `SENS_LAUNCHES`, so a run can show that it went
+through the kernels.
+
+The plain versions also take per-step ``treatments``: the joint (one-ODE)
+model, whose library reads ``[y, treatment inputs, statics]``. The kernels
+run that model folded onto a per-arm one (`ops/joint_fold.py`), and the
+plain joint versions are what the fold is tested against.
 """
 
 from __future__ import annotations
@@ -49,20 +56,37 @@ def _select_arm(coefs, arm_t):
         torch.arange(B, device=arm_t.device), arm_t.long()]
 
 
-def _state_inputs(y, statics):
-    return torch.cat([y[:, None], statics], dim=-1)        # [B, n_inputs]
+def _state_inputs(y, statics, treatments_t=None):
+    """[y, (this step's treatment inputs,) statics]: [B, n_inputs]."""
+    parts = [y[:, None], statics]
+    if treatments_t is not None:
+        parts.insert(1, treatments_t.to(y.dtype))
+    return torch.cat(parts, dim=-1)
+
+
+def _treatments_at(treatments, t):
+    """Step t of [B, T, E] (or [B, T]: one column) treatment inputs."""
+    if treatments is None:
+        return None
+    u = treatments[:, t]
+    return u[:, None] if u.ndim == 1 else u
 
 
 def batched_rollout_plain(library, coefs, y0, statics, arms, dt,
-                          substeps=STEPS_FOR_DT, y_clip=None):
-    """The function `rollout_kernel` computes, in plain PyTorch."""
+                          substeps=STEPS_FOR_DT, y_clip=None,
+                          treatments=None):
+    """The function `rollout_kernel` computes, in plain PyTorch. With
+    ``treatments`` [B, T, E], the joint model: the library takes
+    [y, treatments of the step, statics] and ``arms`` picks among the
+    coefficient rows as ever (all zeros for the one joint row)."""
     h = dt / substeps
     y = y0
     out = []
     for t in range(arms.shape[1]):
         c = _select_arm(coefs, arms[:, t])
+        u = _treatments_at(treatments, t)
         for _ in range(substeps):
-            theta = library(_state_inputs(y, statics))      # [B, F]
+            theta = library(_state_inputs(y, statics, u))   # [B, F]
             y = y + h * (c * theta).sum(-1)
         if y_clip is not None:
             y = torch.clamp(y, y_clip[0], y_clip[1])
@@ -71,10 +95,12 @@ def batched_rollout_plain(library, coefs, y0, statics, arms, dt,
 
 
 def rollout_with_sens_plain(library, coefs, y0, statics, arms, dt,
-                            active_idx, substeps=STEPS_FOR_DT, y_clip=None):
+                            active_idx, substeps=STEPS_FOR_DT, y_clip=None,
+                            treatments=None):
     """The function `rollout_sens_kernel` computes, in plain PyTorch: the
     forward-sensitivity recurrence batched over B, a loop over T and the
-    sub-steps, evaluated at the pre-update state."""
+    sub-steps, evaluated at the pre-update state. ``treatments`` as in
+    `batched_rollout_plain`."""
     B, T = arms.shape
     F = coefs.shape[-1]
     e0 = library.exponents()[:, :1]                         # [F, 1]
@@ -90,8 +116,9 @@ def rollout_with_sens_plain(library, coefs, y0, statics, arms, dt,
         arm = arms[:, t].long()
         c = _select_arm(coefs, arm)
         driven = arm[:, None] == act_arm[None, :]            # [B, Kr]
+        u = _treatments_at(treatments, t)
         for _ in range(substeps):
-            P = library.powers(_state_inputs(y, statics))    # [B, F, n_in]
+            P = library.powers(_state_inputs(y, statics, u))  # [B, F, n_in]
             theta = P.prod(-1)
             # e_0 * y^(e_0 - 1) * prod_{i>0} X_i^e_i  (0 where e_0 = 0)
             dtheta_dy = (e0 * integer_powers(y[:, None], e0_less_one)[..., 0]
@@ -203,7 +230,8 @@ def _checked(library, coefs, y0, statics, arms):
     table = _library_table(library)
     if library.n_inputs != 1 + S or table.shape[0] != F:
         raise ValueError('the library must take [y, statics] and have one '
-                         'feature per coefficient (no joint mode)')
+                         'feature per coefficient (a joint model is '
+                         'folded first: ops/joint_fold.py)')
     if A > kernel_bounds()['arms']:
         raise ValueError(f'A={A} exceeds the kernel bounds '
                          f'{kernel_bounds()["arms"]}')
@@ -268,6 +296,22 @@ def _sens_cuda(library, coefs, y0, statics, arms, dt, active_idx, substeps,
     return out, sens
 
 
+def _sens_in_groups(sens_fn, group: int, library, coefs, y0, statics, arms,
+                    dt, active_idx, substeps, y_clip):
+    """``sens_fn`` over ``active_idx`` in groups of at most ``group``
+    coordinates, one call a group: sensitivities of different coordinates
+    are independent given the state, so the groups' [B, T, k] blocks are
+    concatenated on the last axis and y is the first group's."""
+    active_idx = tuple(active_idx)
+    if len(active_idx) <= group:
+        return sens_fn(library, coefs, y0, statics, arms, dt, active_idx,
+                       substeps, y_clip)
+    outs = [sens_fn(library, coefs, y0, statics, arms, dt,
+                    active_idx[i:i + group], substeps, y_clip)
+            for i in range(0, len(active_idx), group)]
+    return outs[0][0], torch.cat([s for _, s in outs], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 
@@ -289,9 +333,11 @@ def rollout_with_sens(library, coefs, y0, statics, arms, dt, active_idx,
                       substeps=STEPS_FOR_DT, y_clip=None):
     """Rollout plus d y_t / d coefs.flat[active_idx[j]]: returns
     (preds [B, T], sens [B, T, Kr]). active_idx: flat (arm * F + feature)
-    coordinates."""
+    coordinates, any number of them: beyond the kernel's bound they take
+    one launch per group of that many."""
     if y0.device.type == 'cpu':
         return rollout_with_sens_plain(library, coefs, y0, statics, arms, dt,
                                        active_idx, substeps, y_clip)
-    return _sens_cuda(library, coefs, y0, statics, arms, dt, active_idx,
-                      substeps, y_clip)
+    return _sens_in_groups(_sens_cuda, kernel_bounds()['Kr'], library, coefs,
+                           y0, statics, arms, dt, active_idx, substeps,
+                           y_clip)

@@ -1,11 +1,15 @@
-"""Benchmark sweep CLI of the PyTorch port: the main table for the
-``sindy`` and ``insite`` methods on the EQ_4 family, cancer_sim and EQ_5.
+"""Benchmark sweep CLI of the PyTorch port: the ``sindy``, ``wsindy`` and
+``insite`` methods on the EQ_4 family, cancer_sim and EQ_5, for the main
+table, the one-ODE and degree-4 ablations and the parametric-distribution
+recovery.
 
 Usage:
     python -m insite_tpu_torch.run --flush --datasets EQ_4_D \
-        --methods sindy insite                      # on the card
+        --methods sindy wsindy insite               # on the card
     python -m insite_tpu_torch.run --device cpu --flush --datasets \
         cancer_sim EQ_5_D --methods sindy insite    # on the host
+    python -m insite_tpu_torch.run --experiment ABLATION_ONE_ODE \
+        --datasets EQ_4_D cancer_sim --methods sindy insite
 
 Each run logs an '[Exp evaluation complete] {...}' line into
 ``<log dir>/run-<timestamp>.txt`` (the results database, read back by
@@ -35,6 +39,8 @@ def main(argv=None):
     p.add_argument('--val-samples', type=int, default=None)
     p.add_argument('--test-samples', type=int, default=None)
     p.add_argument('--domain-conf', type=float, default=None)
+    p.add_argument('--experiment', default=None,
+                   choices=[e.name for e in Experiment])
     p.add_argument('--flush', action='store_true',
                    help='fast path: 1 seed, 1000 / 10 / 10 patients')
     p.add_argument('--no-debug', action='store_true',
@@ -60,7 +66,7 @@ def main(argv=None):
     if args.seeds is not None:
         cfg.seed_runs = args.seeds
     for k in ('seed_start', 'train_samples', 'val_samples', 'test_samples',
-              'domain_conf', 'log_dir'):
+              'domain_conf', 'log_dir', 'experiment'):
         v = getattr(args, k)
         if v is not None:
             setattr(cfg, k, v)

@@ -12,6 +12,7 @@ import torch
 
 from insite_tpu_torch.discovery.library import PolynomialLibrary
 from insite_tpu_torch.ops import build, rollout
+from insite_tpu_torch.ops.joint_fold import JointFold, combination_index
 
 BASE = np.stack([[0, 0.3, 0, 0, -1.0, 0, 0],
                  [0, -0.2, 0, 0, 0, -1.0, 0]]).astype(np.float32)
@@ -124,6 +125,41 @@ def tumor_case(B=61, T=29, seed=12):
 
 
 TUMOR_CLIP = (0.0, TUMOUR_DEATH_THRESHOLD)
+
+
+def split_case(B=33, T=14, seed=13, n_active=100):
+    """The degree-4 library over 4 arms (4 x 35 = 140 coordinates) with
+    n_active of them active: more than the sensitivity kernel's 72, so the
+    wrapper goes through it in groups. Decay on y plus small terms keeps
+    the state near 1."""
+    rng = np.random.RandomState(seed)
+    F = PolynomialLibrary(**DEGREE4).n_features
+    coefs = np.zeros((1, 4, F), np.float32)
+    coefs[0, :, 1] = -1.0                     # feature 1 is y
+    decay = [a * F + 1 for a in range(4)]
+    others = rng.choice(np.delete(np.arange(4 * F), decay),
+                        n_active - 4, replace=False)
+    coefs.reshape(-1)[others] = (0.02 * rng.choice([-1, 1], n_active - 4)
+                                 * (0.5 + rng.rand(n_active - 4)))
+    y0 = (rng.rand(B) + 0.5).astype(np.float32)
+    statics = rng.rand(B, 2).astype(np.float32)
+    arms = rng.randint(0, 4, (B, T)).astype(np.int32)
+    return DEGREE4, coefs, y0, statics, arms, 1 / 6
+
+
+def joint_case(B=53, T=21, seed=14):
+    """The cancer_sim one-ODE layout: the joint library over [y, chemo,
+    radio, patient type] (F=11, every coefficient active), which folds to
+    4 combinations x 4 reduced features = 16 effective coordinates."""
+    rng = np.random.RandomState(seed)
+    coefs = (0.05 * rng.randn(B, 1, 11)).astype(np.float32)
+    coefs[:, 0, 1] += 0.05                    # feature 1 is y: slow growth
+    coefs[:, 0, 5] -= 0.6                     # y * chemo
+    coefs[:, 0, 6] -= 1.5                     # y * radio
+    y0 = (rng.rand(B) * 100).astype(np.float32)
+    statics = rng.randint(1, 4, (B, 1)).astype(np.float32)
+    treatments = rng.randint(0, 2, (B, T, 2)).astype(np.float32)
+    return dict(n_inputs=4), coefs, y0, statics, treatments, 1 / 6
 
 
 CASES = {'shared': lambda: eq4_case(37, 15, True),
@@ -373,6 +409,63 @@ def test_tumor_shape_matches_plain_on_cuda(cuda, dtype):
     torch.cuda.synchronize()
     assert rollout.ROLLOUT_LAUNCHES == 1 and rollout.SENS_LAUNCHES == 1
     assert (ref == 0).any() and (ref == TUMOR_CLIP[1]).any()
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_more_coordinates_than_the_bound_go_in_groups_on_cuda(cuda, dtype):
+    """Kr = 100 active coordinates against the kernel's 72: two launches,
+    whose blocks side by side are the plain version's sensitivities."""
+    case = split_case()
+    act = active(case[1])
+    bound = rollout.kernel_bounds()['Kr']
+    assert len(act) == 100 > bound
+    rtol, atol = TOL[dtype]
+    rollout.reset_launch_counts()
+    y, s = run_port(rollout.rollout_with_sens, case, act, device=cuda,
+                    dtype=dtype)
+    torch.cuda.synchronize()
+    assert rollout.SENS_LAUNCHES == -(-100 // bound) == 2
+    y_ref, s_ref = run_port(rollout.rollout_with_sens_plain, case, act,
+                            device=cuda, dtype=dtype)
+    assert s.shape == (33, 14, 100)
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)
+    with pytest.raises(ValueError, match='active coordinates'):
+        run_port(rollout._sens_cuda, case, act, rollout.STEPS_FOR_DT, None,
+                 device=cuda, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_joint_fold_matches_plain_joint_on_cuda(cuda, dtype):
+    """The joint model through the kernels (folded: one launch each)
+    against the plain joint rollout and its sensitivity recurrence."""
+    spec, coefs, y0, statics, treatments, dt = joint_case()
+    lib = PolynomialLibrary(**spec)
+    fold = JointFold(lib, 2)
+    f = dict(dtype=dtype, device=cuda)
+    c, y0_t, u = (torch.as_tensor(x, **f) for x in (coefs, y0, statics))
+    arms = torch.as_tensor(combination_index(treatments), device=cuda)
+    act = tuple(range(11))
+    assert len(fold.effective_active(act)[0]) == 16
+    rtol, atol = TOL[dtype]
+    rollout.reset_launch_counts()
+    out = fold.rollout(c, y0_t, u, arms, dt, y_clip=TUMOR_CLIP)
+    y, s = fold.rollout_with_sens(c, y0_t, u, arms, dt, act,
+                                  y_clip=TUMOR_CLIP)
+    torch.cuda.synchronize()
+    assert rollout.ROLLOUT_LAUNCHES == 1 and rollout.SENS_LAUNCHES == 1
+    zeros = torch.zeros_like(arms)
+    tr = torch.as_tensor(treatments, **f)
+    ref = rollout.batched_rollout_plain(lib, c, y0_t, u, zeros, dt,
+                                        y_clip=TUMOR_CLIP, treatments=tr)
+    y_ref, s_ref = rollout.rollout_with_sens_plain(
+        lib, c, y0_t, u, zeros, dt, act, y_clip=TUMOR_CLIP, treatments=tr)
+    assert (ref == 0).any() and s.shape == (53, 21, 11)
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)

@@ -2,6 +2,7 @@
 sweep through `python -m insite_tpu_torch.run` whose log the JAX parser
 reads, and the LaTeX main table against the JAX package's text."""
 
+import ast
 import math
 
 import numpy as np
@@ -105,10 +106,17 @@ def test_ci_and_format():
     dict(metrics_jsonl='logs/metrics.jsonl'), dict(methods=('ct',)),
     dict(methods=('wsindy',))])
 def test_later_slices_raise(change):
+    """Settings and methods of later slices raise; wsindy is served."""
     cfg = RunConfig(methods=('sindy',), datasets=('EQ_4_A',), seed_runs=1,
                     **TINY)
     for k, v in change.items():
         setattr(cfg, k, v)
+    if change == dict(methods=('wsindy',)):
+        rows, _ = runner.sweep(cfg, device='cpu', dtype=torch.float64)
+        assert [(r['method_name'], r['errored'], r['fine_tuned'])
+                for r in rows] == [('wsindy', False, False)]
+        assert 0 < rows[0]['encoder_test_rmse_orig'] < 1
+        return
     with pytest.raises(NotImplementedError):
         runner.sweep(cfg, device='cpu')
 
@@ -116,7 +124,19 @@ def test_later_slices_raise(change):
 @pytest.mark.parametrize('experiment', [e for e in runner.Experiment
                                         if e != runner.Experiment.MAIN_TABLE])
 def test_other_experiments_raise(experiment):
-    cfg = RunConfig(methods=('sindy',), datasets=('EQ_4_A',), **TINY)
+    """The three sweeps over gamma, noise and cohort size raise, naming
+    themselves; the two ablations and the recovery run a row."""
+    cfg = RunConfig(methods=('sindy',), datasets=('EQ_4_A',), seed_runs=1,
+                    **TINY)
+    if experiment in runner.SERVED_EXPERIMENTS:
+        rows, tables = runner.sweep(cfg, experiment, device='cpu',
+                                    dtype=torch.float64)
+        assert [r['errored'] for r in rows] == [False]
+        joint = experiment == runner.Experiment.ABLATION_ONE_ODE
+        assert rows[0]['global_equation_string'].startswith(
+            'Joint Model' if joint else 'Treatment 0')
+        assert 'encoder_test_rmse_orig' in tables
+        return
     with pytest.raises(NotImplementedError, match=experiment.name):
         runner.sweep(cfg, experiment, device='cpu')
 
@@ -129,6 +149,14 @@ def test_rows_hold_plain_values_only():
     assert repr(row) == "{'a': 0.5, 'b': 3, 'c': True, 'd': 'x'}"
     with pytest.raises(TypeError):
         runner._plain({'a': np.zeros(2)})
+    # (nested) lists of plain values stay literals
+    nested = runner._plain({'m': [[np.float64(0.5), 1.0], [2.0, 3.0]],
+                            't': (np.int64(1), 2)})
+    assert nested == {'m': [[0.5, 1.0], [2.0, 3.0]], 't': [1, 2]}
+    assert ast.literal_eval(repr(nested)) == nested
+    assert type(nested['m'][0][0]) is float
+    with pytest.raises(TypeError):
+        runner._plain({'m': [[0.5, np.zeros(2)]]})
 
 
 def test_cli_without_a_card_raises():

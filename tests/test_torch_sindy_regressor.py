@@ -127,8 +127,19 @@ def test_empty_support_matches_jax(pristine):
     ('insite_solver', 'bfgs'), ('dataset_name', 'MIMIC'),
     ('rollout_backend', 'xla')])
 def test_later_slices_raise(field, value):
+    """What the estimator does not serve raises at construction; the weak
+    fit, the joint model and the degree-4 library are served (their parity
+    tests: test_torch_wsindy.py, test_torch_joint.py,
+    test_torch_degree4.py)."""
+    cfg = SINDyConfig(**{field: value})
+    if field in ('wsindy', 'joint_model',
+                 'ablation_more_complex_basis_functions'):
+        model = SINDyRegressor(cfg, None, **F64)
+        assert getattr(model.cfg, field) is True
+        assert model._n_arms == (1 if field == 'joint_model' else 2)
+        return
     with pytest.raises(NotImplementedError):
-        SINDyRegressor(SINDyConfig(**{field: value}), None, **F64)
+        SINDyRegressor(cfg, None, **F64)
 
 
 def test_y_clip_resolution():
