@@ -42,7 +42,8 @@ def coefs_from_numpy(c, device, dtype) -> torch.Tensor:
 
 def collection_from_numpy(raw_subsets: dict, scaling_params,
                           equation_name: str, *, projection_horizon: int,
-                          treatment_mode: str, sim_params: dict = None):
+                          treatment_mode: str, sim_params: dict = None,
+                          seed: int = 0):
     """The port's collection of ``equation_name`` (EQ_4_*: PKPD;
     CANCER_SIM or cancer_sim: cancer; EQ_5_*: continuous) over simulated,
     unprocessed subsets: ``raw_subsets`` maps train_f / val_f /
@@ -53,7 +54,9 @@ def collection_from_numpy(raw_subsets: dict, scaling_params,
     (the raw binary treatment columns, as the one-ODE ablation reads them).
     ``sim_params`` optionally maps a subset's name to its simulator
     parameters (numpy), which become that subset's ``sim_params`` (the
-    hidden constants the recovery analysis reads). The dicts are copied
+    hidden constants the recovery analysis reads). ``seed`` is the seed the
+    subsets were simulated from; the collection's holdout split draws its
+    permutation from it, as the source collection would. The dicts are copied
     shallowly; processing adds keys to the copies and writes into no
     array."""
     equation_name = model_dataset_name(equation_name)
@@ -69,8 +72,25 @@ def collection_from_numpy(raw_subsets: dict, scaling_params,
         {k: {n: np.asarray(a) for n, a in d.items()}
          for k, d in raw_subsets.items()},
         scaling_params, equation_name,
-        projection_horizon=projection_horizon, treatment_mode=treatment_mode)
+        projection_horizon=projection_horizon, treatment_mode=treatment_mode,
+        seed=seed)
     for subset, params in (sim_params or {}).items():
         getattr(coll, subset).sim_params = {
             k: np.asarray(v) for k, v in params.items()}
     return coll
+
+
+def msm_state_from_numpy(msm, prop_treat, prop_hist, regressors):
+    """Put a fitted marginal structural model's state into the port's
+    ``msm`` (`models/msm.py::MSM`): the two propensity models as ``(W [K, D],
+    b [K])`` pairs and the ``projection_horizon + 1`` regressors'
+    ``[(D + 1), K]`` coefficients (intercept last), for example the
+    ``prop_treat``, ``prop_hist`` and ``regressors`` of a fitted JAX-package
+    MSM. Returns ``msm``, which then predicts without a fit of its own."""
+    msm.prop_treat = tuple(np.asarray(a, np.float64) for a in prop_treat)
+    msm.prop_hist = tuple(np.asarray(a, np.float64) for a in prop_hist)
+    msm.regressors = [np.asarray(c, np.float64) for c in regressors]
+    if len(msm.regressors) != msm.cfg.projection_horizon + 1:
+        raise ValueError(f'{len(msm.regressors)} regressors for a projection '
+                         f'horizon of {msm.cfg.projection_horizon}')
+    return msm

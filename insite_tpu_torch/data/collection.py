@@ -1,11 +1,13 @@
 """Dataset collections: the four benchmark subsets (train_f, val_f,
-test_cf_one_step, test_cf_treatment_seq) and the processing entry point of
-the ODE-discovery methods, for the EQ_4 family and the tumor family
-(cancer_sim and EQ_5)."""
+test_cf_one_step, test_cf_treatment_seq) and the processing entry points of
+the methods (multi-input: the ODE family, MSM and CT; encoder and decoder:
+the sequence-to-sequence baselines), for the EQ_4 family and the tumor
+family (cancer_sim and EQ_5)."""
 
 from __future__ import annotations
 
 import functools
+from copy import deepcopy
 
 import numpy as np
 import torch
@@ -26,24 +28,31 @@ class DatasetCollection:
     """train_f / val_f / test_cf_one_step / test_cf_treatment_seq."""
 
     def __init__(self):
+        self.processed_data_encoder = False
+        self.processed_data_decoder = False
         self.processed_data_multi = False
+        self.processed_data_msm = False
         self.train_f = None
         self.val_f = None
         self.test_cf_one_step = None
         self.test_cf_treatment_seq = None
         self.train_scaling_params = None
         self.projection_horizon = None
+        self.autoregressive = True
+        self.has_vitals = False
         self.treatment_mode = 'multiclass'
 
     def _process(self, ds: SeqDataset, include_continuous_treatment=False):
         raise NotImplementedError
 
     def _adopt_subsets(self, raw_subsets: dict, scaling_params,
-                       projection_horizon: int, treatment_mode: str):
+                       projection_horizon: int, treatment_mode: str,
+                       seed: int):
         """Take already simulated, unprocessed subsets (numpy dicts keyed
-        like `SUBSETS`) and the train scaling parameters ``(means,
-        stds)``."""
-        self.seed = None
+        like `SUBSETS`), the train scaling parameters ``(means, stds)`` and
+        the seed they were simulated from (`split_train_f_holdout` draws
+        from it)."""
+        self.seed = seed
         self.device = None
         self.projection_horizon = projection_horizon
         self.treatment_mode = treatment_mode
@@ -52,6 +61,12 @@ class DatasetCollection:
                                            SUBSET_NAMES[attr],
                                            norm_const=self.norm_const))
         self.train_scaling_params = scaling_params
+
+    def process_data_encoder(self):
+        """The processing of an encoder (CRN, RMSN, EDCT)."""
+        for ds in (self.train_f, self.val_f, self.test_cf_one_step):
+            self._process(ds)
+        self.processed_data_encoder = True
 
     def process_data_multi(self, include_continuous_treatment=False):
         """The processing of CT and the SINDy family: every subset, then the
@@ -65,6 +80,57 @@ class DatasetCollection:
         self.test_cf_treatment_seq.process_sequential_multi(
             self.projection_horizon)
         self.processed_data_multi = True
+
+    def process_data_decoder(self, encoder, save_encoder_r=False):
+        """The processing of a decoder (CRN, RMSN, EDCT): rolling-origin
+        training rows and the test windows, each starting from the fitted
+        ``encoder``'s representation."""
+        for ds in (self.train_f, self.val_f, self.test_cf_treatment_seq):
+            self._process(ds)
+        r_train = encoder.get_representations(self.train_f)
+        r_val = encoder.get_representations(self.val_f)
+        r_test = encoder.get_representations(self.test_cf_treatment_seq)
+        out_test = encoder.get_predictions(self.test_cf_treatment_seq)
+        self.train_f.process_sequential(r_train, self.projection_horizon,
+                                        save_encoder_r)
+        self.val_f.process_sequential(r_val, self.projection_horizon,
+                                      save_encoder_r)
+        self.test_cf_treatment_seq.process_sequential_test(
+            self.projection_horizon, r_test, save_encoder_r)
+        self.test_cf_treatment_seq.process_autoregressive_test(
+            r_test, out_test, self.projection_horizon, save_encoder_r)
+        self.processed_data_decoder = True
+
+    def process_propensity_train_f(self, propensity_treatment,
+                                   propensity_history):
+        """Stabilised weights of the training set from two fitted
+        propensity networks (RMSN)."""
+        pt = propensity_treatment.get_propensity_scores(self.train_f)
+        ph = propensity_history.get_propensity_scores(self.train_f)
+        self.train_f.data['stabilized_weights'] = np.prod(pt / ph, axis=2)
+
+    def split_train_f_holdout(self, holdout_ratio=0.1):
+        """Move ``ceil(n * holdout_ratio)`` training rows, drawn from
+        ``RandomState(self.seed)``, into ``train_f_holdout`` (G-Net)."""
+        if hasattr(self, 'train_f_holdout') or holdout_ratio <= 0.0:
+            return
+        n = len(self.train_f)
+        rng = np.random.RandomState(self.seed)
+        perm = rng.permutation(n)
+        n_holdout = int(np.ceil(n * holdout_ratio))
+        hold_idx, train_idx = perm[:n_holdout], perm[n_holdout:]
+        self.train_f_holdout = deepcopy(self.train_f)
+        for k, v in list(self.train_f.data.items()):
+            if hasattr(v, 'shape') and v.shape[:1] == (n,):
+                self.train_f.data[k] = v[train_idx]
+                self.train_f_holdout.data[k] = v[hold_idx]
+
+    def explode_cf_treatment_seq(self, mc_samples=1):
+        """The Monte-Carlo views of the n-step test set (G-Net): a list of
+        references, since a model copies the arrays it writes into."""
+        if not hasattr(self, 'test_cf_treatment_seq_mc'):
+            self.test_cf_treatment_seq_mc = \
+                [self.test_cf_treatment_seq] * mc_samples
 
 
 class PkpdDatasetCollection(DatasetCollection):
@@ -125,17 +191,18 @@ class PkpdDatasetCollection(DatasetCollection):
     @classmethod
     def from_subsets(cls, raw_subsets: dict, scaling_params,
                      equation_name: str, *, projection_horizon: int,
-                     treatment_mode: str) -> 'PkpdDatasetCollection':
+                     treatment_mode: str,
+                     seed: int = 0) -> 'PkpdDatasetCollection':
         """A collection over already simulated, unprocessed subsets (numpy
         dicts keyed like `SUBSETS`), with the given train scaling
-        parameters ``(means, stds)``."""
+        parameters ``(means, stds)`` and the seed of the simulation."""
         self = cls.__new__(cls)
         DatasetCollection.__init__(self)
         self.equation = pkpd.Equation[equation_name]
         self.equation_name = equation_name
         self.norm_const = MAX_VALUE
         self._adopt_subsets(raw_subsets, scaling_params, projection_horizon,
-                            treatment_mode)
+                            treatment_mode, seed)
         return self
 
     def _process(self, ds: SeqDataset, include_continuous_treatment=False):
@@ -203,16 +270,17 @@ class CancerDatasetCollection(DatasetCollection):
     @classmethod
     def from_subsets(cls, raw_subsets: dict, scaling_params,
                      equation_name: str, *, projection_horizon: int,
-                     treatment_mode: str) -> 'CancerDatasetCollection':
+                     treatment_mode: str,
+                     seed: int = 0) -> 'CancerDatasetCollection':
         """A collection over already simulated, unprocessed subsets (numpy
         dicts keyed like `SUBSETS`), with the given train scaling
-        parameters ``(means, stds)``."""
+        parameters ``(means, stds)`` and the seed of the simulation."""
         self = cls.__new__(cls)
         DatasetCollection.__init__(self)
         self.equation_name = equation_name
         self.norm_const = TUMOUR_DEATH_THRESHOLD
         self._adopt_subsets(raw_subsets, scaling_params, projection_horizon,
-                            treatment_mode)
+                            treatment_mode, seed)
         return self
 
     def _process(self, ds: SeqDataset, include_continuous_treatment=False):

@@ -1,10 +1,10 @@
 """Experiment configuration: the outer sweep config as a plain dataclass,
 with the fields and defaults of `insite_tpu.harness.config.RunConfig`.
 
-The sweep (`harness/runner.py`) raises `NotImplementedError` for the
-settings of later slices: tuning, the dataset cache, resume, isolated runs,
-the JSONL metrics sink and experiments other than MAIN_TABLE. Loading from
-YAML waits for a slice that needs it.
+The sweep (`harness/runner.py`) serves every experiment and raises
+`NotImplementedError` for the settings of later slices: tuning, the dataset
+cache, resume, isolated runs and the JSONL metrics sink. Loading from YAML
+waits for a slice that needs it.
 """
 
 from __future__ import annotations

@@ -1,19 +1,24 @@
-"""The sweep: enumerate (dataset, method, seed, gamma) runs, run each through
-seed -> dataset collection -> fit -> 1-step RMSE -> n-step RMSEs, wall off
-their faults, and log one row per run.
+"""The sweep: enumerate (dataset, method, seed, gamma[, setting]) runs, run
+each through seed -> dataset collection -> fit -> 1-step RMSE -> n-step
+RMSEs, wall off their faults, and log one row per run.
 
 The '[Exp evaluation complete] {...}' log lines are the results database:
 `harness/results.py::rows_from_log` and the JAX package's `df_from_log`
 read them back. Every value in a row is a plain Python float, int, bool or
 str, or a (nested) list of such, so the row's repr is a Python literal.
 
-The port serves the ``sindy``, ``wsindy`` and ``insite`` methods on the
-EQ_4 family, cancer_sim and EQ_5, in the experiments MAIN_TABLE,
-ABLATION_ONE_ODE (one joint ODE over multilabel treatments),
-ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS (the degree-4 library) and
+The port serves the ``sindy``, ``wsindy``, ``insite`` and ``msm`` methods
+on the EQ_4 family, cancer_sim and EQ_5, in all seven experiments:
+MAIN_TABLE, ABLATION_ONE_ODE (one joint ODE over multilabel treatments),
+ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS (the degree-4 library),
 INSIGHT_RECOVER_PARAMETRIC_DIST (the per-patient coefficient distribution
-of the validation cohort); the rest raises `NotImplementedError` naming
-the slice of ROADMAP.md that brings it.
+of the validation cohort) and the three robustness sweeps on the EQ_4
+family, INSIGHT_CONFOUNDING (gamma over ``cfg.domain_confs`` on EQ_4_D),
+INSIGHT_NOISE (the observation-noise scale over ``cfg.noise_scales`` on
+EQ_4_B) and INSIGHT_LESS_SAMPLES (the training cohort over
+``cfg.train_sample_grid`` on EQ_4_D). The neural methods and the sweep's
+tuning, cache, resume, isolation and metrics-sink settings raise
+`NotImplementedError` naming the slice of ROADMAP.md that brings them.
 """
 
 from __future__ import annotations
@@ -36,9 +41,10 @@ from insite_tpu_torch.harness.results import generate_main_results_table
 
 logger = logging.getLogger('insite_tpu_torch')
 
-METHODS = ('sindy', 'insite', 'wsindy')
-LATER_METHODS = {'msm': 'Slice 5', 'ct': 'Slice 6', 'crn': 'Slice 6',
-                 'rmsn': 'Slice 6', 'gnet': 'Slice 6', 'edct': 'Slice 6'}
+SINDY_METHODS = ('sindy', 'insite', 'wsindy')
+METHODS = SINDY_METHODS + ('msm',)
+LATER_METHODS = {'ct': 'Slice 6', 'crn': 'Slice 6', 'rmsn': 'Slice 6',
+                 'gnet': 'Slice 6', 'edct': 'Slice 6'}
 
 
 class Experiment(Enum):
@@ -51,19 +57,18 @@ class Experiment(Enum):
     INSIGHT_LESS_SAMPLES = 7
 
 
-# each runs (dataset, method, seed) cells at one gamma; the other three
-# sweep gamma, the noise scale or the cohort size
-SERVED_EXPERIMENTS = (Experiment.MAIN_TABLE, Experiment.ABLATION_ONE_ODE,
-                      Experiment.ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS,
-                      Experiment.INSIGHT_RECOVER_PARAMETRIC_DIST)
+# these run (dataset, method, seed) cells of ``cfg.datasets`` at one gamma;
+# the other three sweep gamma, the noise scale or the cohort size on one
+# fixed EQ_4 dataset
+TABLE_EXPERIMENTS = (Experiment.MAIN_TABLE, Experiment.ABLATION_ONE_ODE,
+                     Experiment.ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS,
+                     Experiment.INSIGHT_RECOVER_PARAMETRIC_DIST)
 
 
-def _require_served(cfg: RunConfig, experiment: Experiment,
-                    methods=()) -> None:
-    """Raise for what this slice does not serve."""
+def _require_served(cfg: RunConfig, methods=()) -> None:
+    """Raise for what the port does not serve yet: the neural methods
+    (Slice 6) and the sweep settings of Slice 7."""
     later = []
-    if experiment not in SERVED_EXPERIMENTS:
-        later.append(f'experiment {experiment.name} (Slice 7)')
     for name in ('tune_hparams', 'load_from_cache', 'force_recache',
                  'isolate_runs'):
         if getattr(cfg, name):
@@ -81,17 +86,20 @@ def _require_served(cfg: RunConfig, experiment: Experiment,
 def _collection_for(dataset_name, method_name, seed, domain_conf,
                     cfg: RunConfig, experiment=Experiment.MAIN_TABLE, *,
                     device, dtype=None):
-    """A fresh collection per run (the dataset cache is Slice 7); the
+    """A fresh collection per run (the dataset cache is Slice 7). The
     SINDy family runs multiclass, and multilabel under ABLATION_ONE_ODE,
-    whose joint library reads the raw treatment columns."""
+    whose joint library reads the raw treatment columns; every other method
+    runs multilabel."""
+    if method_name in SINDY_METHODS and \
+            experiment != Experiment.ABLATION_ONE_ODE:
+        treatment_mode = 'multiclass'
+    else:
+        treatment_mode = 'multilabel'
     num_patients = {'train': cfg.train_samples, 'val': cfg.val_samples,
                     'test': cfg.test_samples}
     return make_collection(dataset_name, num_patients, seed,
                            coeff=float(domain_conf),
-                           treatment_mode=(
-                               'multilabel'
-                               if experiment == Experiment.ABLATION_ONE_ODE
-                               else 'multiclass'),
+                           treatment_mode=treatment_mode,
                            cf_seq_mode=cfg.cf_seq_mode,
                            noise_scale=cfg.noise_scale, device=device,
                            dtype=dtype)
@@ -125,17 +133,36 @@ def _apply_model_overrides(mcfg, cfg: RunConfig, method_name: str,
     return dataclasses.replace(mcfg, **merged)
 
 
+def _dims_from_collection(coll) -> dict:
+    """The model-config dimensions a processed collection gives."""
+    d = coll.train_f.data
+    return dict(dim_outcome=d['outputs'].shape[-1],
+                dim_treatments=d['current_treatments'].shape[-1],
+                dim_static_features=d['static_features'].shape[-1])
+
+
 def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
                  domain_conf: float = 2.0,
                  experiment=Experiment.MAIN_TABLE, *, device, dtype=None):
-    """The SINDy-family estimator of one run (`method_name` sindy, wsindy
-    or insite), with the dataset's hyperparameters, the experiment's
-    ablation and the run's overlays. On EQ_5 the chemo dosage joins the
-    covariates."""
-    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    """The estimator of one run, with the run's overlays: for `method_name`
+    sindy, wsindy or insite a `SINDyRegressor` with the dataset's
+    hyperparameters and the experiment's ablation, on ``device``; for msm
+    an `MSM`, a host model in float64 whatever ``device`` and ``dtype``.
+    On EQ_5 the chemo dosage joins the covariates of the SINDy family
+    only."""
     if not coll.processed_data_multi:
         coll.process_data_multi(
-            include_continuous_treatment='EQ_5' in dataset_name)
+            include_continuous_treatment=('EQ_5' in dataset_name and
+                                          method_name in SINDY_METHODS))
+    if method_name == 'msm':
+        from insite_tpu_torch.models.msm import MSM, MSMConfig
+        mcfg = MSMConfig(max_epochs=cfg.epochs,
+                         **_dims_from_collection(coll))
+        return MSM(_apply_model_overrides(mcfg, cfg, method_name,
+                                          dataset_name, domain_conf), coll)
+    if method_name not in SINDY_METHODS:
+        raise NotImplementedError(method_name)
+    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
     thr, lam = sindy_params_for(dataset_name)
     mcfg = SINDyConfig(dataset_name=model_dataset_name(dataset_name),
                        sindy_threshold=thr,
@@ -163,7 +190,7 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
     the validation cohort's fine-tuned coefficients and, on the EQ_4
     family, how well they recover the hidden decay constants."""
     cfg = cfg or RunConfig()
-    _require_served(cfg, experiment, (method_name,))
+    _require_served(cfg, (method_name,))
     t0 = time.perf_counter()
     coll = _collection_for(dataset_name, method_name, seed, domain_conf,
                            cfg, experiment, device=device, dtype=dtype)
@@ -179,8 +206,9 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
     n_step = model.get_normalised_n_step_rmses(coll.test_cf_treatment_seq)
     results.update({f'decoder_test_rmse_{k + 2}-step': float(v)
                     for k, v in enumerate(np.asarray(n_step))})
-    results['global_equation_string'] = model.global_equation_string
-    results['fine_tuned'] = bool(model.insite)
+    if hasattr(model, 'global_equation_string'):
+        results['global_equation_string'] = model.global_equation_string
+        results['fine_tuned'] = bool(getattr(model, 'insite', False))
     if experiment == Experiment.INSIGHT_RECOVER_PARAMETRIC_DIST and \
             method_name == 'insite':
         c = model.get_fine_tuned_coefficients(coll.val_f)
@@ -228,6 +256,39 @@ def _sweep_fingerprint(cfg: RunConfig, experiment_name: str) -> dict:
     }
 
 
+def _enumerate_runs(cfg: RunConfig, experiment: Experiment) -> list:
+    """The sweep's runs in order: ``(dataset, method, seed, gamma)`` and,
+    where the experiment sweeps a field of the config, a fifth entry
+    ``{field: value}`` that overrides it for the run and joins its row.
+    Seeds are outermost, methods innermost."""
+    seeds = range(cfg.seed_start, cfg.seed_start + cfg.seed_runs)
+    if experiment in TABLE_EXPERIMENTS:
+        return [(dataset_name, method_name, seed, cfg.domain_conf)
+                for seed in seeds
+                for dataset_name in cfg.datasets
+                for method_name in cfg.methods]
+    if experiment == Experiment.INSIGHT_CONFOUNDING:
+        return [('EQ_4_D', method_name, seed, domain_conf)
+                for seed in seeds
+                for domain_conf in cfg.domain_confs
+                for method_name in cfg.methods]
+    if experiment == Experiment.INSIGHT_NOISE:
+        # observation-noise robustness on the noisy EQ_4 variant
+        return [('EQ_4_B', method_name, seed, cfg.domain_conf,
+                 {'noise_scale': noise_scale})
+                for seed in seeds
+                for noise_scale in cfg.noise_scales
+                for method_name in cfg.methods]
+    if experiment == Experiment.INSIGHT_LESS_SAMPLES:
+        # sample efficiency on EQ_4_D
+        return [('EQ_4_D', method_name, seed, cfg.domain_conf,
+                 {'train_samples': n_train})
+                for seed in seeds
+                for n_train in cfg.train_sample_grid
+                for method_name in cfg.methods]
+    raise ValueError(experiment)
+
+
 def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
           log=None, *, device, dtype=None):
     """The benchmark sweep on ``device`` with per-run fault isolation:
@@ -237,18 +298,15 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
     log = log or logger
     if cfg.flush_mode:
         cfg.flush()
-    _require_served(cfg, experiment, cfg.methods)
+    _require_served(cfg, cfg.methods)
 
-    args_for_runs = [(dataset_name, method_name, seed, cfg.domain_conf)
-                     for seed in range(cfg.seed_start,
-                                       cfg.seed_start + cfg.seed_runs)
-                     for dataset_name in cfg.datasets
-                     for method_name in cfg.methods]
+    args_for_runs = _enumerate_runs(cfg, experiment)
 
     # a typo'd overlay key would otherwise silently apply nothing
     if cfg.model_overrides:
         possible = set()
-        for ds, m, _, gamma in args_for_runs:
+        for run_args in args_for_runs:
+            ds, m, _, gamma = run_args[:4]
             possible |= {m, f'{m}@{ds}', f'{m}@{ds}/{"%g" % float(gamma)}'}
         unmatched = set(cfg.model_overrides) - possible
         if unmatched:
@@ -259,13 +317,16 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
 
     rows = []
     for args in args_for_runs:
-        dataset_name, method_name, seed, domain_conf = args
+        dataset_name, method_name, seed, domain_conf = args[:4]
+        overrides = args[4] if len(args) > 4 else {}
+        run_cfg = dataclasses.replace(cfg, **overrides) if overrides else cfg
         log.info(f'[Now evaluating exp] {args}')
         try:
             result = run_experiment(dataset_name, method_name, seed,
-                                    domain_conf, cfg, experiment,
+                                    domain_conf, run_cfg, experiment,
                                     device=device, dtype=dtype)
             result['errored'] = False
+            result.update(overrides)
         except Exception as e:          # the fault wall
             if cfg.debug_mode:
                 raise

@@ -1,7 +1,9 @@
-"""Benchmark sweep CLI of the PyTorch port: the ``sindy``, ``wsindy`` and
-``insite`` methods on the EQ_4 family, cancer_sim and EQ_5, for the main
-table, the one-ODE and degree-4 ablations and the parametric-distribution
-recovery.
+"""Benchmark sweep CLI of the PyTorch port: the ``sindy``, ``wsindy``,
+``insite`` and ``msm`` methods on the EQ_4 family, cancer_sim and EQ_5, for
+the main table, the one-ODE and degree-4 ablations, the
+parametric-distribution recovery and the three robustness sweeps
+(INSIGHT_CONFOUNDING, INSIGHT_NOISE, INSIGHT_LESS_SAMPLES, each on its own
+EQ_4 dataset).
 
 Usage:
     python -m insite_tpu_torch.run --flush --datasets EQ_4_D \
@@ -10,6 +12,11 @@ Usage:
         cancer_sim EQ_5_D --methods sindy insite    # on the host
     python -m insite_tpu_torch.run --experiment ABLATION_ONE_ODE \
         --datasets EQ_4_D cancer_sim --methods sindy insite
+    python -m insite_tpu_torch.run --experiment INSIGHT_NOISE \
+        --methods sindy insite msm --seeds 1
+
+``msm`` is a host model in float64 whatever the device; ``--epochs`` bounds
+the iterations of its propensity fits.
 
 Each run logs an '[Exp evaluation complete] {...}' line into
 ``<log dir>/run-<timestamp>.txt`` (the results database, read back by
@@ -35,6 +42,7 @@ def main(argv=None):
     p.add_argument('--datasets', nargs='+', default=None)
     p.add_argument('--seeds', type=int, default=None)
     p.add_argument('--seed-start', type=int, default=None)
+    p.add_argument('--epochs', type=int, default=None)
     p.add_argument('--train-samples', type=int, default=None)
     p.add_argument('--val-samples', type=int, default=None)
     p.add_argument('--test-samples', type=int, default=None)
@@ -65,8 +73,8 @@ def main(argv=None):
         cfg.datasets = tuple(args.datasets)
     if args.seeds is not None:
         cfg.seed_runs = args.seeds
-    for k in ('seed_start', 'train_samples', 'val_samples', 'test_samples',
-              'domain_conf', 'log_dir', 'experiment'):
+    for k in ('seed_start', 'epochs', 'train_samples', 'val_samples',
+              'test_samples', 'domain_conf', 'log_dir', 'experiment'):
         v = getattr(args, k)
         if v is not None:
             setattr(cfg, k, v)
