@@ -100,17 +100,35 @@ Phases, in order; any failure exits non-zero:
             at all six horizons (`MSM_REF`), EQ_4 rows between 0.5x (1 step)
             or 0.15x (2..6 steps) and 3x its value (`MSM_EQ4_BAND`).
             (b) the three robustness sweeps, sindy, insite and msm, seed 0,
-            the default grids: INSIGHT_CONFOUNDING (EQ_4_D, gamma 0..4),
-            INSIGHT_NOISE (EQ_4_B, noise scale 0..5), INSIGHT_LESS_SAMPLES
-            (EQ_4_D, 50..1,000 training patients): 45 rows, the launches
-            asserted exactly (2 rollout a sindy or insite row, 26 sensitivity
-            an insite row with a support, none for msm: 60 and 390); rows of
+            three settings of each default grid (the main table's and both
+            ends): INSIGHT_CONFOUNDING (EQ_4_D, gamma 0, 2, 4),
+            INSIGHT_NOISE (EQ_4_B, noise scale 0, 1, 5),
+            INSIGHT_LESS_SAMPLES (EQ_4_D, 50, 250, 1,000 training
+            patients): 27 rows, the launches asserted exactly (2 rollout a
+            sindy or insite row, 26 sensitivity an insite row with a
+            support, none for msm: 36 and 234); rows of
             the noise sweep carry `noise_scale`, of the sample sweep
             `train_samples`; insite below sindy at 1 step in every setting,
             insite 1-step < 0.05 % at noise 1.0 and at gamma 2, and every
             RMSE inside a two-sided band around the JAX package's
             (`INSIGHT_REF`; `INSIGHT_BANDS`: sindy 0.4-2.5x, insite 0.4-2.5x
             at 1 step and 0.3-2.5x at 6 steps, msm as in (a)).
+9. neural  ct and crn on EQ_4_D and cancer_sim through the port's sweep
+            (4 rows, seed 0, 1,000 / 100 / 100, 100 epochs, f32 on the
+            card, built from PyTorch ops: no kernel launch at all): the JAX
+            package's row keys in its order, every RMSE inside a two-sided
+            band around the JAX package's at seed 0 (`NEURAL_REF`;
+            `NEURAL_BANDS`: ct 0.3-2.5x at 1 step and 0.25-4.5x at 2..6
+            steps, crn 0.15-1.5x and 0.3-4x, from each method's own spread
+            over seeds 0-3 in the JAX package), and on
+            EQ_4_D both above phase 5's insite at 1 step; each run's stages,
+            the fit of each network with its batches per second, and peak
+            device memory. Then ct and crn f32 on the card against f32 on
+            the host from the same initial weights (EQ_4_D, 200 / 10 / 10,
+            dropout 0, one batch per epoch, 3 epochs; predictions within
+            rtol 1e-3), and the device's idle share during one crn fit of
+            one epoch (torch.profiler, in a process of its own: `tools/
+            profile_torch_northstar.py --path fit`).
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -346,13 +364,59 @@ MSM_EQ4_BAND = ((0.5, 3.0), (0.15, 3.0))
 INSIGHT_BANDS = {'sindy': ((0.4, 2.5), (0.4, 2.5)),
                  'insite': ((0.4, 2.5), (0.3, 2.5)),
                  'msm': MSM_EQ4_BAND}
-# (experiment, dataset, the row key of the setting, the grid): the defaults
-# of `RunConfig`
+# The JAX package's ct and crn rows at seed 0, 1,000 / 100 / 100 patients,
+# 100 epochs, float32 on the CPU: the 1-step and the 2..6-step RMSE, %, from
+# `JAX_PLATFORMS=cpu python3 tools/neural_reference_rmses.py --seed 0`.
+NEURAL_REF = {
+    ('EQ_4_D', 'ct'): (0.2500825587081397, 0.32450028360104394,
+                       0.40761769817619947, 0.4582020154822059,
+                       0.5005952555899437, 0.5134947044379061),
+    ('EQ_4_D', 'crn'): (1.6693128629522436, 0.6652898774247021,
+                        0.6532399152784466, 0.7364112841399117,
+                        0.8379428533022587, 0.9328439042410425),
+    ('cancer_sim', 'ct'): (0.8858592719360117, 0.9425512460934417,
+                           1.1226936225562807, 1.237430379912266,
+                           1.3042949139986377, 1.3198181423820459),
+    ('cancer_sim', 'crn'): (0.6638794313216366, 0.7577241437228609,
+                            0.8595473776013498, 0.9350968431050278,
+                            0.988527879213489, 1.0316703332494481)}
+NEURAL_DATASETS = ('EQ_4_D', 'cancer_sim')
+NEURAL_METHODS = ('ct', 'crn')
+# by method, the (lower, upper) factors on `NEURAL_REF` at 1 step and at
+# 2..6 steps: the two packages' training draws differ (shuffles, dropout
+# masks, initial weights) and so do their EQ_4 cohorts, so a row lands
+# anywhere in the method's spread over seeds. That spread is the JAX
+# package's own rows at seeds 0-3 (the tool above with --seed 0..3), as
+# ratios to seed 0, over both datasets:
+#   ct   1 step x0.613-1.739, 2..6 steps x0.575-3.395 (EQ_4_D 2-step, seed 2)
+#   crn  1 step x0.375-1.196, 2..6 steps x0.657-3.143 (EQ_4_D 2-step, seed 2)
+# Each lower edge is half the lowest ratio, rounded down to 0.05; each upper
+# edge 1.25x the highest, rounded up to 0.5. The port is read against these
+# edges, which come from the reference alone.
+NEURAL_BANDS = {'ct': ((0.3, 2.5), (0.25, 4.5)),
+                'crn': ((0.15, 1.5), (0.3, 4.0))}
+# a neural row's keys in the JAX package's order
+NEURAL_ROW_KEYS = (['encoder_test_rmse_all', 'encoder_test_rmse_orig',
+                    'encoder_test_rmse_last'] +
+                   [f'decoder_test_rmse_{k}-step' for k in range(2, 7)] +
+                   ['method', 'seed', 'seconds_taken', 'errored',
+                    'dataset_name', 'method_name', 'domain_conf'])
+# card f32 against host f32 from the same initial weights (dropout 0, one
+# batch per epoch, 3 epochs): the predictions' relative tolerance
+NEURAL_CARD_RTOL = 1e-3
+# (experiment, dataset, the row key of the setting, the `RunConfig` field
+# of the grid, the grid): three of each default grid's five settings, the
+# main table's and both ends, to keep the script well inside its time limit
 INSIGHT_SWEEPS = (
-    ('INSIGHT_CONFOUNDING', 'EQ_4_D', 'domain_conf', (0, 1, 2, 3, 4)),
-    ('INSIGHT_NOISE', 'EQ_4_B', 'noise_scale', (0.0, 0.5, 1.0, 2.0, 5.0)),
-    ('INSIGHT_LESS_SAMPLES', 'EQ_4_D', 'train_samples',
-     (50, 100, 250, 500, 1000)))
+    ('INSIGHT_CONFOUNDING', 'EQ_4_D', 'domain_conf', 'domain_confs',
+     (0, 2, 4)),
+    ('INSIGHT_NOISE', 'EQ_4_B', 'noise_scale', 'noise_scales',
+     (0.0, 1.0, 5.0)),
+    ('INSIGHT_LESS_SAMPLES', 'EQ_4_D', 'train_samples', 'train_sample_grid',
+     (50, 250, 1000)))
+# repetitions of a plain version in phase 3's call timing (each takes
+# 0.1-0.3 s; the kernels take 20)
+PLAIN_REPS = 5
 # the settings that are the main table's EQ_4_D and EQ_4_B rows: insite's
 # 1-step limit there is the main table's
 INSIGHT_MAIN_TABLE_SETTINGS = {('INSIGHT_CONFOUNDING', 2),
@@ -841,14 +905,17 @@ def run_kernel_case(name, case, device, timed):
                     *args, y_clip=clip)),
                 'rollout_plain_ms': time_ms(
                     lambda: rollout.batched_rollout_plain(*args,
-                                                          y_clip=clip)),
+                                                          y_clip=clip),
+                    reps=PLAIN_REPS, warmup=1),
                 'sens_ms': time_ms(lambda: rollout.rollout_with_sens(
                     *args, act, y_clip=clip)),
                 'sens_plain_ms': time_ms(
                     lambda: rollout.rollout_with_sens_plain(*args, act,
-                                                            y_clip=clip)),
+                                                            y_clip=clip),
+                    reps=PLAIN_REPS, warmup=1),
             }
-            log(f'  {name} f32 time per call (median of 20): rollout '
+            log(f'  {name} f32 time per call (median of 20, plain of '
+                f'{PLAIN_REPS}): rollout '
                 f'{t["rollout_ms"]:.4f} ms vs plain '
                 f'{t["rollout_plain_ms"]:.2f} ms; sens {t["sens_ms"]:.4f} '
                 f'ms vs plain {t["sens_plain_ms"]:.2f} ms')
@@ -939,17 +1006,27 @@ def check_small_cohort(device):
 def stage_timer(records, device):
     """Time each sweep run's stages between device synchronisations:
     collection (simulation + host copy), processing, fit, 1-step and
-    n-step predictions, of the SINDy family and of msm; and its peak device
-    memory. One record per run, in sweep order."""
+    n-step predictions, of the SINDy family, msm, ct and crn; the fit of
+    each network apart (``fit_stages``: seconds and batches, CRN's encoder
+    then its decoder); and the run's peak device memory. One record per
+    run, in sweep order."""
     import torch
     from insite_tpu_torch.harness import runner
+    from insite_tpu_torch.models.crn import CRN
+    from insite_tpu_torch.models.ct import CausalTransformer
     from insite_tpu_torch.models.msm import MSM
+    from insite_tpu_torch.models.nn.training import BRStage
     from insite_tpu_torch.models.sindy import SINDyRegressor
+    # ct's and crn's 1-step predictions (crn's: its encoder's) go through
+    # BRStage.get_predictions; the last call of a run is the runner's
     hooks = [(runner, '_collection_for', 'collection'),
-             (runner, '_build_model', 'process')]
+             (runner, '_build_model', 'process'),
+             (BRStage, 'fit_stage', 'fit_stage'),
+             (BRStage, 'get_predictions', 'predict_1_step')]
     for cls in (SINDyRegressor, MSM):
+        hooks.append((cls, 'get_predictions', 'predict_1_step'))
+    for cls in (SINDyRegressor, MSM, CausalTransformer, CRN):
         hooks += [(cls, 'fit', 'fit'),
-                  (cls, 'get_predictions', 'predict_1_step'),
                   (cls, 'get_autoregressive_predictions', 'predict_n_step')]
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
 
@@ -975,6 +1052,13 @@ def stage_timer(records, device):
                         model._fold.effective_active(active)[0])
             if stage.startswith('predict'):
                 records[-1]['rows_' + stage] = len(args[1])
+            if stage == 'fit_stage':
+                stage_, data = args[:2]
+                n = len(data['outputs'])
+                batches = (stage_.train_cfg.epochs *
+                           (n // min(stage_.train_cfg.batch_size, n)))
+                records[-1].setdefault('fit_stages', []).append(
+                    (records[-1].pop(stage), batches))
             records[-1]['peak_mib'] = \
                 torch.cuda.max_memory_allocated(device) / 2**20
             return out
@@ -1008,12 +1092,13 @@ def check_bands(rows):
 
 
 def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
-              experiment='MAIN_TABLE', n_rows=None):
+              experiment='MAIN_TABLE', n_rows=None, **settings):
     """The port's sweep of ``methods`` over ``datasets`` on the card (one
     seed, 1,000 / 100 / 100, debug mode), with each run's stage times,
     peak memory and Kr (none for msm) printed; ``n_rows`` where the
-    experiment enumerates settings of its own dataset and not ``datasets``.
-    Returns (rows, records, launches)."""
+    experiment enumerates settings of its own dataset and not ``datasets``;
+    ``settings``: further `RunConfig` fields (an INSIGHT grid). Returns
+    (rows, records, launches)."""
     import torch
     from insite_tpu_torch.harness.config import RunConfig
     from insite_tpu_torch.harness.logging_utils import (
@@ -1023,7 +1108,7 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
     records = []
     with tempfile.TemporaryDirectory() as log_dir:
         cfg = RunConfig(methods=methods, datasets=datasets, seed_runs=1,
-                        log_dir=log_dir, debug_mode=True)
+                        log_dir=log_dir, debug_mode=True, **settings)
         logger = create_logger_in_process(generate_log_file_path('run',
                                                                  log_dir))
         with stage_timer(records, device):
@@ -1052,6 +1137,11 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
             f'{row["seconds_taken"]:.4f} s | ' + ' '.join(
                 f'{s} {rec[s]:.4f}' for s in stages) +
             f' s | peak {rec["peak_mib"]:.1f} MiB | Kr {rec.get("kr")}')
+        for i, (sec, batches) in enumerate(rec.get('fit_stages', ())):
+            net = ('network' if len(rec['fit_stages']) == 1 else
+                   ('encoder', 'decoder')[i])
+            log(f'    fit of the {net}: {sec:.4f} s, {batches} batches of '
+                f'two optimizer steps, {batches / sec:.1f} batches/s')
         if 'global_equation_string' in row:
             log(f'    {row["global_equation_string"]}')
     log(f'[{tag}] sweep wall {wall:.4f} s; kernel launches: {launches}')
@@ -1095,14 +1185,15 @@ def expected_launches(rows, records, experiment='MAIN_TABLE'):
 
 
 def run_main_table(device):
-    """Phase 5: the port's sweep over the EQ_4 main table on the card."""
+    """Phase 5: the port's sweep over the EQ_4 main table on the card.
+    Returns its launches and rows."""
     rows, records, launches = run_sweep(device, DATASETS, 'table')
     want = {'rollout': 2 * 2 * len(DATASETS),
             'sens': 2 * (GN_ITERS + 1) * len(DATASETS)}
     if launches != want:
         raise AssertionError(f'expected {want} launches, got {launches}')
     check_bands(rows)
-    return launches
+    return launches, rows
 
 
 def run_tumor_table(device):
@@ -1247,17 +1338,17 @@ def run_msm_table(device):
 
 def run_insight_sweeps(device):
     """Phase 8b: the three robustness sweeps (sindy, insite, msm; seed 0;
-    the default grids) through the port's sweep on the card. Launches are
+    `INSIGHT_SWEEPS`) through the port's sweep on the card. Launches are
     asserted exactly per sweep; every RMSE is held to the two-sided
     `INSIGHT_BANDS` around the JAX package's (`INSIGHT_REF`). Returns the launches of all three."""
     total = {'rollout': 0, 'sens': 0}
     metrics = (RMSE_METRICS[0], RMSE_METRICS[-1])
-    for experiment, dataset, key, grid in INSIGHT_SWEEPS:
+    for experiment, dataset, key, field, grid in INSIGHT_SWEEPS:
         log(f'[insight] {experiment}: {", ".join(INSIGHT_METHODS)} on '
             f'{dataset}, {key} over {grid}, seed 0, 1000/100/100')
         rows, records, launches = run_sweep(
             device, (dataset,), experiment, INSIGHT_METHODS, experiment,
-            n_rows=len(grid) * len(INSIGHT_METHODS))
+            n_rows=len(grid) * len(INSIGHT_METHODS), **{field: grid})
         want = expected_launches(rows, records, experiment)
         full = {'rollout': 4 * len(grid),
                 'sens': 2 * (GN_ITERS + 1) * len(grid)}
@@ -1345,6 +1436,118 @@ def check_card_against_host(device, name='EQ_4_D', n_train=200):
     np.testing.assert_allclose(c_k, c_h, rtol=1e-3, atol=1e-6)
     if abs(one_k / one_h - 1) > 0.05 or abs(six_k / six_h - 1) > 0.05:
         raise AssertionError('card and host RMSEs differ by more than 5 %')
+
+
+def run_neural(device, insite_eq4d_one_step):
+    """Phase 9: ct and crn on EQ_4_D and cancer_sim through the port's
+    sweep on the card (seed 0, 1,000 / 100 / 100, 100 epochs, f32): 4
+    rows, none errored, with the JAX package's keys in its order, no kernel
+    launch, every RMSE inside `NEURAL_BANDS` around `NEURAL_REF`, and on
+    EQ_4_D both above phase 5's insite at 1 step. Returns the launches."""
+    log(f'[neural] sweep: {", ".join(NEURAL_METHODS)} x '
+        f'{", ".join(NEURAL_DATASETS)}, seed 0, 1000/100/100, 100 epochs')
+    rows, _, launches = run_sweep(device, NEURAL_DATASETS, 'neural',
+                                  NEURAL_METHODS)
+    if launches != {'rollout': 0, 'sens': 0}:
+        raise AssertionError(f'the neural rows launched kernels: {launches}')
+    for row in rows:
+        ds, method = row['dataset_name'], row['method_name']
+        if list(row) != NEURAL_ROW_KEYS:
+            raise AssertionError(f'{ds} {method} row keys {list(row)}')
+        for i, (metric, ref) in enumerate(zip(RMSE_METRICS,
+                                              NEURAL_REF[ds, method])):
+            got = row[metric]
+            lo, hi = (f * ref for f in NEURAL_BANDS[method][min(i, 1)])
+            log(f'  {ds} {method} {metric}: card {got:.6f} % vs JAX '
+                f'{ref:.6f} % (x{got / ref:.3f}); band ({lo:.6f}, {hi:.6f})')
+            if not lo < got < hi:
+                raise AssertionError(f'{ds} {method} {metric} = {got} is not '
+                                     f'in ({lo}, {hi})')
+    by = {(r['dataset_name'], r['method_name']): r for r in rows}
+    for method in NEURAL_METHODS:
+        got = by['EQ_4_D', method]['encoder_test_rmse_orig']
+        if not got > insite_eq4d_one_step:
+            raise AssertionError(f'EQ_4_D {method} 1-step {got} is not above '
+                                 f'insite\'s {insite_eq4d_one_step}')
+    return launches
+
+
+def check_neural_card_against_host(device):
+    """ct and crn f32 on the card against f32 on the host, on one EQ_4_D
+    collection (200 / 10 / 10): the same initial weights (one seed builds
+    them on the host, whatever the device; checked), dropout 0, one batch
+    per epoch in every stage (the shuffle then only reorders a sum), 3
+    epochs; the 1-step predictions (CRN: its encoder's) and the n-step ones
+    (CRN: its decoder's, on rows started from each side's own encoder)
+    within `NEURAL_CARD_RTOL`."""
+    import copy
+
+    import torch
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.harness.runner import _dims_from_collection
+    from insite_tpu_torch.models.crn import CRN, CRNConfig
+    from insite_tpu_torch.models.ct import CausalTransformer, CTConfig
+    base = make_collection('EQ_4_D', {'train': 200, 'val': 10, 'test': 10},
+                           seed=7, coeff=2.0, device=device,
+                           treatment_mode='multilabel')
+    for method in NEURAL_METHODS:
+        models = {}
+        for tag, dev in (('host', 'cpu'), ('card', device)):
+            coll = copy.deepcopy(base)
+            if method == 'ct':
+                coll.process_data_multi()
+                model = CausalTransformer(CTConfig(
+                    epochs=3, dropout_rate=0.0, batch_size=256,
+                    treatment_mode='multilabel',
+                    **_dims_from_collection(coll)), coll, device=dev)
+                nets = [model.net]
+            else:
+                coll.process_data_encoder()
+                model = CRN(CRNConfig(
+                    epochs=3, enc_dropout_rate=0.0, dec_dropout_rate=0.0,
+                    enc_batch_size=256, dec_batch_size=1 << 15,
+                    treatment_mode='multilabel',
+                    **_dims_from_collection(coll)), coll, device=dev)
+                nets = [model.encoder.net, model.decoder.net]
+            models[tag] = (model, coll, nets)
+        for card_net, host_net in zip(models['card'][2], models['host'][2]):
+            for k, v in host_net.state_dict().items():
+                if not torch.equal(card_net.state_dict()[k].cpu(), v):
+                    raise AssertionError(f'{method} initial {k} differs')
+        preds = {}
+        for tag, (model, coll, _) in models.items():
+            model.fit(coll.train_f)
+            preds[tag] = (model.get_predictions(coll.test_cf_one_step),
+                          model.get_autoregressive_predictions(
+                              coll.test_cf_treatment_seq))
+        for what, got, want in zip(('1-step', 'n-step'), preds['card'],
+                                   preds['host']):
+            rel = float(np.max(np.abs(got - want) /
+                               np.maximum(np.abs(want), 1e-3)))
+            log(f'  {method} {what} predictions {got.shape}, card f32 vs host '
+                f'f32: max abs diff {np.abs(got - want).max():.3e}, largest '
+                f'relative gap {rel:.3e}')
+            np.testing.assert_allclose(got, want, rtol=NEURAL_CARD_RTOL,
+                                       atol=1e-5, err_msg=f'{method} {what}')
+
+
+def neural_idle_share():
+    """The device's idle share during one crn fit (EQ_4_D, 1,000 patients,
+    one epoch: 15 encoder and ~103 decoder batches) from torch.profiler, in
+    a process of its own: a second profiler session in this process would
+    see no kernel events."""
+    from pathlib import Path
+    tool = Path(__file__).resolve().parent / 'tools' / \
+        'profile_torch_northstar.py'
+    out = subprocess.run([sys.executable, str(tool), '--path', 'fit',
+                          '--epochs', '1'],
+                         capture_output=True, text=True, timeout=600,
+                         check=True).stdout
+    log('[neural] ' + out.strip().replace('\n', '\n[neural] '))
+    m = re.search(r'device busy .* idle ([0-9.]+) %', out)
+    if m is None:
+        raise AssertionError('the profile of the crn fit gave no idle share')
+    return float(m.group(1))
 
 
 def main():
@@ -1475,7 +1678,7 @@ def main():
 
     # 5. main table
     log('[table] sweep: sindy, insite x EQ_4_A..D, 1 seed, 1000/100/100')
-    table_launches = run_main_table(device)
+    table_launches, table_rows = run_main_table(device)
     log('[table] card f32 against host f64, one EQ_4_D collection')
     check_card_against_host(device)
 
@@ -1495,6 +1698,16 @@ def main():
     log('[insight] card f32 against host f64, one EQ_4_D collection of 50 '
         'training patients')
     check_card_against_host(device, 'EQ_4_D', n_train=50)
+
+    # 9. ct and crn on both families
+    insite_one_step = next(
+        r['encoder_test_rmse_orig'] for r in table_rows
+        if (r['dataset_name'], r['method_name']) == ('EQ_4_D', 'insite'))
+    neural_launches = run_neural(device, insite_one_step)
+    log('[neural] card f32 against host f32, one EQ_4_D collection '
+        '(200 / 10 / 10), 3 epochs')
+    check_neural_card_against_host(device)
+    log(f'[neural] crn fit, device idle {neural_idle_share()} %')
 
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
@@ -1520,6 +1733,7 @@ def main():
             'launches_sindy_family': family_launches[key],
             'launches_msm': msm_launches[key],
             'launches_insight': insight_launches[key],
+            'launches_neural': neural_launches[key],
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

@@ -1,13 +1,16 @@
 """Carry the system's state from numpy into the port's tensors.
 
 The "weights" of this system are the simulated cohort, the simulator's
-parameter dict, the discovered global coefficients ``[A, F]`` and the
-per-patient coefficients ``[B, A, F]``. These helpers take numpy arrays
-(for example pulled from the JAX package with ``np.asarray``) so that both
-packages compute from the same state.
+parameter dict, the discovered global coefficients ``[A, F]``, the
+per-patient coefficients ``[B, A, F]``, a fitted MSM's regressions and the
+parameters of the neural baselines' networks. These helpers take numpy
+arrays (for example pulled from the JAX package with ``np.asarray``) so
+that both packages compute from the same state.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -94,3 +97,58 @@ def msm_state_from_numpy(msm, prop_treat, prop_hist, regressors):
         raise ValueError(f'{len(msm.regressors)} regressors for a projection '
                          f'horizon of {msm.cfg.projection_horizon}')
     return msm
+
+
+# flax's automatic module names -> the port's attribute names
+_FLAX_MODULES = {'TorchDense_0': 'linear1', 'TorchDense_1': 'linear2',
+                 'LayerNorm_0': 'layer_norm'}
+
+
+def _flax_leaf(name: str, value: np.ndarray):
+    """(the port's parameter name, value) of one flax parameter: a dense
+    kernel ``[in, out]`` becomes ``weight [out, in]``, a LayerNorm scale a
+    weight, the LSTM's ``w_ih_l`` / ``w_hh_l`` ``[in, 4H]`` the transposed
+    ``weight_ih_l{l}`` / ``weight_hh_l{l}``, and its ``b_l`` / ``b_hh_l``
+    the two biases (gate order i, f, g, o in both packages)."""
+    m = re.fullmatch(r'(w_ih|w_hh|b|b_hh)_(\d+)', name)
+    if m:
+        kind, layer = m.groups()
+        torch_name = {'w_ih': 'weight_ih', 'w_hh': 'weight_hh',
+                      'b': 'bias_ih', 'b_hh': 'bias_hh'}[kind]
+        return (f'{torch_name}_l{layer}',
+                value.T if kind.startswith('w') else value)
+    if name == 'kernel':
+        return 'weight', value.T
+    if name == 'scale':
+        return 'weight', value
+    return name, value
+
+
+def state_dict_from_flax(params: dict, module: torch.nn.Module) -> dict:
+    """``module``'s state_dict from a flax ``params`` tree (nested dicts of
+    numpy arrays, for example the JAX package's CT or CRN parameters pulled
+    with ``np.asarray``), in ``module``'s dtypes and on its device. Raises
+    ``ValueError`` unless the tree gives every entry of the state_dict, in
+    its shape, and nothing else."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + [_FLAX_MODULES.get(k, k)])
+            else:
+                name, value = _flax_leaf(k, np.asarray(v))
+                out['.'.join(prefix + [name])] = value
+
+    walk(params, [])
+    want = module.state_dict()
+    if set(out) != set(want):
+        raise ValueError(f'flax parameters {sorted(set(out) - set(want))} '
+                         f'have no place in the module, which also needs '
+                         f'{sorted(set(want) - set(out))}')
+    for k, ref in want.items():
+        if tuple(out[k].shape) != tuple(ref.shape):
+            raise ValueError(f'{k}: flax shape {out[k].shape}, module '
+                             f'shape {tuple(ref.shape)}')
+        out[k] = torch.tensor(out[k], dtype=ref.dtype, device=ref.device)
+    return out

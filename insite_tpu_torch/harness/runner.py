@@ -7,8 +7,9 @@ The '[Exp evaluation complete] {...}' log lines are the results database:
 read them back. Every value in a row is a plain Python float, int, bool or
 str, or a (nested) list of such, so the row's repr is a Python literal.
 
-The port serves the ``sindy``, ``wsindy``, ``insite`` and ``msm`` methods
-on the EQ_4 family, cancer_sim and EQ_5, in all seven experiments:
+The port serves the ``sindy``, ``wsindy``, ``insite``, ``msm``, ``ct`` and
+``crn`` methods on the EQ_4 family, cancer_sim and EQ_5, in all seven
+experiments:
 MAIN_TABLE, ABLATION_ONE_ODE (one joint ODE over multilabel treatments),
 ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS (the degree-4 library),
 INSIGHT_RECOVER_PARAMETRIC_DIST (the per-patient coefficient distribution
@@ -16,7 +17,7 @@ of the validation cohort) and the three robustness sweeps on the EQ_4
 family, INSIGHT_CONFOUNDING (gamma over ``cfg.domain_confs`` on EQ_4_D),
 INSIGHT_NOISE (the observation-noise scale over ``cfg.noise_scales`` on
 EQ_4_B) and INSIGHT_LESS_SAMPLES (the training cohort over
-``cfg.train_sample_grid`` on EQ_4_D). The neural methods and the sweep's
+``cfg.train_sample_grid`` on EQ_4_D). rmsn, gnet and edct and the sweep's
 tuning, cache, resume, isolation and metrics-sink settings raise
 `NotImplementedError` naming the slice of ROADMAP.md that brings them.
 """
@@ -42,9 +43,10 @@ from insite_tpu_torch.harness.results import generate_main_results_table
 logger = logging.getLogger('insite_tpu_torch')
 
 SINDY_METHODS = ('sindy', 'insite', 'wsindy')
-METHODS = SINDY_METHODS + ('msm',)
-LATER_METHODS = {'ct': 'Slice 6', 'crn': 'Slice 6', 'rmsn': 'Slice 6',
-                 'gnet': 'Slice 6', 'edct': 'Slice 6'}
+# the methods whose collection the encoder processing serves
+ENCODER_METHODS = ('crn',)
+METHODS = SINDY_METHODS + ('msm', 'ct') + ENCODER_METHODS
+LATER_METHODS = {'rmsn': 'Slice 6b', 'gnet': 'Slice 6b', 'edct': 'Slice 6b'}
 
 
 class Experiment(Enum):
@@ -66,8 +68,8 @@ TABLE_EXPERIMENTS = (Experiment.MAIN_TABLE, Experiment.ABLATION_ONE_ODE,
 
 
 def _require_served(cfg: RunConfig, methods=()) -> None:
-    """Raise for what the port does not serve yet: the neural methods
-    (Slice 6) and the sweep settings of Slice 7."""
+    """Raise for what the port does not serve yet: rmsn, gnet and edct
+    (Slice 6b) and the sweep settings of Slice 7."""
     later = []
     for name in ('tune_hparams', 'load_from_cache', 'force_recache',
                  'isolate_runs'):
@@ -143,17 +145,36 @@ def _dims_from_collection(coll) -> dict:
 
 def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
                  domain_conf: float = 2.0,
-                 experiment=Experiment.MAIN_TABLE, *, device, dtype=None):
+                 experiment=Experiment.MAIN_TABLE, *, device, dtype=None,
+                 seed: int = 0):
     """The estimator of one run, with the run's overlays: for `method_name`
     sindy, wsindy or insite a `SINDyRegressor` with the dataset's
     hyperparameters and the experiment's ablation, on ``device``; for msm
-    an `MSM`, a host model in float64 whatever ``device`` and ``dtype``.
-    On EQ_5 the chemo dosage joins the covariates of the SINDy family
-    only."""
-    if not coll.processed_data_multi:
+    an `MSM`, a host model in float64 whatever ``device`` and ``dtype``;
+    for ct and crn the network on ``device`` in ``dtype`` (float32 unless
+    named), trained for ``cfg.epochs`` from ``seed``. crn's collection
+    takes the encoder processing, every other the multi-input one. On EQ_5
+    the chemo dosage joins the covariates of the SINDy family only."""
+    if method_name in ENCODER_METHODS:
+        if not coll.processed_data_encoder:
+            coll.process_data_encoder()
+    elif not coll.processed_data_multi:
         coll.process_data_multi(
             include_continuous_treatment=('EQ_5' in dataset_name and
                                           method_name in SINDY_METHODS))
+    if method_name in ('ct', 'crn'):
+        if method_name == 'ct':
+            from insite_tpu_torch.models.ct import CausalTransformer, CTConfig
+            model_cls, cfg_cls = CausalTransformer, CTConfig
+        else:
+            from insite_tpu_torch.models.crn import CRN, CRNConfig
+            model_cls, cfg_cls = CRN, CRNConfig
+        mcfg = cfg_cls(epochs=cfg.epochs, seed=seed,
+                       treatment_mode=coll.treatment_mode,
+                       **_dims_from_collection(coll))
+        return model_cls(_apply_model_overrides(mcfg, cfg, method_name,
+                                                dataset_name, domain_conf),
+                         coll, device=device, dtype=dtype)
     if method_name == 'msm':
         from insite_tpu_torch.models.msm import MSM, MSMConfig
         mcfg = MSMConfig(max_epochs=cfg.epochs,
@@ -195,7 +216,7 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
     coll = _collection_for(dataset_name, method_name, seed, domain_conf,
                            cfg, experiment, device=device, dtype=dtype)
     model = _build_model(method_name, dataset_name, coll, cfg, domain_conf,
-                         experiment, device=device, dtype=dtype)
+                         experiment, device=device, dtype=dtype, seed=seed)
     model.fit(coll.train_f, coll.val_f)
 
     rmse_orig, rmse_all, rmse_last = model.get_normalised_masked_rmse(

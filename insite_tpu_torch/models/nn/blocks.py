@@ -1,0 +1,337 @@
+"""The neural building blocks of CT and CRN, as `torch.nn.Module`s, in the
+meaning of `insite_tpu.models.nn.blocks`:
+
+- `GradReverse` / `grad_reverse`: identity forward, -scale * g backward;
+- `bce`: the per-(row, step) treatment loss;
+- `BRTreatmentOutcomeHead`: balanced representation, adversarial treatment
+  classifier and treatment-conditioned outcome head;
+- `VariationalLSTM`: a stacked LSTM whose dropout masks are drawn once per
+  batch and multiply the carried state;
+- `fixed_sin_cos`, `RelativePositionalEncoding`, `MultiHeadedAttention` with
+  relative positions on keys and values, `PositionwiseFeedForward` and
+  `TransformerMultiInputBlock` (CT's two-stream block).
+
+Every `nn.Linear` keeps PyTorch's default init, U(+-1/sqrt(fan_in)) for
+weight and bias, which is the JAX package's `TorchDense`. Every module takes
+its ``device`` and ``dtype``. Dropout is on exactly when a forward pass is
+given a ``torch.Generator`` (``gen``), which draws every mask.
+
+The attention is explicit `einsum`s, not `scaled_dot_product_attention`:
+the relative positions enter both the scores and the output, and masked
+scores are set to -1e9 (a row masked everywhere softmaxes to uniform, not
+NaN).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LAYER_NORM_EPS = 1e-6
+MASKED_SCORE = -1e9
+
+
+def dropout(x, rate: float, gen):
+    """Inverted dropout drawn from ``gen``; the identity without one."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=gen)
+    return x * mask / keep
+
+
+class GradReverse(torch.autograd.Function):
+    """Identity forward; the backward pass multiplies the gradient by
+    ``-scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(scale)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (scale,) = ctx.saved_tensors
+        return -scale * g, None
+
+
+def grad_reverse(x, scale=1.0):
+    return GradReverse.apply(x, torch.as_tensor(scale, dtype=x.dtype,
+                                                device=x.device))
+
+
+def bce(treatment_pred, current_treatments, mode: str):
+    """Per-(row, step) treatment loss of logits ``[B, T, A]``: softmax
+    cross-entropy ('multiclass') or the mean sigmoid BCE over the columns
+    ('multilabel')."""
+    if mode == 'multiclass':
+        logp = F.log_softmax(treatment_pred, dim=-1)
+        return -(current_treatments * logp).sum(-1)
+    if mode == 'multilabel':
+        logp = F.logsigmoid(treatment_pred)
+        lognotp = F.logsigmoid(-treatment_pred)
+        return -(current_treatments * logp +
+                 (1 - current_treatments) * lognotp).mean(-1)
+    raise NotImplementedError(mode)
+
+
+class BRTreatmentOutcomeHead(nn.Module):
+    """Balanced representation ``br = elu(linear1(seq))``; treatment logits
+    ``linear3(elu(linear2(br)))`` (the adversary, `treatment_head_params`);
+    outcome ``linear5(elu(linear4([br, current_treatment])))``."""
+
+    treatment_head_params = ('linear2', 'linear3')
+
+    def __init__(self, seq_hidden_units, br_size, fc_hidden_units,
+                 dim_treatments, dim_outcome, balancing='grad_reverse', *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.balancing = balancing
+        self.linear1 = nn.Linear(seq_hidden_units, br_size, **kw)
+        self.linear2 = nn.Linear(br_size, fc_hidden_units, **kw)
+        self.linear3 = nn.Linear(fc_hidden_units, dim_treatments, **kw)
+        self.linear4 = nn.Linear(br_size + dim_treatments, fc_hidden_units,
+                                 **kw)
+        self.linear5 = nn.Linear(fc_hidden_units, dim_outcome, **kw)
+
+    def build_br(self, seq_output):
+        return F.elu(self.linear1(seq_output))
+
+    def build_treatment(self, br, alpha, detached=False):
+        if detached:
+            br = br.detach()
+        if self.balancing == 'grad_reverse':
+            br = grad_reverse(br, alpha)
+        return self.linear3(F.elu(self.linear2(br)))
+
+    def build_outcome(self, br, current_treatment):
+        x = torch.cat([br, current_treatment], dim=-1)
+        return self.linear5(F.elu(self.linear4(x)))
+
+    def forward(self, seq_output, current_treatment, alpha=0.0,
+                detach_treatment=False):
+        br = self.build_br(seq_output)
+        treatment_pred = self.build_treatment(br, alpha, detach_treatment)
+        outcome_pred = self.build_outcome(br, current_treatment)
+        return treatment_pred, outcome_pred, br
+
+
+class VariationalLSTM(nn.Module):
+    """Stacked LSTM, gate order i, f, g, o, with the parameters of
+    `nn.LSTM` (``weight_ih_l{k}`` ``[4H, in]``, ``weight_hh_l{k}``
+    ``[4H, H]`` and both biases, all U(+-1/sqrt(H))). With ``gen``, three
+    masks (output, h, c) of shape ``[B, H]`` are drawn per layer, once per
+    call, each scaled by 1/keep: the output of every step is multiplied by
+    the first, and the carried h and c by the other two. ``init_states``
+    seeds both h and c of every layer.
+
+    cuDNN's fused LSTM cannot mask the carried state, so this loops over
+    time with `torch.lstm_cell` (on the card: two matmuls and one fused
+    gate kernel a step), masking between the steps."""
+
+    def __init__(self, input_size, hidden_size, num_layer=1,
+                 dropout_rate=0.0, *, device=None, dtype=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layer = num_layer
+        self.dropout_rate = dropout_rate
+        bound = 1.0 / math.sqrt(hidden_size)
+        kw = dict(device=device, dtype=dtype)
+        for layer in range(num_layer):
+            in_dim = input_size if layer == 0 else hidden_size
+            for name, shape in (('weight_ih', (4 * hidden_size, in_dim)),
+                                ('weight_hh', (4 * hidden_size,
+                                               hidden_size)),
+                                ('bias_ih', (4 * hidden_size,)),
+                                ('bias_hh', (4 * hidden_size,))):
+                p = nn.Parameter(torch.empty(shape, **kw))
+                nn.init.uniform_(p, -bound, bound)
+                self.register_parameter(f'{name}_l{layer}', p)
+
+    def forward(self, x, init_states=None, gen=None):
+        B, T, _ = x.shape
+        H = self.hidden_size
+        h = x
+        for layer in range(self.num_layer):
+            weights = [getattr(self, f'{name}_l{layer}') for name in
+                       ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')]
+            if init_states is None:
+                hx = cx = h.new_zeros(B, H)
+            else:
+                hx = cx = init_states.to(h.dtype)
+            if gen is not None and self.dropout_rate > 0.0:
+                keep = 1.0 - self.dropout_rate
+                out_m, h_m, c_m = (
+                    torch.empty(B, H, device=x.device, dtype=x.dtype)
+                    .bernoulli_(keep, generator=gen) / keep
+                    for _ in range(3))
+            else:
+                out_m = h_m = c_m = None
+            outputs = []
+            for t in range(T):
+                hx, cx = torch.lstm_cell(h[:, t], (hx, cx), *weights)
+                if out_m is None:
+                    outputs.append(hx)
+                else:
+                    outputs.append(hx * out_m)
+                    hx, cx = hx * h_m, cx * c_m
+            h = torch.stack(outputs, dim=1)
+        return h
+
+
+def fixed_sin_cos(d_model: int, max_len: int, *, device=None, dtype=None):
+    """The sinusoidal table ``[max_len, d_model]``."""
+    position = torch.arange(max_len, device=device, dtype=dtype)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, device=device, dtype=dtype)
+                    * (-math.log(1e4) / d_model))
+    pe = torch.zeros(max_len, d_model, device=device, dtype=dtype)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div)
+    return pe
+
+
+class RelativePositionalEncoding(nn.Module):
+    """A relative-position table shared across heads: ``forward(Tq, Tk)``
+    gives ``[Tq, Tk, d_model]``. Self-attention distances ``k - q`` clipped
+    to +-max_relative_position (2 * max + 1 rows); with ``cross_attn``,
+    ``(Tk - 1 - k) + q`` clipped likewise (max + 1 rows). The table is
+    trainable (N(0, 1) init) or the fixed sinusoid."""
+
+    def __init__(self, max_relative_position: int, d_model: int,
+                 trainable=True, cross_attn=False, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.cross_attn = cross_attn
+        if trainable:
+            num = (max_relative_position * 2 + 1 if not cross_attn
+                   else max_relative_position + 1)
+            self.embeddings_table = nn.Parameter(
+                torch.randn(num, d_model, device=device, dtype=dtype))
+        else:
+            self.register_buffer('embeddings_table', fixed_sin_cos(
+                d_model, max_relative_position * 2 + 1, device=device,
+                dtype=dtype))
+
+    def forward(self, length_q: int, length_k: int):
+        m = self.max_relative_position
+        dev = self.embeddings_table.device
+        q = torch.arange(length_q, device=dev)[:, None]
+        if self.cross_attn:
+            dist = torch.arange(length_k - 1, -1, -1, device=dev)[None] + q
+            dist = dist.clamp(-m, m)
+        else:
+            dist = torch.arange(length_k, device=dev)[None] - q
+            dist = dist.clamp(-m, m) + m
+        return self.embeddings_table[dist]
+
+
+class MultiHeadedAttention(nn.Module):
+    """Multi-head attention with relative positions ``rel_k`` / ``rel_v``
+    (``[Tq, Tk, head_size]``, or None for none) on keys and values, masked
+    and causal scores set to -1e9, then LayerNorm(out + query). Every
+    attention of CT is causal (a query sees no later key)."""
+
+    def __init__(self, num_heads: int, d_model: int, head_size=None,
+                 dropout_rate=0.0, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_heads = num_heads
+        self.head_size = head_size or d_model // num_heads
+        self.dropout_rate = dropout_rate
+        width = num_heads * self.head_size
+        self.q_proj = nn.Linear(d_model, width, **kw)
+        self.k_proj = nn.Linear(d_model, width, **kw)
+        self.v_proj = nn.Linear(d_model, width, **kw)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS, **kw)
+
+    def forward(self, query, key, value, mask=None, gen=None, rel_k=None,
+                rel_v=None):
+        hs = self.head_size
+        B, Tq, _ = query.shape
+        Tk = key.shape[1]
+
+        def heads(x, proj):
+            return proj(x).view(B, -1, self.num_heads, hs).transpose(1, 2)
+
+        q = heads(query, self.q_proj)
+        k = heads(key, self.k_proj)
+        v = heads(value, self.v_proj)
+        scores = torch.einsum('bhqd,bhkd->bhqk', q, k)
+        if rel_k is not None:
+            scores = scores + torch.einsum('bhqd,qkd->bhqk', q, rel_k)
+        scores = scores / math.sqrt(hs)
+        # one pass for both masks: the keys' and the causal one
+        keep = torch.ones(Tq, Tk, dtype=torch.bool,
+                          device=scores.device).tril()
+        if mask is not None:
+            keep = keep & (mask != 0)
+        scores = scores.masked_fill(~keep, MASKED_SCORE)
+        p_attn = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
+                         gen)
+        out = torch.einsum('bhqk,bhkd->bhqd', p_attn, v)
+        if rel_v is not None:
+            out = out + torch.einsum('bhqv,qvd->bhqd', p_attn, rel_v)
+        out = out.transpose(1, 2).reshape(B, Tq, self.num_heads * hs)
+        return self.layer_norm(out + query)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """LayerNorm(x + dropout(linear2(dropout(relu(linear1(x))))))."""
+
+    def __init__(self, d_model: int, d_ff: int, dropout_rate=0.1, *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.dropout_rate = dropout_rate
+        self.linear1 = nn.Linear(d_model, d_ff, **kw)
+        self.linear2 = nn.Linear(d_ff, d_model, **kw)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS, **kw)
+
+    def forward(self, x, gen=None):
+        h = dropout(F.relu(self.linear1(x)), self.dropout_rate, gen)
+        h = dropout(self.linear2(h), self.dropout_rate, gen)
+        return self.layer_norm(h + x)
+
+
+class TransformerMultiInputBlock(nn.Module):
+    """CT's block over the treatment and outcome streams: causal self
+    attention on each, causal cross attention of each onto the other's
+    input, the static stream added, then a feed-forward layer per stream.
+    Every attention of the block is masked by the active entries of the
+    keys."""
+
+    def __init__(self, hidden: int, attn_heads: int, head_size: int,
+                 feed_forward_hidden: int, dropout_rate: float,
+                 attn_dropout: float, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+
+        def mha():
+            return MultiHeadedAttention(attn_heads, hidden, head_size,
+                                        attn_dropout, **kw)
+
+        def ff():
+            return PositionwiseFeedForward(hidden, feed_forward_hidden,
+                                           dropout_rate, **kw)
+
+        self.self_attention_t = mha()
+        self.self_attention_o = mha()
+        self.cross_attention_to = mha()
+        self.cross_attention_ot = mha()
+        self.ff_t = ff()
+        self.ff_o = ff()
+
+    def forward(self, x_t, x_o, x_s, active_entries, gen=None, rel_k=None,
+                rel_v=None):
+        mask = active_entries[:, None, None, :, 0]          # [B, 1, 1, T]
+        kw = dict(gen=gen, rel_k=rel_k, rel_v=rel_v)
+        x_t_ = self.self_attention_t(x_t, x_t, x_t, mask, **kw)
+        x_o_ = self.self_attention_o(x_o, x_o, x_o, mask, **kw)
+        x_to = self.cross_attention_to(x_t_, x_o, x_o, mask, **kw)
+        x_ot = self.cross_attention_ot(x_o_, x_t, x_t, mask, **kw)
+        return (self.ff_t(x_to + x_s, gen), self.ff_o(x_ot + x_s, gen))

@@ -2,8 +2,8 @@
 sweep through `python -m insite_tpu_torch.run` whose log the JAX parser
 reads, the LaTeX main table against the JAX package's text, msm rows and
 tiny INSIGHT sweeps against the JAX package's on handed-over cohorts (msm
-RMSEs equal to rtol 1e-12, sindy RMSEs to rtol 1e-8), and the settings that
-still raise."""
+RMSEs equal to rtol 1e-12, sindy RMSEs to rtol 1e-8), the settings that
+still raise, and ct and crn served."""
 
 import ast
 import copy
@@ -109,37 +109,46 @@ def test_ci_and_format():
     assert custom_format(0.0) == '0.00'
 
 
-# (change, what the error names); the first seven keep their order
+# (change, what the error names; None: served); the first seven keep their
+# order
 LATER = [
     (dict(tune_hparams=True), 'tune_hparams .Slice 7'),
     (dict(load_from_cache=True), 'load_from_cache .Slice 7'),
     (dict(resume_log='logs/run.txt'), 'resume_log=.* .Slice 7'),
     (dict(isolate_runs=True), 'isolate_runs .Slice 7'),
     (dict(metrics_jsonl='logs/metrics.jsonl'), 'metrics_jsonl=.* .Slice 7'),
-    (dict(methods=('ct',)), 'method ct .Slice 6'),
+    (dict(methods=('ct',)), None),
     (dict(methods=('wsindy',)), None),
     (dict(force_recache=True), 'force_recache .Slice 7'),
-    (dict(methods=('msm', 'crn')), 'method crn .Slice 6'),
-    (dict(methods=('rmsn',)), 'method rmsn .Slice 6'),
-    (dict(methods=('gnet',)), 'method gnet .Slice 6'),
-    (dict(methods=('edct',)), 'method edct .Slice 6'),
+    (dict(methods=('msm', 'crn')), None),
+    (dict(methods=('rmsn',)), 'method rmsn .Slice 6b'),
+    (dict(methods=('gnet',)), 'method gnet .Slice 6b'),
+    (dict(methods=('edct',)), 'method edct .Slice 6b'),
     (dict(methods=('lstm',)), 'method lstm .not in the JAX package')]
 
 
 @pytest.mark.parametrize('change', [c for c, _ in LATER])
 def test_later_slices_raise(change):
     """Settings and methods of later slices raise, each named with its
-    slice, from the sweep and from a single run; wsindy is served."""
+    slice, from the sweep and from a single run; wsindy, ct and crn are
+    served (2 epochs)."""
     named = dict((repr(c), n) for c, n in LATER)[repr(change)]
     cfg = RunConfig(methods=('sindy',), datasets=('EQ_4_A',), seed_runs=1,
                     **TINY)
     for k, v in change.items():
         setattr(cfg, k, v)
     if named is None:
+        cfg.epochs = 2
         rows, _ = runner.sweep(cfg, device='cpu', dtype=torch.float64)
-        assert [(r['method_name'], r['errored'], r['fine_tuned'])
-                for r in rows] == [('wsindy', False, False)]
-        assert 0 < rows[0]['encoder_test_rmse_orig'] < 1
+        assert [(r['method_name'], r['errored']) for r in rows] == [
+            (m, False) for m in cfg.methods]
+        for r in rows:
+            assert 0 < r['encoder_test_rmse_orig'] < 100
+            assert np.isfinite(r['decoder_test_rmse_6-step'])
+            assert ('fine_tuned' in r) is (r['method_name'] == 'wsindy')
+        if cfg.methods == ('wsindy',):
+            assert rows[0]['fine_tuned'] is False
+            assert rows[0]['encoder_test_rmse_orig'] < 1
         return
     with pytest.raises(NotImplementedError, match=named):
         runner.sweep(cfg, device='cpu')
@@ -153,12 +162,12 @@ def test_later_slices_raise(change):
 def test_other_experiments_raise(experiment):
     """Every experiment other than the main table is served, and still
     raises for a method of a later slice, naming it."""
-    cfg = RunConfig(methods=('sindy', 'ct'), datasets=('EQ_4_A',),
+    cfg = RunConfig(methods=('sindy', 'rmsn'), datasets=('EQ_4_A',),
                     seed_runs=1, **TINY)
-    with pytest.raises(NotImplementedError, match='ct'):
+    with pytest.raises(NotImplementedError, match='rmsn'):
         runner.sweep(cfg, experiment, device='cpu')
-    with pytest.raises(NotImplementedError, match='ct'):
-        runner.run_experiment('EQ_4_A', 'ct', 0, 2.0, cfg, experiment,
+    with pytest.raises(NotImplementedError, match='rmsn'):
+        runner.run_experiment('EQ_4_A', 'rmsn', 0, 2.0, cfg, experiment,
                               device='cpu')
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port, on one NVIDIA card.
 
-    python3 tools/profile_torch_northstar.py [--path northstar|main-table]
+    python3 tools/profile_torch_northstar.py [--path northstar|main-table|fit]
                                              [--dataset EQ_4_D]
+                                             [--epochs 100]
                                              [--trace trace.json]
 
 ``northstar`` (the default): after an untimed warm-up, runs the
@@ -10,7 +11,10 @@
 (per-stage wall times) and once under torch.profiler. ``main-table``: the
 same for one insite run of the main table (`run_experiment` on
 ``--dataset``, EQ_4_D unless given, e.g. cancer_sim or EQ_5_D; 1,000 / 100
-/ 100 patients). Prints the card's name and power limit,
+/ 100 patients). ``fit``: the same for the fit alone of one crn run
+(``--epochs``, 100 unless given) on ``--dataset``, each on a collection and
+a model made before the clock starts. Prints the card's name
+and power limit,
 device time by kernel, and the device's busy and idle shares of the
 profiled run (the union of device-event intervals over the run's wall
 time; the profiler's own host overhead makes the idle share an upper
@@ -30,8 +34,11 @@ sys.path[0] = str(Path(__file__).resolve().parent.parent)
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from insite_tpu_torch.harness.config import RunConfig  # noqa: E402
 from insite_tpu_torch.harness.northstar import fused_northstar  # noqa: E402
-from insite_tpu_torch.harness.runner import run_experiment  # noqa: E402
+from insite_tpu_torch.harness.runner import (_build_model,  # noqa: E402
+                                             _collection_for,
+                                             run_experiment)
 
 N_PATIENTS = 10_000
 STAGES = ('t_sim_design', 't_stlsq', 't_finetune', 't_metric', 'total')
@@ -54,9 +61,11 @@ def busy_us(events):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--path', default='northstar',
-                    choices=('northstar', 'main-table'))
+                    choices=('northstar', 'main-table', 'fit'))
     ap.add_argument('--dataset', default='EQ_4_D',
-                    help='the main-table run\'s dataset')
+                    help='the main-table or fit run\'s dataset')
+    ap.add_argument('--epochs', type=int, default=100,
+                    help='the fit run\'s epochs')
     ap.add_argument('--trace', default=None,
                     help='write a Chrome trace of the profiled run here')
     args = ap.parse_args()
@@ -78,7 +87,7 @@ def main():
             return ', '.join(f'{k} {r[k]:.4f}' for k in STAGES)
 
         fused_northstar(64, seed=1, device=device)
-    else:
+    elif args.path == 'main-table':
         def run():
             return run_experiment(args.dataset, 'insite', seed=0,
                                   domain_conf=2.0, device=device)
@@ -88,9 +97,33 @@ def main():
                     f'{r["encoder_test_rmse_orig"]:.6f} %')
 
         run()
+    else:
+        cfg = RunConfig(epochs=args.epochs)
+
+        def prepare():
+            coll = _collection_for(args.dataset, 'crn', 0, 2.0, cfg,
+                                   device=device)
+            model = _build_model('crn', args.dataset, coll, cfg,
+                                 device=device)
+            return lambda: model.fit(coll.train_f, coll.val_f)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = perf_counter()
+            fit()
+            torch.cuda.synchronize()
+            return perf_counter() - t0
+
+        def report(seconds):
+            return f'crn fit {seconds:.4f}'
+
+    if args.path == 'fit':
+        fit = prepare()
     r = run()
     print('stages (s, no profiler): ' + report(r))
 
+    if args.path == 'fit':
+        fit = prepare()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -99,8 +132,11 @@ def main():
         torch.cuda.synchronize()
         wall_us = (perf_counter() - t0) * 1e6
     print('stages (s, profiled):    ' + report(r))
+    # device events, less the annotation ranges (an optimizer step's spans
+    # its kernels and the gaps between them)
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, 'is_user_annotation', False)]
     if not dev:
         print('the profiler recorded no device events')
         return 1
