@@ -114,21 +114,32 @@ Phases, in order; any failure exits non-zero:
             (`INSIGHT_REF`; `INSIGHT_BANDS`: sindy 0.4-2.5x, insite 0.4-2.5x
             at 1 step and 0.3-2.5x at 6 steps, msm as in (a)).
 9. neural  ct and crn on EQ_4_D and cancer_sim through the port's sweep
-            (4 rows, seed 0, 1,000 / 100 / 100, 100 epochs, f32 on the
-            card, built from PyTorch ops: no kernel launch at all): the JAX
-            package's row keys in its order, every RMSE inside a two-sided
-            band around the JAX package's at seed 0 (`NEURAL_REF`;
-            `NEURAL_BANDS`: ct 0.3-2.5x at 1 step and 0.25-4.5x at 2..6
-            steps, crn 0.15-1.5x and 0.3-4x, from each method's own spread
-            over seeds 0-3 in the JAX package), and on
-            EQ_4_D both above phase 5's insite at 1 step; each run's stages,
-            the fit of each network with its batches per second, and peak
-            device memory. Then ct and crn f32 on the card against f32 on
-            the host from the same initial weights (EQ_4_D, 200 / 10 / 10,
-            dropout 0, one batch per epoch, 3 epochs; predictions within
-            rtol 1e-3), and the device's idle share during one crn fit of
-            one epoch (torch.profiler, in a process of its own: `tools/
+            (4 rows, seed 0, 1,000 / 100 / 100, f32 on the card, built
+            from PyTorch ops: no kernel launch at all; epochs from
+            `NEURAL_EPOCHS`: ct the JAX package's 100, crn `NEURAL_E`, a
+            cut the script's time limit forces): the JAX package's row
+            keys in its order, every RMSE inside a two-sided band around
+            the JAX package's at seed 0 and the same epochs (`NEURAL_REF`;
+            `NEURAL_BANDS`, from each method's own spread over seeds 0-3
+            in the JAX package), and on EQ_4_D both above phase 5's
+            insite at 1 step; each run's stages, the fit of each network
+            with its batches per second, and peak device memory. Then ct
+            and crn f32 on the card against f32 on the host from the same
+            initial weights (EQ_4_D, 200 / 10 / 10, dropout 0, one batch
+            per epoch, 3 epochs; predictions within rtol 1e-3), and the
+            device's idle share during one crn fit of one epoch
+            (torch.profiler, in a process of its own: `tools/
             profile_torch_northstar.py --path fit`).
+10. neural  rmsn, gnet and edct as phase 9 runs ct and crn, at full width
+            (the JAX package's config defaults: hidden sizes, layers,
+            heads, batch sizes, dropout, holdout ratio 0.1, 25
+            Monte-Carlo samples, rmsn's encoder at 3x the epochs): 6 rows,
+            rmsn's with `sw_mode`; gnet at 100 epochs, rmsn and edct at
+            `NEURAL_E`; no kernel launch; bands and the insite check as in
+            phase 9; each run's stages, each network's fit and peak
+            memory. Then the three f32 on the card against f32 on the
+            host, as in phase 9 (gnet's Monte-Carlo n-step with each
+            side's residual noise, drawn by numpy alike).
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -364,24 +375,55 @@ MSM_EQ4_BAND = ((0.5, 3.0), (0.15, 3.0))
 INSIGHT_BANDS = {'sindy': ((0.4, 2.5), (0.4, 2.5)),
                  'insite': ((0.4, 2.5), (0.3, 2.5)),
                  'msm': MSM_EQ4_BAND}
-# The JAX package's ct and crn rows at seed 0, 1,000 / 100 / 100 patients,
-# 100 epochs, float32 on the CPU: the 1-step and the 2..6-step RMSE, %, from
-# `JAX_PLATFORMS=cpu python3 tools/neural_reference_rmses.py --seed 0`.
+# Epochs of each neural method in phases 9 and 10. ct and gnet train the
+# JAX package's 100. A crn, rmsn or edct fit is eager PyTorch, host-bound
+# (the card idles > 90 % of a crn fit): at 100 epochs their six runs alone
+# take ~2,100 s, past the script's 1,200-s limit (per epoch and dataset on
+# an H100 80GB HBM3 at 700 W: crn 2.2-2.5 s, rmsn 4.0-4.1 s, edct 4.1-4.2
+# s), so the three take one common count, `NEURAL_E`: the whole script then
+# ends in ~800 s on a slow host, within 1,050 s on one 1.3x slower still.
+NEURAL_E = 18
+NEURAL_EPOCHS = {'ct': 100, 'crn': NEURAL_E, 'rmsn': NEURAL_E, 'gnet': 100,
+                 'edct': NEURAL_E}
+# The JAX package's neural rows at seed 0, 1,000 / 100 / 100 patients, at
+# `NEURAL_EPOCHS`, float32 on the CPU: the 1-step and the 2..6-step RMSE, %,
+# from `JAX_PLATFORMS=cpu python3 tools/neural_reference_rmses.py --seed 0
+# --methods <m> --epochs <NEURAL_EPOCHS[m]>`.
 NEURAL_REF = {
     ('EQ_4_D', 'ct'): (0.2500825587081397, 0.32450028360104394,
                        0.40761769817619947, 0.4582020154822059,
                        0.5005952555899437, 0.5134947044379061),
-    ('EQ_4_D', 'crn'): (1.6693128629522436, 0.6652898774247021,
-                        0.6532399152784466, 0.7364112841399117,
-                        0.8379428533022587, 0.9328439042410425),
     ('cancer_sim', 'ct'): (0.8858592719360117, 0.9425512460934417,
                            1.1226936225562807, 1.237430379912266,
                            1.3042949139986377, 1.3198181423820459),
-    ('cancer_sim', 'crn'): (0.6638794313216366, 0.7577241437228609,
-                            0.8595473776013498, 0.9350968431050278,
-                            0.988527879213489, 1.0316703332494481)}
+    ('EQ_4_D', 'crn'): (0.6986300025383037, 0.9706407129038305,
+                        1.0882383533428868, 1.2966586296267797,
+                        1.4822063793842808, 1.623432853272375),
+    ('cancer_sim', 'crn'): (0.9195220443997806, 1.1294088559171795,
+                            1.3391724510234742, 1.4662314359925284,
+                            1.5482049390070203, 1.6045564160221355),
+    ('EQ_4_D', 'rmsn'): (1.59209291081542, 1.2947123634271676,
+                         1.135116801214023, 1.0784710278321659,
+                         1.0671237357907148, 1.0854739780718934),
+    ('cancer_sim', 'rmsn'): (0.7293712903162833, 1.4078166394776204,
+                             1.4290077862198147, 1.4867385480264856,
+                             1.547502199660149, 1.6165925860824857),
+    ('EQ_4_D', 'gnet'): (0.5761336616204725, 0.7134392317710364,
+                         0.836870714568908, 0.9349265885428446,
+                         1.0150799195641653, 1.0779590501092622),
+    ('cancer_sim', 'gnet'): (0.6903167401447208, 0.7484567915665562,
+                             0.9251468560789172, 1.0587084438666867,
+                             1.1640690248672214, 1.2548171652271778),
+    ('EQ_4_D', 'edct'): (0.3602335183211379, 0.48412985125800045,
+                         0.4343892681459679, 0.381299728604672,
+                         0.35730362572021446, 0.3627300714974347),
+    ('cancer_sim', 'edct'): (1.2896759600990924, 1.0176242346891802,
+                             1.0908312431169984, 1.1420863608177052,
+                             1.1718031340988353, 1.1835912758330274)}
 NEURAL_DATASETS = ('EQ_4_D', 'cancer_sim')
+# phase 9's methods, then phase 10's
 NEURAL_METHODS = ('ct', 'crn')
+NEURAL_6B_METHODS = ('rmsn', 'gnet', 'edct')
 # by method, the (lower, upper) factors on `NEURAL_REF` at 1 step and at
 # 2..6 steps: the two packages' training draws differ (shuffles, dropout
 # masks, initial weights) and so do their EQ_4 cohorts, so a row lands
@@ -389,13 +431,20 @@ NEURAL_METHODS = ('ct', 'crn')
 # package's own rows at seeds 0-3 (the tool above with --seed 0..3), as
 # ratios to seed 0, over both datasets:
 #   ct   1 step x0.613-1.739, 2..6 steps x0.575-3.395 (EQ_4_D 2-step, seed 2)
-#   crn  1 step x0.375-1.196, 2..6 steps x0.657-3.143 (EQ_4_D 2-step, seed 2)
+#   crn  1 step x0.707-1.426, 2..6 steps x0.687-3.275 (EQ_4_D 2-step, seed 2)
+#   rmsn 1 step x0.830-1.722, 2..6 steps x0.507-1.931
+#   gnet 1 step x0.493-1.184, 2..6 steps x0.376-1.169
+#   edct 1 step x0.662-1.599, 2..6 steps x0.699-3.004 (EQ_4_D 5-step, seed 2)
 # Each lower edge is half the lowest ratio, rounded down to 0.05; each upper
 # edge 1.25x the highest, rounded up to 0.5. The port is read against these
 # edges, which come from the reference alone.
 NEURAL_BANDS = {'ct': ((0.3, 2.5), (0.25, 4.5)),
-                'crn': ((0.15, 1.5), (0.3, 4.0))}
-# a neural row's keys in the JAX package's order
+                'crn': ((0.35, 2.0), (0.3, 4.5)),
+                'rmsn': ((0.4, 2.5), (0.25, 2.5)),
+                'gnet': ((0.2, 1.5), (0.15, 1.5)),
+                'edct': ((0.3, 2.0), (0.3, 4.0))}
+# a neural row's keys in the JAX package's order; an rmsn row also names
+# its stabilized weights' formula, before 'method'
 NEURAL_ROW_KEYS = (['encoder_test_rmse_all', 'encoder_test_rmse_orig',
                     'encoder_test_rmse_last'] +
                    [f'decoder_test_rmse_{k}-step' for k in range(2, 7)] +
@@ -1006,26 +1055,35 @@ def check_small_cohort(device):
 def stage_timer(records, device):
     """Time each sweep run's stages between device synchronisations:
     collection (simulation + host copy), processing, fit, 1-step and
-    n-step predictions, of the SINDy family, msm, ct and crn; the fit of
-    each network apart (``fit_stages``: seconds and batches, CRN's encoder
-    then its decoder); and the run's peak device memory. One record per
-    run, in sweep order."""
+    n-step predictions, of every method; the fit of each network apart
+    (``fit_stages``: seconds, batches and the optimizer steps of a batch,
+    in the order the networks train); the kernel launches since the run
+    began (``launches_at_start``, read by `run_sweep`); and the run's peak
+    device memory. One record per run, in sweep order."""
     import torch
     from insite_tpu_torch.harness import runner
+    from insite_tpu_torch.models import gnet, rmsn
     from insite_tpu_torch.models.crn import CRN
     from insite_tpu_torch.models.ct import CausalTransformer
+    from insite_tpu_torch.models.edct import EDCT
     from insite_tpu_torch.models.msm import MSM
     from insite_tpu_torch.models.nn.training import BRStage
     from insite_tpu_torch.models.sindy import SINDyRegressor
-    # ct's and crn's 1-step predictions (crn's: its encoder's) go through
-    # BRStage.get_predictions; the last call of a run is the runner's
+    from insite_tpu_torch.ops import rollout
+    # ct's, crn's and edct's 1-step predictions (crn's and edct's: their
+    # encoder's) go through BRStage.get_predictions; rmsn's decoder
+    # processing asks for predictions too: the last call of a run is the
+    # runner's
     hooks = [(runner, '_collection_for', 'collection'),
              (runner, '_build_model', 'process'),
              (BRStage, 'fit_stage', 'fit_stage'),
-             (BRStage, 'get_predictions', 'predict_1_step')]
-    for cls in (SINDyRegressor, MSM):
+             (BRStage, 'get_predictions', 'predict_1_step'),
+             (rmsn, 'fit_simple', 'fit_simple'),
+             (gnet, 'fit_simple', 'fit_simple')]
+    for cls in (SINDyRegressor, MSM, rmsn.RMSN, gnet.GNet):
         hooks.append((cls, 'get_predictions', 'predict_1_step'))
-    for cls in (SINDyRegressor, MSM, CausalTransformer, CRN):
+    for cls in (SINDyRegressor, MSM, CausalTransformer, CRN, rmsn.RMSN,
+                gnet.GNet, EDCT):
         hooks += [(cls, 'fit', 'fit'),
                   (cls, 'get_autoregressive_predictions', 'predict_n_step')]
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
@@ -1035,7 +1093,9 @@ def stage_timer(records, device):
         def inner(*args, **kwargs):
             if stage == 'collection':
                 torch.cuda.reset_peak_memory_stats(device)
-                records.append({'run': args[:2]})
+                records.append({'run': args[:2], 'launches_at_start': {
+                    'rollout': rollout.ROLLOUT_LAUNCHES,
+                    'sens': rollout.SENS_LAUNCHES}})
             torch.cuda.synchronize(device)
             t0 = perf_counter()
             out = fn(*args, **kwargs)
@@ -1052,13 +1112,17 @@ def stage_timer(records, device):
                         model._fold.effective_active(active)[0])
             if stage.startswith('predict'):
                 records[-1]['rows_' + stage] = len(args[1])
-            if stage == 'fit_stage':
-                stage_, data = args[:2]
-                n = len(data['outputs'])
-                batches = (stage_.train_cfg.epochs *
-                           (n // min(stage_.train_cfg.batch_size, n)))
+            if stage in ('fit_stage', 'fit_simple'):
+                # BRStage.fit_stage(data): two optimizer steps a batch;
+                # fit_simple(net, loss_fn, data, cfg, gen): one
+                if stage == 'fit_stage':
+                    cfg, data, steps = args[0].train_cfg, args[1], 2
+                else:
+                    cfg, data, steps = args[3], args[2], 1
+                n = len(next(iter(data.values())))
+                batches = cfg.epochs * (n // min(cfg.batch_size, n))
                 records[-1].setdefault('fit_stages', []).append(
-                    (records[-1].pop(stage), batches))
+                    (records[-1].pop(stage), batches, steps))
             records[-1]['peak_mib'] = \
                 torch.cuda.max_memory_allocated(device) / 2**20
             return out
@@ -1089,6 +1153,12 @@ def check_bands(rows):
         for metric in ('encoder_test_rmse_orig', 'decoder_test_rmse_6-step'):
             if not by[ds, 'insite'][metric] < by[ds, 'sindy'][metric]:
                 raise AssertionError(f'{ds} {metric}: insite not below sindy')
+
+
+# the networks of a neural run in the order they train, by their count
+NETWORKS = {1: ('network',), 2: ('encoder', 'decoder'),
+            4: ('propensity-treatment network', 'propensity-history network',
+                'encoder', 'decoder')}
 
 
 def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
@@ -1126,6 +1196,11 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
             h.close()
     stages = ('collection', 'process', 'fit', 'predict_1_step',
               'predict_n_step')
+    # each run's launches: from its start to the next run's, or the end
+    for rec, end in zip(records, [r['launches_at_start']
+                                  for r in records[1:]] + [launches]):
+        rec['launches'] = {k: end[k] - rec['launches_at_start'][k]
+                           for k in end}
     for row, rec in zip(rows, records):
         assert rec['run'] == (row['dataset_name'], row['method_name'])
         setting = ''.join(f' {k}={row[k]:g}' for k in
@@ -1137,11 +1212,12 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
             f'{row["seconds_taken"]:.4f} s | ' + ' '.join(
                 f'{s} {rec[s]:.4f}' for s in stages) +
             f' s | peak {rec["peak_mib"]:.1f} MiB | Kr {rec.get("kr")}')
-        for i, (sec, batches) in enumerate(rec.get('fit_stages', ())):
-            net = ('network' if len(rec['fit_stages']) == 1 else
-                   ('encoder', 'decoder')[i])
+        nets = NETWORKS.get(len(rec.get('fit_stages', ())))
+        for net, (sec, batches, steps) in zip(nets or (),
+                                              rec.get('fit_stages', ())):
             log(f'    fit of the {net}: {sec:.4f} s, {batches} batches of '
-                f'two optimizer steps, {batches / sec:.1f} batches/s')
+                f'{("one optimizer step", "two optimizer steps")[steps - 1]}'
+                f', {batches / sec:.1f} batches/s')
         if 'global_equation_string' in row:
             log(f'    {row["global_equation_string"]}')
     log(f'[{tag}] sweep wall {wall:.4f} s; kernel launches: {launches}')
@@ -1438,21 +1514,30 @@ def check_card_against_host(device, name='EQ_4_D', n_train=200):
         raise AssertionError('card and host RMSEs differ by more than 5 %')
 
 
-def run_neural(device, insite_eq4d_one_step):
-    """Phase 9: ct and crn on EQ_4_D and cancer_sim through the port's
-    sweep on the card (seed 0, 1,000 / 100 / 100, 100 epochs, f32): 4
-    rows, none errored, with the JAX package's keys in its order, no kernel
-    launch, every RMSE inside `NEURAL_BANDS` around `NEURAL_REF`, and on
-    EQ_4_D both above phase 5's insite at 1 step. Returns the launches."""
-    log(f'[neural] sweep: {", ".join(NEURAL_METHODS)} x '
-        f'{", ".join(NEURAL_DATASETS)}, seed 0, 1000/100/100, 100 epochs')
-    rows, _, launches = run_sweep(device, NEURAL_DATASETS, 'neural',
-                                  NEURAL_METHODS)
+def run_neural(device, insite_eq4d_one_step, methods, tag):
+    """Phases 9 and 10: ``methods`` on EQ_4_D and cancer_sim through the
+    port's sweep on the card (seed 0, 1,000 / 100 / 100, `NEURAL_EPOCHS`,
+    f32, the JAX package's config defaults: full width): a row each, none
+    errored, with the JAX package's keys in its order, no kernel launch,
+    every RMSE inside `NEURAL_BANDS` around `NEURAL_REF`, and on EQ_4_D
+    each above phase 5's insite at 1 step. Returns the launches by
+    method."""
+    epochs = {m: NEURAL_EPOCHS[m] for m in methods}
+    log(f'[{tag}] sweep: {", ".join(methods)} x '
+        f'{", ".join(NEURAL_DATASETS)}, seed 0, 1000/100/100, epochs '
+        f'{epochs} (the JAX package trains 100; crn, rmsn and edct cut to '
+        f'{NEURAL_E} to keep the script within its time limit)')
+    rows, records, launches = run_sweep(
+        device, NEURAL_DATASETS, tag, methods,
+        model_overrides={m: {'epochs': e} for m, e in epochs.items()})
     if launches != {'rollout': 0, 'sens': 0}:
         raise AssertionError(f'the neural rows launched kernels: {launches}')
     for row in rows:
         ds, method = row['dataset_name'], row['method_name']
-        if list(row) != NEURAL_ROW_KEYS:
+        keys = list(NEURAL_ROW_KEYS)
+        if method == 'rmsn':
+            keys.insert(keys.index('method'), 'sw_mode')
+        if list(row) != keys:
             raise AssertionError(f'{ds} {method} row keys {list(row)}')
         for i, (metric, ref) in enumerate(zip(RMSE_METRICS,
                                               NEURAL_REF[ds, method])):
@@ -1464,52 +1549,72 @@ def run_neural(device, insite_eq4d_one_step):
                 raise AssertionError(f'{ds} {method} {metric} = {got} is not '
                                      f'in ({lo}, {hi})')
     by = {(r['dataset_name'], r['method_name']): r for r in rows}
-    for method in NEURAL_METHODS:
+    for method in methods:
         got = by['EQ_4_D', method]['encoder_test_rmse_orig']
         if not got > insite_eq4d_one_step:
             raise AssertionError(f'EQ_4_D {method} 1-step {got} is not above '
                                  f'insite\'s {insite_eq4d_one_step}')
-    return launches
+    by_method = {m: {'rollout': 0, 'sens': 0} for m in methods}
+    for row, rec in zip(rows, records):
+        for k, n in rec['launches'].items():
+            by_method[row['method_name']][k] += n
+    return by_method
 
 
-def check_neural_card_against_host(device):
-    """ct and crn f32 on the card against f32 on the host, on one EQ_4_D
-    collection (200 / 10 / 10): the same initial weights (one seed builds
-    them on the host, whatever the device; checked), dropout 0, one batch
-    per epoch in every stage (the shuffle then only reorders a sum), 3
-    epochs; the 1-step predictions (CRN: its encoder's) and the n-step ones
-    (CRN: its decoder's, on rows started from each side's own encoder)
-    within `NEURAL_CARD_RTOL`."""
+# card against host (`check_neural_card_against_host`): by method, the
+# model-config fields that turn dropout off and make every stage one batch
+# an epoch on a 200-patient cohort
+NEURAL_ONE_BATCH = {
+    'ct': {'dropout_rate': 0.0, 'batch_size': 256},
+    'crn': {'enc_dropout_rate': 0.0, 'dec_dropout_rate': 0.0,
+            'enc_batch_size': 256, 'dec_batch_size': 1 << 15},
+    'rmsn': {'prop_treat_dropout': 0.0, 'prop_hist_dropout': 0.0,
+             'enc_dropout': 0.0, 'dec_dropout': 0.0, 'prop_treat_bs': 256,
+             'prop_hist_bs': 256, 'enc_bs': 256, 'dec_bs': 1 << 15},
+    'gnet': {'dropout_rate': 0.0, 'batch_size': 256},
+    'edct': {'enc_dropout_rate': 0.0, 'dec_dropout_rate': 0.0,
+             'enc_batch_size': 256, 'dec_batch_size': 1 << 15}}
+
+
+def neural_networks(model):
+    """A neural model's networks, in the order they train."""
+    if hasattr(model, 'prop_treat'):                        # rmsn
+        return [getattr(model, k).net for k in ('prop_treat', 'prop_hist',
+                                                'encoder', 'decoder')]
+    if hasattr(model, 'encoder'):                           # crn, edct
+        return [model.encoder.net, model.decoder.net]
+    return [model.net]                                      # ct, gnet
+
+
+def check_neural_card_against_host(device, methods):
+    """``methods`` f32 on the card against f32 on the host, on one EQ_4_D
+    collection (200 / 10 / 10), each built by the runner: the same initial
+    weights (one seed builds them on the host, whatever the device;
+    checked bitwise), dropout 0, one batch per epoch in every stage (the
+    shuffle then only reorders a sum; `NEURAL_ONE_BATCH`), 3 epochs; the
+    1-step predictions (crn, edct: the encoder's; rmsn: its encoder's) and
+    the n-step ones (decoders on rows started from each side's own
+    encoder; gnet: the Monte-Carlo rollouts with the residual noise of
+    each side's own holdout fit, drawn by numpy alike) within
+    `NEURAL_CARD_RTOL`."""
     import copy
 
     import torch
     from insite_tpu_torch.data.collection import make_collection
-    from insite_tpu_torch.harness.runner import _dims_from_collection
-    from insite_tpu_torch.models.crn import CRN, CRNConfig
-    from insite_tpu_torch.models.ct import CausalTransformer, CTConfig
+    from insite_tpu_torch.harness import runner
+    from insite_tpu_torch.harness.config import RunConfig
     base = make_collection('EQ_4_D', {'train': 200, 'val': 10, 'test': 10},
                            seed=7, coeff=2.0, device=device,
                            treatment_mode='multilabel')
-    for method in NEURAL_METHODS:
+    for method in methods:
+        cfg = RunConfig(epochs=3,
+                        model_overrides={method: NEURAL_ONE_BATCH[method]})
         models = {}
-        for tag, dev in (('host', 'cpu'), ('card', device)):
+        for tag, dev in (('host', torch.device('cpu')), ('card', device)):
             coll = copy.deepcopy(base)
-            if method == 'ct':
-                coll.process_data_multi()
-                model = CausalTransformer(CTConfig(
-                    epochs=3, dropout_rate=0.0, batch_size=256,
-                    treatment_mode='multilabel',
-                    **_dims_from_collection(coll)), coll, device=dev)
-                nets = [model.net]
-            else:
-                coll.process_data_encoder()
-                model = CRN(CRNConfig(
-                    epochs=3, enc_dropout_rate=0.0, dec_dropout_rate=0.0,
-                    enc_batch_size=256, dec_batch_size=1 << 15,
-                    treatment_mode='multilabel',
-                    **_dims_from_collection(coll)), coll, device=dev)
-                nets = [model.encoder.net, model.decoder.net]
-            models[tag] = (model, coll, nets)
+            model = runner._build_model(method, 'EQ_4_D', coll, cfg,
+                                        device=dev)
+            models[tag] = (model, coll, neural_networks(model))
         for card_net, host_net in zip(models['card'][2], models['host'][2]):
             for k, v in host_net.state_dict().items():
                 if not torch.equal(card_net.state_dict()[k].cpu(), v):
@@ -1517,9 +1622,10 @@ def check_neural_card_against_host(device):
         preds = {}
         for tag, (model, coll, _) in models.items():
             model.fit(coll.train_f)
+            n_step = (coll.test_cf_treatment_seq_mc if method == 'gnet' else
+                      coll.test_cf_treatment_seq)
             preds[tag] = (model.get_predictions(coll.test_cf_one_step),
-                          model.get_autoregressive_predictions(
-                              coll.test_cf_treatment_seq))
+                          model.get_autoregressive_predictions(n_step))
         for what, got, want in zip(('1-step', 'n-step'), preds['card'],
                                    preds['host']):
             rel = float(np.max(np.abs(got - want) /
@@ -1703,11 +1809,19 @@ def main():
     insite_one_step = next(
         r['encoder_test_rmse_orig'] for r in table_rows
         if (r['dataset_name'], r['method_name']) == ('EQ_4_D', 'insite'))
-    neural_launches = run_neural(device, insite_one_step)
+    neural_launches = run_neural(device, insite_one_step, NEURAL_METHODS,
+                                 'neural')
     log('[neural] card f32 against host f32, one EQ_4_D collection '
         '(200 / 10 / 10), 3 epochs')
-    check_neural_card_against_host(device)
+    check_neural_card_against_host(device, NEURAL_METHODS)
     log(f'[neural] crn fit, device idle {neural_idle_share()} %')
+
+    # 10. rmsn, gnet and edct on both families
+    neural_launches.update(run_neural(device, insite_one_step,
+                                      NEURAL_6B_METHODS, 'neural-6b'))
+    log('[neural-6b] card f32 against host f32, one EQ_4_D collection '
+        '(200 / 10 / 10), 3 epochs')
+    check_neural_card_against_host(device, NEURAL_6B_METHODS)
 
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
@@ -1733,7 +1847,8 @@ def main():
             'launches_sindy_family': family_launches[key],
             'launches_msm': msm_launches[key],
             'launches_insight': insight_launches[key],
-            'launches_neural': neural_launches[key],
+            'launches_neural': {m: n[key]
+                                for m, n in neural_launches.items()},
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

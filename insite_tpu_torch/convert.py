@@ -19,6 +19,7 @@ from insite_tpu_torch.data.collection import (CancerDatasetCollection,
                                               ContinuousDatasetCollection,
                                               PkpdDatasetCollection)
 from insite_tpu_torch.harness.config import model_dataset_name
+from insite_tpu_torch.models.nn.blocks import ROutcomeVitalsHead
 
 
 def params_from_numpy(d: dict, device, dtype) -> dict:
@@ -104,6 +105,20 @@ _FLAX_MODULES = {'TorchDense_0': 'linear1', 'TorchDense_1': 'linear2',
                  'LayerNorm_0': 'layer_norm'}
 
 
+def _module_name(name: str, parent) -> str:
+    """The port's attribute name of the flax module ``name`` inside the
+    port's module ``parent``. In G-Net's `ROutcomeVitalsHead` flax numbers
+    the dense layers in order: the r projection, then per component its
+    hidden layer and its output (``r_layer``, ``fc.{c}``, ``out.{c}``)."""
+    m = re.fullmatch(r'TorchDense_(\d+)', name)
+    if isinstance(parent, ROutcomeVitalsHead) and m:
+        i = int(m.group(1))
+        if i == 0:
+            return 'r_layer'
+        return f'{("out", "fc")[i % 2]}.{(i - 1) // 2}'
+    return _FLAX_MODULES.get(name, name)
+
+
 def _flax_leaf(name: str, value: np.ndarray):
     """(the port's parameter name, value) of one flax parameter: a dense
     kernel ``[in, out]`` becomes ``weight [out, in]``, a LayerNorm scale a
@@ -126,16 +141,21 @@ def _flax_leaf(name: str, value: np.ndarray):
 
 def state_dict_from_flax(params: dict, module: torch.nn.Module) -> dict:
     """``module``'s state_dict from a flax ``params`` tree (nested dicts of
-    numpy arrays, for example the JAX package's CT or CRN parameters pulled
-    with ``np.asarray``), in ``module``'s dtypes and on its device. Raises
+    numpy arrays, for example the JAX package's CT, CRN, RMSN, G-Net or
+    EDCT parameters pulled with ``np.asarray``), in ``module``'s dtypes and
+    on its device. Raises
     ``ValueError`` unless the tree gives every entry of the state_dict, in
     its shape, and nothing else."""
     out = {}
 
     def walk(tree, prefix):
+        try:
+            parent = module.get_submodule('.'.join(prefix))
+        except AttributeError:          # no such module: reported below
+            parent = None
         for k, v in tree.items():
             if isinstance(v, dict):
-                walk(v, prefix + [_FLAX_MODULES.get(k, k)])
+                walk(v, prefix + [_module_name(k, parent)])
             else:
                 name, value = _flax_leaf(k, np.asarray(v))
                 out['.'.join(prefix + [name])] = value

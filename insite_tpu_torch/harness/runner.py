@@ -7,8 +7,9 @@ The '[Exp evaluation complete] {...}' log lines are the results database:
 read them back. Every value in a row is a plain Python float, int, bool or
 str, or a (nested) list of such, so the row's repr is a Python literal.
 
-The port serves the ``sindy``, ``wsindy``, ``insite``, ``msm``, ``ct`` and
-``crn`` methods on the EQ_4 family, cancer_sim and EQ_5, in all seven
+The port serves all nine methods of the JAX package (``sindy``,
+``wsindy``, ``insite``, ``msm``, ``ct``, ``crn``, ``rmsn``, ``gnet`` and
+``edct``) on the EQ_4 family, cancer_sim and EQ_5, in all seven
 experiments:
 MAIN_TABLE, ABLATION_ONE_ODE (one joint ODE over multilabel treatments),
 ABLATION_MORE_COMPLEX_BASIS_FUNCTIONS (the degree-4 library),
@@ -17,9 +18,10 @@ of the validation cohort) and the three robustness sweeps on the EQ_4
 family, INSIGHT_CONFOUNDING (gamma over ``cfg.domain_confs`` on EQ_4_D),
 INSIGHT_NOISE (the observation-noise scale over ``cfg.noise_scales`` on
 EQ_4_B) and INSIGHT_LESS_SAMPLES (the training cohort over
-``cfg.train_sample_grid`` on EQ_4_D). rmsn, gnet and edct and the sweep's
-tuning, cache, resume, isolation and metrics-sink settings raise
-`NotImplementedError` naming the slice of ROADMAP.md that brings them.
+``cfg.train_sample_grid`` on EQ_4_D). The sweep's tuning, cache, resume,
+isolation and metrics-sink settings, and collections with a vitals stream,
+raise `NotImplementedError` naming the slice of ROADMAP.md that brings
+them.
 """
 
 from __future__ import annotations
@@ -39,14 +41,23 @@ from insite_tpu_torch.harness.config import (RunConfig, SINDY_ALPHA,
                                              sindy_params_for)
 from insite_tpu_torch.harness.insights import recover_parametric_dist
 from insite_tpu_torch.harness.results import generate_main_results_table
+from insite_tpu_torch.models import crn, ct, edct, gnet, rmsn
+from insite_tpu_torch.models.base import VITALS_NOT_PORTED
 
 logger = logging.getLogger('insite_tpu_torch')
 
 SINDY_METHODS = ('sindy', 'insite', 'wsindy')
 # the methods whose collection the encoder processing serves
-ENCODER_METHODS = ('crn',)
-METHODS = SINDY_METHODS + ('msm', 'ct') + ENCODER_METHODS
-LATER_METHODS = {'rmsn': 'Slice 6b', 'gnet': 'Slice 6b', 'edct': 'Slice 6b'}
+ENCODER_METHODS = ('crn', 'edct', 'rmsn')
+METHODS = SINDY_METHODS + ('msm', 'ct', 'gnet') + ENCODER_METHODS
+
+
+# method -> (estimator, config)
+NEURAL_MODELS = {'ct': (ct.CausalTransformer, ct.CTConfig),
+                 'crn': (crn.CRN, crn.CRNConfig),
+                 'rmsn': (rmsn.RMSN, rmsn.RMSNConfig),
+                 'gnet': (gnet.GNet, gnet.GNetConfig),
+                 'edct': (edct.EDCT, edct.EDCTConfig)}
 
 
 class Experiment(Enum):
@@ -68,8 +79,8 @@ TABLE_EXPERIMENTS = (Experiment.MAIN_TABLE, Experiment.ABLATION_ONE_ODE,
 
 
 def _require_served(cfg: RunConfig, methods=()) -> None:
-    """Raise for what the port does not serve yet: rmsn, gnet and edct
-    (Slice 6b) and the sweep settings of Slice 7."""
+    """Raise for what the port does not serve yet: the sweep settings of
+    Slice 7, and for a method the JAX package does not have."""
     later = []
     for name in ('tune_hparams', 'load_from_cache', 'force_recache',
                  'isolate_runs'):
@@ -78,7 +89,7 @@ def _require_served(cfg: RunConfig, methods=()) -> None:
     for name in ('resume_log', 'metrics_jsonl'):
         if getattr(cfg, name):
             later.append(f'{name}={getattr(cfg, name)!r} (Slice 7)')
-    later += [f'method {m} ({LATER_METHODS.get(m, "not in the JAX package")})'
+    later += [f'method {m} (not in the JAX package)'
               for m in methods if m not in METHODS]
     if later:
         raise NotImplementedError('not ported yet (ROADMAP.md): ' +
@@ -135,9 +146,13 @@ def _apply_model_overrides(mcfg, cfg: RunConfig, method_name: str,
     return dataclasses.replace(mcfg, **merged)
 
 
-def _dims_from_collection(coll) -> dict:
-    """The model-config dimensions a processed collection gives."""
+def _dims_from_collection(coll, with_vitals=False) -> dict:
+    """The model-config dimensions a processed collection gives. With
+    ``with_vitals`` a vitals stream would add ``dim_vitals``; it is not
+    ported yet and raises."""
     d = coll.train_f.data
+    if with_vitals and 'vitals' in d:
+        raise NotImplementedError(VITALS_NOT_PORTED)
     return dict(dim_outcome=d['outputs'].shape[-1],
                 dim_treatments=d['current_treatments'].shape[-1],
                 dim_static_features=d['static_features'].shape[-1])
@@ -151,10 +166,12 @@ def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
     sindy, wsindy or insite a `SINDyRegressor` with the dataset's
     hyperparameters and the experiment's ablation, on ``device``; for msm
     an `MSM`, a host model in float64 whatever ``device`` and ``dtype``;
-    for ct and crn the network on ``device`` in ``dtype`` (float32 unless
-    named), trained for ``cfg.epochs`` from ``seed``. crn's collection
-    takes the encoder processing, every other the multi-input one. On EQ_5
-    the chemo dosage joins the covariates of the SINDy family only."""
+    for ct, crn, rmsn, gnet and edct the networks on ``device`` in
+    ``dtype`` (float32 unless named), trained for ``cfg.epochs`` from
+    ``seed`` (gnet with ``cfg.gnet_mc_samples`` Monte-Carlo rollouts).
+    The collections of crn, edct and rmsn take the encoder processing,
+    every other the multi-input one. On EQ_5 the chemo dosage joins the
+    covariates of the SINDy family only."""
     if method_name in ENCODER_METHODS:
         if not coll.processed_data_encoder:
             coll.process_data_encoder()
@@ -162,16 +179,16 @@ def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
         coll.process_data_multi(
             include_continuous_treatment=('EQ_5' in dataset_name and
                                           method_name in SINDY_METHODS))
-    if method_name in ('ct', 'crn'):
-        if method_name == 'ct':
-            from insite_tpu_torch.models.ct import CausalTransformer, CTConfig
-            model_cls, cfg_cls = CausalTransformer, CTConfig
+    if method_name in NEURAL_MODELS:
+        model_cls, cfg_cls = NEURAL_MODELS[method_name]
+        if method_name == 'gnet':
+            fields = dict(mc_samples=cfg.gnet_mc_samples,
+                          **_dims_from_collection(coll, with_vitals=True))
         else:
-            from insite_tpu_torch.models.crn import CRN, CRNConfig
-            model_cls, cfg_cls = CRN, CRNConfig
-        mcfg = cfg_cls(epochs=cfg.epochs, seed=seed,
-                       treatment_mode=coll.treatment_mode,
-                       **_dims_from_collection(coll))
+            fields = dict(treatment_mode=coll.treatment_mode,
+                          **_dims_from_collection(
+                              coll, with_vitals=(method_name == 'ct')))
+        mcfg = cfg_cls(epochs=cfg.epochs, seed=seed, **fields)
         return model_cls(_apply_model_overrides(mcfg, cfg, method_name,
                                                 dataset_name, domain_conf),
                          coll, device=device, dtype=dtype)
@@ -230,6 +247,9 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
     if hasattr(model, 'global_equation_string'):
         results['global_equation_string'] = model.global_equation_string
         results['fine_tuned'] = bool(getattr(model, 'insite', False))
+    if method_name == 'rmsn':
+        # which stabilized-weight formula the row ran
+        results['sw_mode'] = model.cfg.sw_mode
     if experiment == Experiment.INSIGHT_RECOVER_PARAMETRIC_DIST and \
             method_name == 'insite':
         c = model.get_fine_tuned_coefficients(coll.val_f)

@@ -8,6 +8,10 @@ from insite_tpu_torch.eval.metrics import (normalised_masked_rmse,
                                            normalised_n_step_rmses)
 
 
+VITALS_NOT_PORTED = ('the vitals stream of the neural baselines is not '
+                     'ported yet (ROADMAP.md, Slice 6c)')
+
+
 class CausalEstimator:
     """Subclasses provide get_predictions / get_autoregressive_predictions
     (numpy, scaled like the dataset's outputs); this base supplies the
@@ -30,9 +34,12 @@ class CausalEstimator:
             percentage=self.percentage_rmse,
             one_step_counterfactual=one_step_counterfactual)
 
-    def get_normalised_n_step_rmses(self, dataset):
-        outputs_scaled = np.asarray(
-            self.get_autoregressive_predictions(dataset))
+    def get_normalised_n_step_rmses(self, dataset, datasets_mc=None):
+        """The 2..(ph+1)-step RMSEs of ``dataset``, predicted from
+        ``datasets_mc`` where it is given (G-Net's Monte-Carlo views of
+        the dataset)."""
+        outputs_scaled = np.asarray(self.get_autoregressive_predictions(
+            dataset if datasets_mc is None else datasets_mc))
         return normalised_n_step_rmses(dataset, outputs_scaled,
                                        unscale=self.unscale_rmse,
                                        percentage=self.percentage_rmse)

@@ -19,8 +19,7 @@ import torch
 from torch import nn
 
 from insite_tpu_torch.core.dtypes import resolve_float
-from insite_tpu_torch.models.base import CausalEstimator
-from insite_tpu_torch.models.ct import VITALS_NOT_PORTED
+from insite_tpu_torch.models.base import CausalEstimator, VITALS_NOT_PORTED
 from insite_tpu_torch.models.nn.blocks import (BRTreatmentOutcomeHead,
                                                VariationalLSTM)
 from insite_tpu_torch.models.nn.training import (BRStage, TrainConfig,

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from insite_tpu_torch.core.dtypes import resolve_float
+from insite_tpu_torch.models.base import VITALS_NOT_PORTED
 from insite_tpu_torch.models.nn.blocks import (BRTreatmentOutcomeHead,
                                                RelativePositionalEncoding,
                                                TransformerMultiInputBlock,
@@ -57,10 +58,6 @@ class CTConfig:
     projection_horizon: int = 5
     max_grad_norm: Optional[float] = None
     seed: int = 0
-
-
-VITALS_NOT_PORTED = ('the vitals stream of CT and CRN is not ported yet '
-                     '(ROADMAP.md, Slice 6b)')
 
 
 class CTNetwork(nn.Module):
@@ -136,6 +133,8 @@ class CausalTransformer(BRStage):
 
     def __init__(self, cfg: CTConfig, dataset_collection=None, *, device,
                  dtype=None):
+        if getattr(dataset_collection, 'has_vitals', False):
+            raise NotImplementedError(VITALS_NOT_PORTED)
         device, dtype = torch.device(device), resolve_float(dtype)
         net = seeded_net(cfg.seed, lambda: CTNetwork(cfg, dtype=dtype),
                          device)

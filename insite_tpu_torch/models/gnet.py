@@ -1,0 +1,231 @@
+"""G-Net: g-computation with an LSTM and sequentially conditioned heads, in
+the meaning of `insite_tpu.models.gnet`.
+
+The network trains on the training rows less a holdout split; the holdout
+rows' residuals are the noise of the n-step prediction, which averages
+``mc_samples`` noisy autoregressive rollouts. A rollout makes
+``projection_horizon + 1`` full forward passes; pass t reads the prediction
+at ``split - 1 + t``, adds the residual of a drawn holdout row at that step
+(clipped to the row's length) and, for t < ph, writes it into
+``prev_outputs`` at ``split + t`` (clipped to the sequence). The clean
+predictions of passes 1..ph are averaged over the samples. The residual
+rows are drawn from ``np.random.RandomState(seed)`` in the JAX package's
+order, so both packages draw the same rows.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from insite_tpu_torch.core.dtypes import resolve_float
+from insite_tpu_torch.models.base import CausalEstimator, VITALS_NOT_PORTED
+from insite_tpu_torch.models.nn.blocks import (ROutcomeVitalsHead,
+                                               VariationalLSTM)
+from insite_tpu_torch.models.nn.training import (TrainConfig, fit_simple,
+                                                 masked_mean, seeded_net)
+
+# rows of one rollout or prediction pass: the 25 Monte-Carlo views of an
+# n-step test set are ~1.5 million rows; a chunk of 2**18 rows of 64 steps
+# keeps the LSTM's outputs and the heads' activations to a few GB
+CHUNK_ROWS = 1 << 18
+
+
+@dataclass
+class GNetConfig:
+    """The JAX package's `GNetConfig`: the reference's tuned
+    hyperparameters. The vitals components (``dim_vitals``,
+    ``fit_vitals``) are not ported yet: ``dim_vitals`` above 0 raises."""
+
+    dim_treatments: int = 1
+    dim_static_features: int = 2
+    dim_outcome: int = 1
+    dim_vitals: int = 0
+    fit_vitals: bool = True
+    comp_sizes: tuple = None         # default (dim_outcome,)
+    seq_hidden_units: int = 24
+    r_size: int = 3
+    fc_hidden_units: int = 48
+    dropout_rate: float = 0.1
+    num_layer: int = 1
+    learning_rate: float = 0.01
+    batch_size: int = 128
+    epochs: int = 100
+    mc_samples: int = 25
+    holdout_ratio: float = 0.1
+    projection_horizon: int = 5
+    seed: int = 0
+
+
+def _comp_sizes(cfg: GNetConfig):
+    if cfg.comp_sizes is not None:
+        assert sum(cfg.comp_sizes) == cfg.dim_outcome + cfg.dim_vitals
+        return tuple(cfg.comp_sizes)
+    return ((cfg.dim_outcome, cfg.dim_vitals) if cfg.dim_vitals > 0
+            else (cfg.dim_outcome,))
+
+
+class GNetNetwork(nn.Module):
+    """``repr_net``, a variational LSTM over [treatments, prev_outputs,
+    statics], and the sequential heads ``r_outcome_vitals_head``."""
+
+    def __init__(self, cfg: GNetConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        n_in = (cfg.dim_treatments + cfg.dim_vitals + cfg.dim_outcome +
+                cfg.dim_static_features)
+        self.repr_net = VariationalLSTM(n_in, cfg.seq_hidden_units,
+                                        cfg.num_layer, cfg.dropout_rate, **kw)
+        self.r_outcome_vitals_head = ROutcomeVitalsHead(
+            cfg.seq_hidden_units, cfg.r_size, cfg.fc_hidden_units,
+            _comp_sizes(cfg), **kw)
+
+    def forward(self, x, gen=None):
+        return self.r_outcome_vitals_head(self.repr_net(x, None, gen))
+
+
+def _inputs(data):
+    """The features [current_treatments, prev_outputs, statics], the
+    statics repeated along time."""
+    T = data['prev_outputs'].shape[1]
+    statics = np.repeat(np.asarray(data['static_features'])[:, None, :], T,
+                        axis=1)
+    return np.concatenate([data['current_treatments'], data['prev_outputs'],
+                           statics], axis=-1)
+
+
+class GNet(CausalEstimator):
+    """G-Net on ``device`` in ``dtype`` (float32 unless named). The network
+    is built when the estimator is, with PyTorch's init drawn from
+    ``cfg.seed`` (`seeded_net`), and trains with a generator seeded
+    alike. Building it splits the collection's holdout rows and makes the
+    Monte-Carlo views of the n-step test set."""
+
+    def __init__(self, cfg: GNetConfig, dataset_collection, *, device,
+                 dtype=None):
+        if cfg.dim_vitals > 0 or getattr(dataset_collection, 'has_vitals',
+                                         False):
+            raise NotImplementedError(VITALS_NOT_PORTED)
+        self.cfg = cfg
+        self.collection = dataset_collection
+        self.device = device = torch.device(device)
+        self.dtype = dtype = resolve_float(dtype)
+        self.net = seeded_net(cfg.seed,
+                              lambda: GNetNetwork(cfg, dtype=dtype), device)
+        self.holdout_resid = self.holdout_resid_len = None
+        if not dataset_collection.processed_data_multi:
+            dataset_collection.process_data_multi()
+        dataset_collection.split_train_f_holdout(cfg.holdout_ratio)
+        dataset_collection.explode_cf_treatment_seq(cfg.mc_samples)
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def fit(self, train_f=None, val_f=None):
+        cfg = self.cfg
+        data = self.collection.train_f.data
+        batch = {'x': self._tensor(_inputs(data)),
+                 'outputs': self._tensor(data['outputs']),
+                 'active_entries': self._tensor(data['active_entries'])}
+
+        def loss_fn(net, b, gen):
+            pred = net(b['x'], gen)[..., :cfg.dim_outcome]
+            return masked_mean((pred - b['outputs']) ** 2,
+                               b['active_entries'])
+
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        fit_simple(self.net, loss_fn, batch,
+                   TrainConfig(cfg.epochs, cfg.batch_size,
+                               cfg.learning_rate), gen)
+
+        # the holdout rows' residuals: the rollouts' noise (none without a
+        # holdout split)
+        holdout = getattr(self.collection, 'train_f_holdout', None)
+        if holdout is not None and len(holdout.data['outputs']):
+            self.holdout_resid = (np.asarray(holdout.data['outputs']) -
+                                  self._predict_data(holdout.data))
+            self.holdout_resid_len = \
+                holdout.data['sequence_lengths'].astype(int)
+        return self
+
+    @torch.no_grad()
+    def _predict_data(self, data) -> np.ndarray:
+        x = self._tensor(_inputs(data))
+        return torch.cat([self.net(x[s:s + CHUNK_ROWS])[
+            ..., :self.cfg.dim_outcome] for s in range(0, len(x), CHUNK_ROWS)]
+        ).cpu().numpy()
+
+    def get_predictions(self, dataset) -> np.ndarray:
+        return self._predict_data(dataset.data)
+
+    @torch.no_grad()
+    def _rollout(self, x, split, ridx, resid_bank, resid_len):
+        """One chunk's rollout, in place on ``x`` (its own tensor):
+        ``[ph, rows, dim_outcome]``, the clean predictions of passes
+        1..ph."""
+        ph = self.cfg.projection_horizon
+        po = self.cfg.dim_treatments
+        do = self.cfg.dim_outcome
+        rows = torch.arange(len(x), device=x.device)
+        T = x.shape[1]
+        wt = (split + torch.arange(ph, device=x.device)[:, None]).clamp(
+            max=T - 1)                                    # [ph, rows]
+        outs = []
+        for t in range(ph + 1):
+            idx = split - 1 + t
+            out_t = self.net(x)[rows, idx, :do]
+            if t < ph:
+                r = ridx[t]
+                resid = resid_bank[r, torch.minimum(idx, resid_len[r] - 1)]
+                x[rows, wt[t], po:po + do] = out_t + resid
+            if t > 0:
+                outs.append(out_t)
+        return torch.stack(outs)
+
+    def get_autoregressive_predictions(self, datasets) -> np.ndarray:
+        """The mean over the ``mc_samples`` views of their noisy rollouts
+        (float32 numpy, as the JAX package returns it). The views are
+        stacked into one batch of ``mc_samples * rows`` sequences and
+        rolled out on the device in chunks of `CHUNK_ROWS`."""
+        cfg = self.cfg
+        ph = cfg.projection_horizon
+        M = cfg.mc_samples
+        assert isinstance(datasets, list) and len(datasets) == M
+        rng = np.random.RandomState(cfg.seed)
+        n = len(datasets[0].data['prev_outputs'])
+        # the views are usually one dataset, M times: its features once
+        feats = {id(d): d for d in datasets}
+        feats = {k: self._tensor(_inputs(d.data)) for k, d in feats.items()}
+        x = torch.cat([feats[id(d)] for d in datasets])
+        split = torch.as_tensor(np.concatenate(
+            [d.data['future_past_split'] for d in datasets]).astype(np.int64),
+            device=self.device)
+        if self.holdout_resid is not None:
+            ridx = np.stack([
+                np.concatenate([rng.randint(len(self.holdout_resid), size=n)
+                                for _ in range(M)])
+                for _ in range(ph + 1)])                  # [ph + 1, M n]
+            resid_bank = self._tensor(self.holdout_resid)
+            resid_len = torch.as_tensor(self.holdout_resid_len,
+                                        device=self.device)
+        else:
+            ridx = np.zeros((ph + 1, M * n), np.int64)
+            resid_bank = torch.zeros((1, x.shape[1], cfg.dim_outcome),
+                                     dtype=self.dtype, device=self.device)
+            resid_len = torch.ones(1, dtype=torch.int64, device=self.device)
+        ridx = torch.as_tensor(ridx, dtype=torch.int64, device=self.device)
+        outs = [self._rollout(x[s:s + CHUNK_ROWS], split[s:s + CHUNK_ROWS],
+                              ridx[:, s:s + CHUNK_ROWS], resid_bank,
+                              resid_len).cpu()
+                for s in range(0, len(x), CHUNK_ROWS)]
+        predicted = torch.cat(outs, dim=1).numpy()        # [ph, M n, do]
+        return predicted.transpose(1, 0, 2).reshape(
+            M, n, ph, cfg.dim_outcome).mean(0)
+
+    def get_normalised_n_step_rmses(self, dataset, datasets_mc=None):
+        datasets_mc = datasets_mc or self.collection.test_cf_treatment_seq_mc
+        return super().get_normalised_n_step_rmses(dataset, datasets_mc)

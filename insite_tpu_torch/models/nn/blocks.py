@@ -1,15 +1,17 @@
-"""The neural building blocks of CT and CRN, as `torch.nn.Module`s, in the
-meaning of `insite_tpu.models.nn.blocks`:
+"""The neural building blocks of the baselines, as `torch.nn.Module`s, in
+the meaning of `insite_tpu.models.nn.blocks`:
 
 - `GradReverse` / `grad_reverse`: identity forward, -scale * g backward;
 - `bce`: the per-(row, step) treatment loss;
 - `BRTreatmentOutcomeHead`: balanced representation, adversarial treatment
   classifier and treatment-conditioned outcome head;
+- `ROutcomeVitalsHead`: G-Net's sequentially conditioned output heads;
 - `VariationalLSTM`: a stacked LSTM whose dropout masks are drawn once per
   batch and multiply the carried state;
 - `fixed_sin_cos`, `RelativePositionalEncoding`, `MultiHeadedAttention` with
-  relative positions on keys and values, `PositionwiseFeedForward` and
-  `TransformerMultiInputBlock` (CT's two-stream block).
+  relative positions on keys and values, `PositionwiseFeedForward`,
+  `TransformerMultiInputBlock` (CT's two-stream block) and EDCT's
+  `TransformerEncoderBlock` and `TransformerDecoderBlock`.
 
 Every `nn.Linear` keeps PyTorch's default init, U(+-1/sqrt(fan_in)) for
 weight and bias, which is the JAX package's `TorchDense`. Every module takes
@@ -118,6 +120,34 @@ class BRTreatmentOutcomeHead(nn.Module):
         treatment_pred = self.build_treatment(br, alpha, detach_treatment)
         outcome_pred = self.build_outcome(br, current_treatment)
         return treatment_pred, outcome_pred, br
+
+
+class ROutcomeVitalsHead(nn.Module):
+    """G-Net's heads: ``r = elu(r_layer(seq))``, then per component c of
+    ``comp_sizes`` the output ``out[c](elu(fc[c](r)))``, which is put in
+    front of ``r`` for the next component; returns the outputs
+    concatenated in order."""
+
+    def __init__(self, seq_hidden_units, r_size, fc_hidden_units,
+                 comp_sizes, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.r_layer = nn.Linear(seq_hidden_units, r_size, **kw)
+        self.fc = nn.ModuleList()
+        self.out = nn.ModuleList()
+        width = r_size
+        for size in comp_sizes:
+            self.fc.append(nn.Linear(width, fc_hidden_units, **kw))
+            self.out.append(nn.Linear(fc_hidden_units, size, **kw))
+            width += size
+
+    def forward(self, seq_output):
+        r = F.elu(self.r_layer(seq_output))
+        outs = []
+        for fc, out in zip(self.fc, self.out):
+            outs.append(out(F.elu(fc(r))))
+            r = torch.cat([outs[-1], r], dim=-1)
+        return torch.cat(outs, dim=-1)
 
 
 class VariationalLSTM(nn.Module):
@@ -233,20 +263,25 @@ class RelativePositionalEncoding(nn.Module):
 class MultiHeadedAttention(nn.Module):
     """Multi-head attention with relative positions ``rel_k`` / ``rel_v``
     (``[Tq, Tk, head_size]``, or None for none) on keys and values, masked
-    and causal scores set to -1e9, then LayerNorm(out + query). Every
-    attention of CT is causal (a query sees no later key)."""
+    scores (and, when ``causal``, those of later keys) set to -1e9, with
+    ``final_layer`` a ``d_model`` linear layer on the heads' output, then
+    LayerNorm(out + query). Every attention of CT is causal; EDCT's
+    cross-attention is not."""
 
     def __init__(self, num_heads: int, d_model: int, head_size=None,
-                 dropout_rate=0.0, *, device=None, dtype=None):
+                 dropout_rate=0.0, final_layer=False, causal=True, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.num_heads = num_heads
         self.head_size = head_size or d_model // num_heads
         self.dropout_rate = dropout_rate
+        self.causal = causal
         width = num_heads * self.head_size
         self.q_proj = nn.Linear(d_model, width, **kw)
         self.k_proj = nn.Linear(d_model, width, **kw)
         self.v_proj = nn.Linear(d_model, width, **kw)
+        self.final = nn.Linear(width, d_model, **kw) if final_layer else None
         self.layer_norm = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS, **kw)
 
     def forward(self, query, key, value, mask=None, gen=None, rel_k=None,
@@ -266,17 +301,21 @@ class MultiHeadedAttention(nn.Module):
             scores = scores + torch.einsum('bhqd,qkd->bhqk', q, rel_k)
         scores = scores / math.sqrt(hs)
         # one pass for both masks: the keys' and the causal one
-        keep = torch.ones(Tq, Tk, dtype=torch.bool,
-                          device=scores.device).tril()
-        if mask is not None:
-            keep = keep & (mask != 0)
-        scores = scores.masked_fill(~keep, MASKED_SCORE)
+        keep = None if mask is None else mask != 0
+        if self.causal:
+            tril = torch.ones(Tq, Tk, dtype=torch.bool,
+                              device=scores.device).tril()
+            keep = tril if keep is None else tril & keep
+        if keep is not None:
+            scores = scores.masked_fill(~keep, MASKED_SCORE)
         p_attn = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
                          gen)
         out = torch.einsum('bhqk,bhkd->bhqd', p_attn, v)
         if rel_v is not None:
             out = out + torch.einsum('bhqv,qvd->bhqd', p_attn, rel_v)
         out = out.transpose(1, 2).reshape(B, Tq, self.num_heads * hs)
+        if self.final is not None:
+            out = self.final(out)
         return self.layer_norm(out + query)
 
 
@@ -335,3 +374,56 @@ class TransformerMultiInputBlock(nn.Module):
         x_to = self.cross_attention_to(x_t_, x_o, x_o, mask, **kw)
         x_ot = self.cross_attention_ot(x_o_, x_t, x_t, mask, **kw)
         return (self.ff_t(x_to + x_s, gen), self.ff_o(x_ot + x_s, gen))
+
+
+class TransformerEncoderBlock(nn.Module):
+    """EDCT's encoder block: causal self-attention with a final layer,
+    masked by the active entries of the keys, then the feed-forward
+    layer."""
+
+    def __init__(self, hidden: int, attn_heads: int, head_size: int,
+                 feed_forward_hidden: int, dropout_rate: float,
+                 attn_dropout: float, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.self_attention = MultiHeadedAttention(
+            attn_heads, hidden, head_size, attn_dropout, final_layer=True,
+            **kw)
+        self.feed_forward = PositionwiseFeedForward(
+            hidden, feed_forward_hidden, dropout_rate, **kw)
+
+    def forward(self, x, active_entries, gen=None, rel_k=None, rel_v=None):
+        mask = active_entries[:, None, None, :, 0]          # [B, 1, 1, T]
+        x = self.self_attention(x, x, x, mask, gen, rel_k, rel_v)
+        return self.feed_forward(x, gen)
+
+
+class TransformerDecoderBlock(nn.Module):
+    """EDCT's decoder block: causal self-attention masked by the active
+    entries of the keys; then attention, not causal, over the encoder's
+    representations ``encoder_x``, masked by the encoder's active steps
+    and, per query, by the query's own active entry; then the
+    feed-forward layer."""
+
+    def __init__(self, hidden: int, attn_heads: int, head_size: int,
+                 feed_forward_hidden: int, dropout_rate: float,
+                 attn_dropout: float, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.self_attention = MultiHeadedAttention(
+            attn_heads, hidden, head_size, attn_dropout, **kw)
+        self.cross_attention = MultiHeadedAttention(
+            attn_heads, hidden, head_size, attn_dropout, causal=False, **kw)
+        self.feed_forward = PositionwiseFeedForward(
+            hidden, feed_forward_hidden, dropout_rate, **kw)
+
+    def forward(self, x, encoder_x, active_entries, active_encoder_br,
+                gen=None, rel_k=None, rel_v=None, cross_rel_k=None,
+                cross_rel_v=None):
+        self_mask = active_entries[:, None, None, :, 0]     # [B, 1, 1, Tq]
+        cross_mask = (active_encoder_br[:, None, :] *
+                      active_entries[:, :, :1])[:, None]    # [B, 1, Tq, Tk]
+        x = self.self_attention(x, x, x, self_mask, gen, rel_k, rel_v)
+        x = self.cross_attention(x, encoder_x, encoder_x, cross_mask, gen,
+                                 cross_rel_k, cross_rel_v)
+        return self.feed_forward(x, gen)

@@ -1,7 +1,10 @@
-"""The two-optimizer adversarial training of the balanced-representation
-baselines (CT, CRN), in the meaning of `insite_tpu.models.nn.training`.
+"""The training loops of the neural baselines, in the meaning of
+`insite_tpu.models.nn.training`: the two-optimizer adversarial training of
+the balanced-representation baselines (CT, CRN, EDCT; `fit_br_model`) and
+the single-optimizer training of RMSN's four networks and G-Net
+(`fit_simple`).
 
-Per batch, optimizer 0 (every parameter but the treatment classifier) steps
+`fit_br_model`: per batch, optimizer 0 (every parameter but the treatment classifier) steps
 on the masked outcome MSE plus the balancing loss; then optimizer 1 (the
 classifier, `treatment_head_mask`) steps on the treatment BCE computed at
 the updated parameters, with the representation detached; then, with
@@ -11,9 +14,12 @@ the second the EMA weights of everything else. Alpha rises per epoch
 (`alpha_at_epoch`); batches are reshuffled every epoch and dropped at the
 end (`make_batches`).
 
-The loop runs on the device of the data: the batch indices and every
+`fit_simple`: one optimizer over every parameter, one step a batch on a
+loss the caller gives, no EMA.
+
+Both loops run on the device of the data: the batch indices and every
 dropout mask come from one `torch.Generator` on that device, and nothing in
-it copies to the host.
+them copies to the host.
 """
 
 from __future__ import annotations
@@ -206,6 +212,30 @@ def fit_br_model(net: torch.nn.Module, data: dict, cfg: TrainConfig,
     for p in param_list:
         p.grad = None
     return ema
+
+
+def fit_simple(net: torch.nn.Module, loss_fn, data: dict, cfg: TrainConfig,
+               gen: torch.Generator) -> torch.nn.Module:
+    """Train ``net``'s parameters in place on ``data`` (tensors with a
+    leading row dimension, on the generator's device) with one optimizer
+    (`_base_optimizer`, clipped to ``cfg.max_grad_norm``): per epoch,
+    shuffled drop-last batches of ``min(cfg.batch_size, rows)`` rows, one
+    step each on ``loss_fn(net, batch, gen)``, whose dropout masks come from
+    ``gen``. Returns ``net``."""
+    params = list(net.parameters())
+    opt = _base_optimizer(params, cfg)
+    n = next(iter(data.values())).shape[0]
+    bs = min(cfg.batch_size, n)
+    for _ in range(cfg.epochs):
+        for idx in make_batches(gen, n, bs):
+            batch = {k: v[idx] for k, v in data.items()}
+            grads = torch.autograd.grad(loss_fn(net, batch, gen), params,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            _step(opt, params, grads, cfg.max_grad_norm)
+    for p in params:
+        p.grad = None
+    return net
 
 
 def device_batch(data: dict, keys, device, dtype) -> dict:

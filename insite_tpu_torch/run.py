@@ -1,9 +1,9 @@
-"""Benchmark sweep CLI of the PyTorch port: the ``sindy``, ``wsindy``,
-``insite``, ``msm``, ``ct`` and ``crn`` methods on the EQ_4 family,
-cancer_sim and EQ_5, for the main table, the one-ODE and degree-4
-ablations, the parametric-distribution recovery and the three robustness
-sweeps (INSIGHT_CONFOUNDING, INSIGHT_NOISE, INSIGHT_LESS_SAMPLES, each on
-its own EQ_4 dataset).
+"""Benchmark sweep CLI of the PyTorch port: all nine methods (``sindy``,
+``wsindy``, ``insite``, ``msm``, ``ct``, ``crn``, ``rmsn``, ``gnet`` and
+``edct``) on the EQ_4 family, cancer_sim and EQ_5, for the main table, the
+one-ODE and degree-4 ablations, the parametric-distribution recovery and
+the three robustness sweeps (INSIGHT_CONFOUNDING, INSIGHT_NOISE,
+INSIGHT_LESS_SAMPLES, each on its own EQ_4 dataset).
 
 Usage:
     python -m insite_tpu_torch.run --flush --datasets EQ_4_D \
@@ -16,11 +16,14 @@ Usage:
         --methods sindy insite msm --seeds 1
     python -m insite_tpu_torch.run --methods ct crn \
         --datasets EQ_4_D cancer_sim --seeds 1
+    python -m insite_tpu_torch.run --methods rmsn gnet edct \
+        --datasets EQ_4_D cancer_sim --seeds 1
 
 ``msm`` is a host model in float64 whatever the device; ``--epochs`` bounds
-the iterations of its propensity fits. ``ct`` (the Causal Transformer) and
-``crn`` train their networks in float32 on the device for ``--epochs``
-epochs (100 by default).
+the iterations of its propensity fits. The neural baselines, ``ct`` (the
+Causal Transformer), ``crn``, ``rmsn``, ``gnet`` and ``edct``, train their
+networks in float32 on the device for ``--epochs`` epochs (100 by default;
+rmsn's encoder three times as many).
 
 Each run logs an '[Exp evaluation complete] {...}' line into
 ``<log dir>/run-<timestamp>.txt`` (the results database, read back by
@@ -43,9 +46,8 @@ from insite_tpu_torch.harness.runner import Experiment, sweep
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--methods', nargs='+', default=None,
-                   help='of sindy, wsindy, insite, msm, ct, crn (default: '
-                        'all nine of the JAX package, which raises for '
-                        'rmsn, gnet and edct)')
+                   help='of sindy, wsindy, insite, msm, ct, crn, rmsn, '
+                        'gnet, edct (default: all nine)')
     p.add_argument('--datasets', nargs='+', default=None)
     p.add_argument('--seeds', type=int, default=None)
     p.add_argument('--seed-start', type=int, default=None)

@@ -19,92 +19,45 @@ collections made by the JAX package and handed over with
 - The vitals stream raises, naming its slice.
 """
 
-import copy
-
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
 import insite_tpu.models.ct as jax_ct
-from insite_tpu.data.collection import make_collection as jax_make_collection
 from insite_tpu.harness.config import RunConfig as JaxRunConfig
 from insite_tpu.harness.runner import run_experiment as jax_run_experiment
-from insite_tpu_torch import convert
-from insite_tpu_torch.data.collection import SUBSETS
 from insite_tpu_torch.harness import runner
 from insite_tpu_torch.harness.config import RunConfig
 from insite_tpu_torch.models.ct import CausalTransformer, CTConfig
+from torch_handover import (RMSE_KEYS, SIZES, assert_rows_close,
+                            build_with_initial, hand_over_jax_cohorts,
+                            record_initial_params)
 
 torch.set_num_threads(1)
-SIZES = dict(train_samples=16, val_samples=2, test_samples=2)
-RMSE_KEYS = ['encoder_test_rmse_all', 'encoder_test_rmse_orig',
-             'encoder_test_rmse_last'] + [f'decoder_test_rmse_{k}-step'
-                                          for k in range(2, 7)]
-
-
-def _hand_over(ref, dataset_name, treatment_mode, seed=0):
-    """The port's collection over a copy of the JAX collection's
-    unprocessed subsets."""
-    raw = {k: copy.deepcopy(getattr(ref, k).data) for k in SUBSETS}
-    return convert.collection_from_numpy(
-        raw, ref.train_scaling_params, dataset_name,
-        projection_horizon=ref.projection_horizon,
-        treatment_mode=treatment_mode, seed=seed)
-
-
-def _hand_over_jax_cohorts(monkeypatch):
-    """Let the port's runner take every cohort from the JAX package."""
-    def make_collection(dataset_name, num_patients, seed, coeff, *, device,
-                        dtype=None, **kwargs):
-        ref = jax_make_collection(dataset_name, num_patients, seed, coeff,
-                                  dtype=jnp.float64, **kwargs)
-        return _hand_over(ref, dataset_name, kwargs['treatment_mode'], seed)
-    monkeypatch.setattr(runner, 'make_collection', make_collection)
-
-
-def _numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 @pytest.mark.parametrize('dataset', ['EQ_4_D', 'cancer_sim'])
 def test_ct_row_matches_jax(monkeypatch, dataset):
-    _hand_over_jax_cohorts(monkeypatch)
+    hand_over_jax_cohorts(monkeypatch)
     initial = []
-    fit = jax_ct.fit_br_model
-
-    def record_initial(apply_fn, params, *args, **kwargs):
-        initial.append(_numpy(params))
-        return fit(apply_fn, params, *args, **kwargs)
-
-    monkeypatch.setattr(jax_ct, 'fit_br_model', record_initial)
+    record_initial_params(monkeypatch, jax_ct, 'fit_br_model', initial)
     overrides = {'ct': {'dropout_rate': 0.0}}
     ref = jax_run_experiment(dataset, 'ct', seed=0, domain_conf=2.0,
                              cfg=JaxRunConfig(metrics_jsonl='', epochs=2,
                                               model_overrides=overrides,
                                               **SIZES))
-    build = runner._build_model
 
-    def build_from_jax_init(*args, **kwargs):
-        model = build(*args, **kwargs)
+    def nets_of(model):
         assert model.cfg.batch_size >= SIZES['train_samples']
-        model.net.load_state_dict(convert.state_dict_from_flax(initial[0],
-                                                               model.net))
-        return model
+        return [model.net]
 
-    monkeypatch.setattr(runner, '_build_model', build_from_jax_init)
+    build_with_initial(monkeypatch, nets_of, initial)
     ours = runner.run_experiment(dataset, 'ct', 0, 2.0,
                                  RunConfig(epochs=2, model_overrides=overrides,
                                            **SIZES),
                                  device='cpu', dtype=torch.float32)
-    assert list(ours) == list(ref) == RMSE_KEYS + ['method', 'seed',
-                                                   'seconds_taken']
-    worst = max(abs(ours[k] / ref[k] - 1) for k in RMSE_KEYS)
-    print(f'ct {dataset}: largest relative RMSE deviation {worst:.3e}')
-    for k in RMSE_KEYS:
-        np.testing.assert_allclose(ours[k], ref[k], rtol=1e-4, err_msg=k)
-    assert runner._plain(ours) == ours
+    assert_rows_close(ours, ref, RMSE_KEYS + ['method', 'seed',
+                                              'seconds_taken'],
+                      f'ct {dataset}')
 
 
 def _state(model):
@@ -135,5 +88,5 @@ def test_ct_row_is_reproducible_in_one_process():
 
 
 def test_vitals_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='Slice 6b'):
+    with pytest.raises(NotImplementedError, match='Slice 6c'):
         CausalTransformer(CTConfig(dim_vitals=3), None, device='cpu')

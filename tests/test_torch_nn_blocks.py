@@ -1,7 +1,10 @@
 """The port's neural blocks against the JAX package's, in float64 on the CPU,
 dropout off: each block is initialised by flax, its parameters are carried
 into the port's module with `convert.state_dict_from_flax`, and both
-forward passes see the same numpy inputs. Then `bce`, `grad_reverse` and the
+forward passes see the same numpy inputs: the blocks of CT and CRN, then
+G-Net's heads and network, attention with a final layer and not causal,
+EDCT's encoder and decoder blocks and networks, and RMSN's LSTM with an
+output layer and the memory adapter. Then `bce`, `grad_reverse` and the
 variational LSTM's dropout masks.
 
 Tolerance: rtol 1e-10 (atol 1e-12 for entries near zero) on every output.
@@ -15,6 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+import insite_tpu.models.edct as jax_edct
+import insite_tpu.models.gnet as jax_gnet
+import insite_tpu.models.rmsn as jax_rmsn
 from insite_tpu.models.crn import CRNSubNetwork as JaxCRNSubNetwork
 from insite_tpu.models.ct import CTConfig as JaxCTConfig
 from insite_tpu.models.ct import CTNetwork as JaxCTNetwork
@@ -22,7 +28,11 @@ from insite_tpu.models.nn import blocks as jb
 from insite_tpu_torch.convert import state_dict_from_flax
 from insite_tpu_torch.models.crn import CRNSubNetwork
 from insite_tpu_torch.models.ct import CTConfig, CTNetwork
+from insite_tpu_torch.models.edct import (EDCTConfig, EDCTDecoderNetwork,
+                                          EDCTEncoderNetwork)
+from insite_tpu_torch.models.gnet import GNetConfig, GNetNetwork
 from insite_tpu_torch.models.nn import blocks as tb
+from insite_tpu_torch.models.rmsn import LSTMOutputNet
 
 F64 = torch.float64
 RTOL, ATOL = 1e-10, 1e-12
@@ -265,3 +275,146 @@ def test_lstm_dropout_masks():
     # the carried masks change the later steps
     assert not torch.allclose(out[:, 1:][~zero[:, 1:]],
                               plain[:, 1:][~zero[:, 1:]] / 0.5)
+
+
+@pytest.mark.parametrize('comp_sizes', [(1,), (2, 3)])
+def test_r_outcome_vitals_head(comp_sizes):
+    """G-Net's sequential heads with one and with two components."""
+    seq = np.random.RandomState(12).randn(B, T, 6)
+    ref_mod = jb.ROutcomeVitalsHead(3, 8, comp_sizes)
+    params = _f64_params(ref_mod.init(jax.random.PRNGKey(12), seq))
+    ref = ref_mod.apply({'params': params}, seq)
+    ours = _port(tb.ROutcomeVitalsHead(6, 3, 8, comp_sizes, dtype=F64),
+                 params)(_t(seq))
+    _close(ours, ref, f'r outcome vitals head {comp_sizes}')
+
+
+@pytest.mark.parametrize('final_layer,causal', [(True, True),
+                                                (False, False),
+                                                (True, False)])
+def test_attention_final_layer_and_direction(final_layer, causal):
+    """A final layer before the residual, and attention that is not causal
+    over keys of another length, masked per query and key (one query row
+    masked everywhere softmaxes to uniform), with relative tables."""
+    rng = np.random.RandomState(13)
+    Tk = 9
+    q, kv = rng.randn(B, T, 8), rng.randn(B, Tk, 8)
+    mask = ((np.arange(Tk)[None, :] < np.array([Tk, 4, 1, 0, 6])[:, None])
+            [:, None, :] * _active(rng, [T, 2, 5, 7, 0])[:, :, :1])[:, None]
+    rel = [rng.randn(T, Tk, 4) for _ in range(2)]
+    ref_mod = jb.MultiHeadedAttention(2, 8, 4, final_layer=final_layer)
+    params = _f64_params(ref_mod.init(jax.random.PRNGKey(13), q, kv, kv,
+                                      mask, causal))
+    ref = ref_mod.apply({'params': params}, q, kv, kv, mask, causal, False,
+                        *rel)
+    ours = _port(tb.MultiHeadedAttention(2, 8, 4, final_layer=final_layer,
+                                         causal=causal, dtype=F64), params)(
+        _t(q), _t(kv), _t(kv), _t(mask), rel_k=_t(rel[0]),
+        rel_v=_t(rel[1]))
+    assert np.isfinite(ours.detach().numpy()).all()
+    _close(ours, ref, f'attention final={final_layer} causal={causal}')
+
+
+def test_transformer_encoder_block():
+    rng = np.random.RandomState(14)
+    x = rng.randn(B, T, 8)
+    active = _active(rng, [T, 4, 2, 6, 1])
+    rel_k, rel_v = rng.randn(T, T, 4), rng.randn(T, T, 4)
+    ref_mod = jb.TransformerEncoderBlock(8, 2, 4, 32, 0.1, 0.1, 15)
+    params = _f64_params(ref_mod.init(jax.random.PRNGKey(14), x, active,
+                                      False, rel_k, rel_v))
+    ref = ref_mod.apply({'params': params}, x, active, False, rel_k, rel_v)
+    ours = _port(tb.TransformerEncoderBlock(8, 2, 4, 32, 0.1, 0.1,
+                                            dtype=F64), params)(
+        _t(x), _t(active), None, _t(rel_k), _t(rel_v))
+    _close(ours, ref, 'transformer encoder block')
+
+
+def test_transformer_decoder_block():
+    """Causal self-attention, then attention over encoder states of
+    another length, not causal, with the cross-distance tables."""
+    rng = np.random.RandomState(15)
+    Tk = 11
+    x, enc = rng.randn(B, T, 8), rng.randn(B, Tk, 8)
+    active = _active(rng, [T, 4, 2, 6, 0])
+    active_enc = (np.arange(Tk)[None, :] <
+                  np.array([3, Tk, 1, 7, 5])[:, None]).astype(np.float64)
+    rel = [rng.randn(T, T, 4), rng.randn(T, T, 4), rng.randn(T, Tk, 4),
+           rng.randn(T, Tk, 4)]
+    ref_mod = jb.TransformerDecoderBlock(8, 2, 4, 32, 0.1, 0.1, 15)
+    params = _f64_params(ref_mod.init(jax.random.PRNGKey(15), x, enc,
+                                      active, active_enc, False, *rel))
+    ref = ref_mod.apply({'params': params}, x, enc, active, active_enc,
+                        False, *rel)
+    ours = _port(tb.TransformerDecoderBlock(8, 2, 4, 32, 0.1, 0.1,
+                                            dtype=F64), params)(
+        _t(x), _t(enc), _t(active), _t(active_enc), None,
+        *[_t(r) for r in rel])
+    _close(ours, ref, 'transformer decoder block')
+
+
+@pytest.mark.parametrize('warm_start', [False, True])
+def test_lstm_output_net(warm_start):
+    """RMSN's network; the warm start goes through the memory adapter."""
+    rng = np.random.RandomState(16)
+    x = rng.randn(B, T, 4)
+    init = rng.randn(B, 5) if warm_start else None
+    ref_mod = jax_rmsn.LSTMOutputNet(6, 2, 0.2, 1,
+                                     use_memory_adapter=warm_start)
+    params = _f64_params(ref_mod.init(jax.random.PRNGKey(16), x, init))
+    ref = ref_mod.apply({'params': params}, x, init)
+    ours = _port(LSTMOutputNet(4, 6, 2, 0.2, 1,
+                               memory_size=5 if warm_start else None,
+                               dtype=F64), params)(
+        _t(x), None if init is None else _t(init))
+    for name, o, r in zip(('output', 'lstm'), ours, ref):
+        _close(o, r, f'lstm output net warm={warm_start} {name}')
+
+
+@pytest.mark.parametrize('comp_sizes', [None, (1,)])
+def test_gnet_network(comp_sizes):
+    x = np.random.RandomState(17).randn(B, T, 5)
+    kw = dict(dim_treatments=2, dim_static_features=2, dim_outcome=1,
+              seq_hidden_units=6, r_size=3, fc_hidden_units=7,
+              comp_sizes=comp_sizes)
+    ref_net = jax_gnet.GNetNetwork(jax_gnet.GNetConfig(**kw))
+    params = _f64_params(ref_net.init(jax.random.PRNGKey(17), x))
+    ref = ref_net.apply({'params': params}, x)
+    ours = _port(GNetNetwork(GNetConfig(**kw), dtype=F64), params)(_t(x))
+    _close(ours, ref, f'G-Net network {comp_sizes}')
+
+
+def _edct_batch(rng, Tk=None):
+    batch = _batch(rng)
+    if Tk is not None:
+        batch['encoder_r'] = rng.randn(B, Tk, 6)
+        batch['active_encoder_r'] = (
+            np.arange(Tk)[None, :] <
+            np.array([Tk, 3, 1, 0, 8])[:, None]).astype(np.float64)
+    return batch
+
+
+@pytest.mark.parametrize('stage', ['encoder', 'decoder'])
+@pytest.mark.parametrize('num_layer', [1, 2])
+def test_edct_network(stage, num_layer):
+    """Both EDCT networks, dropout off: the decoder's width is the
+    encoder's br_size; it attends over ``encoder_r`` of another length
+    (gradient of the representation detached or not)."""
+    kw = dict(enc_seq_hidden_units=8, enc_br_size=6, enc_fc_hidden_units=5,
+              dec_br_size=3, dec_fc_hidden_units=4, num_layer=num_layer,
+              num_heads=2, max_relative_position=3,
+              treatment_mode='multilabel')
+    decoder = stage == 'decoder'
+    batch = _edct_batch(np.random.RandomState(18 + num_layer),
+                        Tk=10 if decoder else None)
+    ref_cls = jax_edct.EDCTDecoderNetwork if decoder else \
+        jax_edct.EDCTEncoderNetwork
+    ref_net = ref_cls(jax_edct.EDCTConfig(**kw))
+    params = _f64_params(ref_net.init(jax.random.PRNGKey(18), batch))
+    ref = ref_net.apply({'params': params}, batch, 0.4)
+    net_cls = EDCTDecoderNetwork if decoder else EDCTEncoderNetwork
+    net = _port(net_cls(EDCTConfig(**kw), dtype=F64), params)
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    _outputs_close(net(tbatch, 0.4), ref, f'EDCT {stage} L={num_layer}')
+    _outputs_close(net(tbatch, 0.4, detach_treatment=True), ref,
+                   f'EDCT {stage} L={num_layer} detached')

@@ -4,7 +4,9 @@ over with `convert.state_dict_from_flax`), the same batch, dropout off and
 ``batch_size >= n`` (one batch per epoch, so the shuffle changes only the
 order of a sum), 3 epochs, with and without the weights' EMA, both balancing
 schemes and global-norm clipping; every parameter and every EMA parameter
-after the run to rtol 1e-8. Then the pieces: `alpha_at_epoch`,
+after the run to rtol 1e-8. The single-optimizer trainer `fit_simple` the
+same way, on RMSN's warm-started network, with and without clipping. Then
+the pieces: `alpha_at_epoch`,
 `_ema_update`, `br_losses`, `masked_mean`, `make_batches`,
 `treatment_head_mask`, `_base_optimizer`.
 
@@ -20,9 +22,11 @@ import torch
 
 from insite_tpu.models.crn import CRNSubNetwork as JaxCRNSubNetwork
 from insite_tpu.models.nn import training as jt
+from insite_tpu.models.rmsn import LSTMOutputNet as JaxLSTMOutputNet
 from insite_tpu_torch.convert import state_dict_from_flax
 from insite_tpu_torch.models.crn import CRNSubNetwork
 from insite_tpu_torch.models.nn import training as tt
+from insite_tpu_torch.models.rmsn import LSTMOutputNet
 
 F64 = torch.float64
 N, T = 12, 6
@@ -197,3 +201,59 @@ def test_base_optimizer(name):
              [torch.as_tensor(g)])
     np.testing.assert_allclose(p.detach().numpy(), p0 + np.asarray(upd),
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize('clip', [None, 0.05])
+def test_fit_simple_matches_jax(clip):
+    """The single-optimizer trainer: RMSN's warm-started network (the
+    memory adapter in the graph) on a masked MSE, 3 epochs of one batch,
+    dropout off, with and without global-norm clipping; every parameter to
+    rtol 1e-8."""
+    data = _data(5)
+    x = np.concatenate([data['prev_treatments'], data['prev_outputs']], -1)
+    init = np.random.RandomState(6).randn(N, 4)
+    kw = dict(epochs=3, batch_size=64, learning_rate=0.01,
+              max_grad_norm=clip)
+    ref_net = JaxLSTMOutputNet(5, 1, 0.0, 1, use_memory_adapter=True)
+    params0 = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float64),
+        ref_net.init(jax.random.PRNGKey(0), x, init)['params'])
+
+    def ref_loss(p, batch, rngs):
+        out, _ = ref_net.apply({'params': p}, batch['x'], batch['init'],
+                               True, rngs=rngs)
+        return jt.masked_mean((out - batch['outputs']) ** 2,
+                              batch['active_entries'])
+
+    arrays = {'x': x, 'init': init, 'outputs': data['outputs'],
+              'active_entries': data['active_entries']}
+    ref = jt.fit_simple(ref_loss, params0,
+                        {k: jnp.asarray(v) for k, v in arrays.items()},
+                        jt.TrainConfig(**kw), jax.random.PRNGKey(1))
+
+    net = LSTMOutputNet(3, 5, 1, 0.0, 1, memory_size=4, dtype=F64)
+    net.load_state_dict(state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, params0), net))
+
+    def loss(n, batch, gen):
+        out, _ = n(batch['x'], batch['init'], gen)
+        return tt.masked_mean((out - batch['outputs']) ** 2,
+                              batch['active_entries'])
+
+    assert tt.fit_simple(
+        net, loss, {k: torch.as_tensor(v, dtype=F64)
+                    for k, v in arrays.items()},
+        tt.TrainConfig(**kw), torch.Generator().manual_seed(1)) is net
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, ref),
+                                net)
+    init_sd = state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, params0), net)
+    worst = 0.0
+    for k, p in net.named_parameters():
+        o, w = p.detach().numpy(), want[k].numpy()
+        worst = max(worst, float(np.max(np.abs(o - w) /
+                                        np.maximum(np.abs(w), 1e-12))))
+        np.testing.assert_allclose(o, w, rtol=1e-8, atol=1e-12, err_msg=k)
+        assert not torch.equal(p.detach(), init_sd[k]), f'{k} did not move'
+        assert p.grad is None
+    print(f'fit_simple clip={clip}: largest relative deviation {worst:.3e}')

@@ -37,3 +37,10 @@ def test_chip_smoke_imports_no_jax():
     path = PACKAGE.parent / 'chip_smoke.py'
     tree = ast.parse(path.read_text(), filename=str(path))
     assert not set(_imported_roots(tree)) & FORBIDDEN
+
+
+def test_every_neural_model_is_checked():
+    """The neural models' modules are among the files checked above."""
+    names = {str(p.relative_to(PACKAGE)) for p in FILES}
+    assert {f'models/{m}.py' for m in ('ct', 'crn', 'rmsn', 'gnet',
+                                        'edct')} <= names

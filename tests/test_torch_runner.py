@@ -121,17 +121,17 @@ LATER = [
     (dict(methods=('wsindy',)), None),
     (dict(force_recache=True), 'force_recache .Slice 7'),
     (dict(methods=('msm', 'crn')), None),
-    (dict(methods=('rmsn',)), 'method rmsn .Slice 6b'),
-    (dict(methods=('gnet',)), 'method gnet .Slice 6b'),
-    (dict(methods=('edct',)), 'method edct .Slice 6b'),
+    (dict(methods=('rmsn',)), None),
+    (dict(methods=('gnet',)), None),
+    (dict(methods=('edct',)), None),
     (dict(methods=('lstm',)), 'method lstm .not in the JAX package')]
 
 
 @pytest.mark.parametrize('change', [c for c, _ in LATER])
 def test_later_slices_raise(change):
     """Settings and methods of later slices raise, each named with its
-    slice, from the sweep and from a single run; wsindy, ct and crn are
-    served (2 epochs)."""
+    slice, from the sweep and from a single run; wsindy and the neural
+    baselines are served (2 epochs)."""
     named = dict((repr(c), n) for c, n in LATER)[repr(change)]
     cfg = RunConfig(methods=('sindy',), datasets=('EQ_4_A',), seed_runs=1,
                     **TINY)
@@ -161,12 +161,12 @@ def test_later_slices_raise(change):
                                         if e != runner.Experiment.MAIN_TABLE])
 def test_other_experiments_raise(experiment):
     """Every experiment other than the main table is served, and still
-    raises for a method of a later slice, naming it."""
+    raises for a setting of a later slice, naming it."""
     cfg = RunConfig(methods=('sindy', 'rmsn'), datasets=('EQ_4_A',),
-                    seed_runs=1, **TINY)
-    with pytest.raises(NotImplementedError, match='rmsn'):
+                    seed_runs=1, tune_hparams=True, **TINY)
+    with pytest.raises(NotImplementedError, match='tune_hparams .Slice 7'):
         runner.sweep(cfg, experiment, device='cpu')
-    with pytest.raises(NotImplementedError, match='rmsn'):
+    with pytest.raises(NotImplementedError, match='tune_hparams .Slice 7'):
         runner.run_experiment('EQ_4_A', 'rmsn', 0, 2.0, cfg, experiment,
                               device='cpu')
 
@@ -402,3 +402,15 @@ def test_cli_insight_sweep_with_epochs(tmp_path):
     assert list(ref['train_samples']) == [r['train_samples'] for r in rows]
     assert list(ref['encoder_test_rmse_orig']) == \
         [r['encoder_test_rmse_orig'] for r in rows]
+
+
+@pytest.mark.parametrize('method', ['ct', 'crn', 'rmsn', 'gnet', 'edct'])
+def test_neural_vitals_raise(method):
+    """A collection with a vitals stream raises for every neural method,
+    naming the slice that brings it."""
+    coll = runner._collection_for('EQ_4_D', method, 0, 2.0, RunConfig(**TINY),
+                                  device='cpu')
+    coll.has_vitals = True
+    with pytest.raises(NotImplementedError, match='Slice 6c'):
+        runner._build_model(method, 'EQ_4_D', coll, RunConfig(**TINY),
+                            device='cpu')

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""ct on ONE EQ_4_D cohort in both packages, over model seeds: the spread of
-the training draws alone, and whether the PyTorch port's rows lie inside the
-JAX package's.
+"""A neural method (ct unless ``--method`` names another) on ONE EQ_4_D
+cohort in both packages, over model seeds: the spread of the training draws
+alone, and whether the PyTorch port's rows lie inside the JAX package's.
 
     JAX_PLATFORMS=cpu python3 tools/neural_same_cohort.py --package jax \\
-        [--seeds 0 1 2 3]
+        [--seeds 0 1 2 3] [--method ct] [--epochs 100]
     JAX_PLATFORMS=cpu python3 tools/neural_same_cohort.py --package port ...
 
 The JAX package makes the cohort of seed 0 (1,000 / 100 / 100 patients,
@@ -12,10 +12,11 @@ gamma 2), the one `NEURAL_REF` was read on; ``--package port`` hands it
 over to the port with `convert.collection_from_numpy`, as the CPU parity
 tests do. Each run is
 `run_experiment` at model seed s (initial weights, shuffles and dropout
-masks), 100 epochs, float32 on the host. The two packages share no random
-stream, so only the distributions compare. ct predicts the n-step test set
-over chunks of rows, as `neural_reference_rmses.py` does. Prints one JSON
-line a run: the 1-step and the 2..6-step RMSEs (%) and the host seconds.
+masks), 100 epochs unless ``--epochs`` says otherwise, float32 on the host.
+The two packages share no random stream, so only the distributions compare.
+ct's and the encoder-decoder stages' predictions run over chunks of rows,
+as in `neural_reference_rmses.py`. Prints one JSON line a run: the 1-step
+and the 2..6-step RMSEs (%) and the host seconds.
 """
 
 import argparse
@@ -30,15 +31,18 @@ os.environ.setdefault('JAX_PLATFORMS', 'cpu')
 # standard library's)
 sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from tools.neural_reference_rmses import METRICS, _chunked  # noqa: E402
+from tools.neural_reference_rmses import (METHODS, METRICS,  # noqa: E402
+                                          _chunked, _chunked_stage)
 
-DATASET, METHOD, COHORT_SEED = 'EQ_4_D', 'ct', 0
+DATASET, COHORT_SEED = 'EQ_4_D', 0
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--package', choices=('jax', 'port'), required=True)
     p.add_argument('--seeds', type=int, nargs='+', default=[0, 1, 2, 3])
+    p.add_argument('--method', choices=METHODS, default='ct')
+    p.add_argument('--epochs', type=int, default=100)
     args = p.parse_args(argv)
     import jax
     jax.config.update('jax_platforms', 'cpu')
@@ -47,6 +51,7 @@ def main(argv=None):
     if args.package == 'jax':
         from insite_tpu.harness import runner
         from insite_tpu.harness.config import RunConfig
+        from insite_tpu.models.crn import _Stage as Stage
         from insite_tpu.models.ct import CausalTransformer
 
         def make_collection(name, num_patients, seed, coeff, **kwargs):
@@ -55,7 +60,8 @@ def main(argv=None):
 
         def run(seed):
             return runner.run_experiment(
-                DATASET, METHOD, seed, 2.0, RunConfig(metrics_jsonl=''),
+                DATASET, args.method, seed, 2.0,
+                RunConfig(metrics_jsonl='', epochs=args.epochs),
                 runner.Experiment.MAIN_TABLE)
     else:
         import torch
@@ -65,6 +71,7 @@ def main(argv=None):
         from insite_tpu_torch.harness import runner
         from insite_tpu_torch.harness.config import RunConfig
         from insite_tpu_torch.models.ct import CausalTransformer
+        from insite_tpu_torch.models.nn.training import BRStage as Stage
 
         def make_collection(name, num_patients, seed, coeff, *, device,
                             dtype=None, **kwargs):
@@ -77,17 +84,20 @@ def main(argv=None):
                 treatment_mode=kwargs['treatment_mode'], seed=COHORT_SEED)
 
         def run(seed):
-            return runner.run_experiment(DATASET, METHOD, seed, 2.0,
-                                         RunConfig(), device='cpu')
+            return runner.run_experiment(DATASET, args.method, seed, 2.0,
+                                         RunConfig(epochs=args.epochs),
+                                         device='cpu')
     runner.make_collection = make_collection
     for name in ('get_predictions', 'get_autoregressive_predictions'):
         setattr(CausalTransformer, name,
                 _chunked(getattr(CausalTransformer, name)))
+    Stage.predict_all = _chunked_stage(Stage.predict_all)
 
     for seed in args.seeds:
         t0 = time.perf_counter()
         row = run(seed)
-        print(json.dumps({'package': args.package,
+        print(json.dumps({'package': args.package, 'method': args.method,
+                          'epochs': args.epochs,
                           'cohort_seed': COHORT_SEED, 'seed': seed,
                           **{m: float(row[m]) for m in METRICS},
                           'host_seconds': time.perf_counter() - t0}),
