@@ -40,7 +40,13 @@ Phases, in order; any failure exits non-zero:
             groups; and at the noise sweep's shapes of phase 8, taken from
             an EQ_4_B collection of the default size (n-step with per-row
             coefficients, 1-step shared; the fit keeps a smaller support
-            than EQ_4_D's). Every case asserts its launches. First, before any
+            than EQ_4_D's), and at phase 11's seed-stacked shapes: the
+            n-step rows of 10 EQ_4_D seeds (B=590,000, T=64) and the 1-step
+            rows of 10 cancer_sim seeds (B=236,000, T=59, A=4, y_clip),
+            simulated as `harness/vectorized.py` simulates them, with
+            per-row models from 10 different supports (each seed's fit
+            with a subset of the union dropped) and the union as the
+            active set. Every case asserts its launches. First, before any
             plain version runs, the device time of one call of each
             kernel (torch.profiler, median of 20 calls, one session; a
             call is one launch, two for the case that goes in groups, and
@@ -140,6 +146,25 @@ Phases, in order; any failure exits non-zero:
             memory. Then the three f32 on the card against f32 on the
             host, as in phase 9 (gnet's Monte-Carlo n-step with each
             side's residual noise, drawn by numpy alike).
+
+11. vectorized the port's `vectorized_sweep` (``run.py --vectorized``) on the
+            card, 10 seeds a column, 1,000 / 100 / 100, f32, debug mode:
+            sindy, insite and wsindy on EQ_4_D, sindy and insite on
+            cancer_sim and EQ_5_D, msm on EQ_4_D and cancer_sim, and
+            INSIGHT_CONFOUNDING insite at gamma 0 and 4 (every seed's
+            test rows of a column in one batch through the kernels). Per
+            call: 10 rows a column with the JAX package's keys in order,
+            none errored; the launches exactly (a column: sindy and
+            wsindy 2 rollouts, insite 3 rollouts and 26 sensitivities, a
+            confounding column 4 and 26, msm none); each column's 10-seed
+            mean inside a two-sided band around the JAX package's
+            vectorized mean at 1 and at 2..6 steps (`VECTORIZED_REF`,
+            `VECTORIZED_BANDS`, from `tools/vectorized_reference_rmses.py`);
+            seed 0 of EQ_4_D sindy and insite, phase 5's cohort, within
+            rtol 0.2 of phase 5's 1-step RMSE; each call's wall time and
+            peak device memory. Then a 2-seed EQ_4_D insite column (200 /
+            10) on the card in f32 against the same cohorts on the host in
+            f64: the same supports, coefficients within rtol 1e-3.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -463,6 +488,97 @@ INSIGHT_SWEEPS = (
      (0.0, 1.0, 5.0)),
     ('INSIGHT_LESS_SAMPLES', 'EQ_4_D', 'train_samples', 'train_sample_grid',
      (50, 250, 1000)))
+# phase 11: the port's `--vectorized` columns at the reference size (10
+# seeds, 1,000 / 100 patients, seq 60, horizon 5, gamma 2, f32), by column
+# "<dataset> <method>" or "INSIGHT_CONFOUNDING <gamma> insite".
+VECTORIZED_SEEDS = 10
+# The JAX package's vectorized columns at the same size, float32 on the
+# CPU: the 10-seed means of the 1-step and the 2..6-step RMSE, %, from
+# `JAX_PLATFORMS=cpu python3 tools/vectorized_reference_rmses.py`.
+VECTORIZED_REF = {
+    'EQ_4_D sindy':
+        (0.116414, 0.117346, 0.118115,
+         0.118471, 0.118187, 0.117203),
+    'EQ_4_D insite':
+        (0.020571, 0.029340, 0.035281,
+         0.040667, 0.045103, 0.048483),
+    'EQ_4_D wsindy':
+        (0.115533, 0.116690, 0.117664,
+         0.118189, 0.118051, 0.117169),
+    'cancer_sim sindy':
+        (1.349640, 1.453213, 1.433901,
+         1.408644, 1.382065, 1.360747),
+    'cancer_sim insite':
+        (0.853513, 0.966506, 0.963714,
+         0.956195, 0.951454, 0.958107),
+    'EQ_5_D sindy':
+        (1.349643, 1.453215, 1.433907,
+         1.408648, 1.382071, 1.360756),
+    'EQ_5_D insite':
+        (0.730761, 0.847817, 0.856533,
+         0.859254, 0.864328, 0.880332),
+    'EQ_4_D msm':
+        (0.716369, 1.583745, 1.775676,
+         1.963711, 2.146114, 2.322637),
+    'cancer_sim msm':
+        (0.939803, 1.371279, 1.600412,
+         1.727744, 1.784235, 1.784443),
+    'INSIGHT_CONFOUNDING 0 insite':
+        (0.021728, 0.029339, 0.035321,
+         0.040730, 0.045218, 0.048653),
+    'INSIGHT_CONFOUNDING 4 insite':
+        (0.021728, 0.029188, 0.034896,
+         0.040122, 0.044435, 0.047711),
+}
+# The same command's two-sided (lower, upper) factors on each mean at 1 step
+# and at 2..6 steps, built as `NEURAL_BANDS` are: the JAX per-seed values
+# as ratios to their column's mean, half the lowest ratio rounded down to
+# 0.05, 1.25x the highest rounded up to 0.5. The port's EQ_4 cohorts come
+# from another generator and its tumor cohorts match the JAX package's in
+# distribution only, so its column mean is held to the JAX package's own
+# spread.
+VECTORIZED_BANDS = {
+    'EQ_4_D sindy': ((0.4, 2.0), (0.4, 2.0)),
+    'EQ_4_D insite': ((0.45, 1.5), (0.3, 3.0)),
+    'EQ_4_D wsindy': ((0.4, 2.0), (0.4, 2.0)),
+    'cancer_sim sindy': ((0.35, 2.0), (0.35, 2.0)),
+    'cancer_sim insite': ((0.3, 2.0), (0.35, 2.0)),
+    'EQ_5_D sindy': ((0.35, 2.0), (0.35, 2.0)),
+    'EQ_5_D insite': ((0.3, 2.0), (0.35, 2.0)),
+    'EQ_4_D msm': ((0.3, 2.5), (0.2, 5.0)),
+    'cancer_sim msm': ((0.35, 2.0), (0.35, 2.0)),
+    'INSIGHT_CONFOUNDING 0 insite': ((0.45, 2.0), (0.3, 3.0)),
+    'INSIGHT_CONFOUNDING 4 insite': ((0.45, 1.5), (0.3, 2.5)),
+}
+# kernel launches of one column run as one batch: (rollout, sensitivity).
+# A fine-tune is gn_iters + 1 sensitivity launches and 1 rollout; insite's
+# n-step fine-tune is followed by the rollout of every plan row.
+VECTORIZED_LAUNCHES = {'sindy': (2, 0), 'wsindy': (2, 0),
+                       'insite': (3, 2 * (GN_ITERS + 1)), 'msm': (0, 0)}
+# the confounding columns fine-tune the 1-step rows per prefix too
+VECTORIZED_CONFOUNDING_GAMMAS = (0.0, 4.0)
+# phase 11's calls of `vectorized_sweep`: (experiment, dataset, method,
+# the `VECTORIZED_REF` keys of its columns)
+VECTORIZED_CALLS = tuple(
+    ('MAIN_TABLE', ds, m, (f'{ds} {m}',))
+    for ds, m in (('EQ_4_D', 'sindy'), ('EQ_4_D', 'insite'),
+                  ('EQ_4_D', 'wsindy'), ('cancer_sim', 'sindy'),
+                  ('cancer_sim', 'insite'), ('EQ_5_D', 'sindy'),
+                  ('EQ_5_D', 'insite'), ('EQ_4_D', 'msm'),
+                  ('cancer_sim', 'msm'))) + (
+    ('INSIGHT_CONFOUNDING', 'EQ_4_D', 'insite',
+     tuple(f'INSIGHT_CONFOUNDING {g:g} insite'
+           for g in VECTORIZED_CONFOUNDING_GAMMAS)),)
+# a vectorized row's keys in the JAX package's order
+VECTORIZED_ROW_KEYS = (['encoder_test_rmse_orig', 'encoder_test_rmse_all',
+                        'encoder_test_rmse_last'] +
+                       [f'decoder_test_rmse_{k}-step' for k in range(2, 7)] +
+                       ['method', 'seed', 'seconds_taken', 'vectorized',
+                        'errored', 'dataset_name', 'method_name',
+                        'domain_conf'])
+# the JAX package's tolerance between a vectorized seed and the standard
+# run of the same cohort (tests/test_vectorized.py, 1-step RMSE)
+VECTORIZED_SEED0_RTOL = 0.2
 # repetitions of a plain version in phase 3's call timing (each takes
 # 0.1-0.3 s; the kernels take 20)
 PLAIN_REPS = 5
@@ -887,6 +1003,86 @@ def family_cases(device):
         B, T = case['arms'].shape
         log(f'  {tag}: B={B} T={T} A={case["coefs"].shape[1]} '
             f'F={case["coefs"].shape[2]} Kr={len(case["active_idx"])}')
+    return cases
+
+
+def distinct_supports(fits):
+    """Per-seed models [S, A, F] with S different supports, from the seeds'
+    fitted models ``fits``: the union U of their supports (grown to at
+    least 4 coordinates by the lowest others, each set to 1 % of its arm's
+    largest coefficient) is filled in on every seed (with the other seeds'
+    mean where a seed's own fit is zero), then seed s drops the s-th
+    subset of U, in order of size (none, each single, each pair, ...).
+    Returns (models, U: the active set, the union)."""
+    import itertools
+    S, A, F = fits.shape
+    flat = fits.reshape(S, A * F).copy()
+    U = [int(i) for i in np.flatnonzero((np.abs(flat) > 1e-3).any(0))]
+    for i in range(A * F):
+        if len(U) >= 4:
+            break
+        if i not in U:
+            arm = flat[:, (i // F) * F:(i // F + 1) * F]
+            flat[:, i] = 0.01 * np.abs(arm).max()
+            U.append(i)
+    for i in U:
+        own = np.abs(flat[:, i]) > 1e-3
+        flat[~own, i] = flat[own, i].mean()
+    subsets = itertools.chain.from_iterable(
+        itertools.combinations(sorted(U), k) for k in range(len(U) + 1))
+    for s, drop in zip(range(S), subsets):
+        flat[s, list(drop)] = 0.0
+    supports = {tuple(np.flatnonzero(np.abs(row) > 1e-3)) for row in flat}
+    assert len(supports) == S, 'the seeds\' supports are not all different'
+    return flat.reshape(S, A, F), tuple(sorted(U))
+
+
+def stacked_cases(device):
+    """Kernel inputs at phase 11's seed-stacked shapes, simulated as
+    `harness/vectorized.py` simulates a column of `VECTORIZED_SEEDS`
+    seeds: the n-step test rows of EQ_4_D (B=590,000, T=64) and the 1-step
+    test rows of cancer_sim (B=236,000, T=59, A=4, y_clip), each seed's
+    rows with its own fitted model restricted to a support of its own
+    (`distinct_supports`), the active set their union."""
+    from insite_tpu_torch.core.constants import STANDARD_DT
+    from insite_tpu_torch.discovery.library import PolynomialLibrary
+    from insite_tpu_torch.harness import vectorized
+    from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
+    seeds = range(VECTORIZED_SEEDS)
+    cases = {}
+    for tag, eq4, subset in (('stacked_eq4d_nstep', True, 'n_step'),
+                             ('stacked_cancer_sim_1step', False,
+                              'one_step')):
+        if eq4:
+            cohorts = [vectorized.eq4_cohort(s, 'EQ_4_D', 1000, 100, 60, 2.0,
+                                             5, device=device)
+                       for s in seeds]
+            thr, A, clip = 0.1, 2, None
+        else:
+            cohorts = [vectorized.tumor_cohort(vectorized.tumor_draws(
+                s, 'cancer_sim', 1000, 100, 60, 2.0, 5, device=device),
+                60, 5) for s in seeds]
+            thr, A = 0.001, 4
+            clip = (0.0, float(TUMOUR_DEATH_THRESHOLD))
+        library = PolynomialLibrary(
+            n_inputs=1 + cohorts[0]['train'][3].shape[-1])
+        fits = vectorized._discover(cohorts, library, A, eq4, 'sindy', thr,
+                                    0.5, STANDARD_DT)
+        models, union = distinct_supports(fits)
+        rows, arms, _, statics, _ = vectorized._stack(cohorts, subset)
+        per_seed = rows.shape[0] // VECTORIZED_SEEDS
+        cases[tag] = dict(library=library,
+                          coefs=np.repeat(models, per_seed, axis=0),
+                          y0=rows[:, 0].cpu().numpy(),
+                          statics=statics.cpu().numpy(),
+                          arms=arms.cpu().numpy(), dt=STANDARD_DT,
+                          active_idx=union, y_clip=clip)
+        log(f'  {tag}: {VECTORIZED_SEEDS} seeds x {per_seed} rows, B='
+            f'{rows.shape[0]} T={arms.shape[1]} A={A} '
+            f'F={models.shape[2]} Kr={len(union)} (the union of '
+            f'{VECTORIZED_SEEDS} different supports)')
+    assert cases['stacked_eq4d_nstep']['arms'].shape == (590_000, 64)
+    assert cases['stacked_cancer_sim_1step']['arms'].shape == (236_000, 59)
     return cases
 
 
@@ -1656,6 +1852,133 @@ def neural_idle_share():
     return float(m.group(1))
 
 
+def run_vectorized(device, table_rows):
+    """Phase 11: the port's `vectorized_sweep` (``run.py --vectorized``)
+    on the card, `VECTORIZED_SEEDS` seeds, 1,000 / 100 / 100, f32, debug
+    mode, one call a column (the confounding call: a column per gamma).
+    Asserts per call: a row per seed with the JAX package's keys in its
+    order, none errored; the kernel launches exactly
+    (`VECTORIZED_LAUNCHES` a column); each column's 10-seed mean inside
+    `VECTORIZED_BANDS` around `VECTORIZED_REF` at 1 and at 2..6 steps.
+    Seed 0 of EQ_4_D sindy and insite is phase 5's cohort: its 1-step RMSE
+    within `VECTORIZED_SEED0_RTOL` of phase 5's row. Prints each call's
+    wall time and peak device memory. Returns the launches of all calls
+    and by column."""
+    import torch
+    from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch.harness.logging_utils import (
+        create_logger_in_process, generate_log_file_path)
+    from insite_tpu_torch.harness.runner import vectorized_sweep
+    from insite_tpu_torch.ops import rollout
+    total = {'rollout': 0, 'sens': 0}
+    by_column = {}
+    phase5 = {r['method_name']: r for r in table_rows
+              if r['dataset_name'] == 'EQ_4_D'}
+    with tempfile.TemporaryDirectory() as log_dir:
+        logger = create_logger_in_process(
+            generate_log_file_path('vectorized', log_dir))
+        for experiment, ds, method, keys in VECTORIZED_CALLS:
+            settings = {}
+            if experiment == 'INSIGHT_CONFOUNDING':
+                settings['domain_confs'] = VECTORIZED_CONFOUNDING_GAMMAS
+            cfg = RunConfig(methods=(method,), datasets=(ds,),
+                            experiment=experiment,
+                            seed_runs=VECTORIZED_SEEDS, debug_mode=True,
+                            log_dir=log_dir, **settings)
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            rollout.reset_launch_counts()
+            t0 = perf_counter()
+            rows, _ = vectorized_sweep(cfg, log=logger, device=device)
+            torch.cuda.synchronize(device)
+            wall = perf_counter() - t0
+            launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                        'sens': rollout.SENS_LAUNCHES}
+            peak = torch.cuda.max_memory_allocated(device) / 2**20
+            tag = ' + '.join(keys)
+            by_column[tag] = launches
+            for k in total:
+                total[k] += launches[k]
+            log(f'[vectorized] {tag}: {len(rows)} rows, wall {wall:.4f} s, '
+                f'peak device memory {peak:.1f} MiB, kernel launches '
+                f'{launches}')
+            n_rows = VECTORIZED_SEEDS * len(keys)
+            if len(rows) != n_rows or any(r['errored'] for r in rows):
+                raise AssertionError(f'{tag}: expected {n_rows} rows, none '
+                                     f'errored: {rows}')
+            for row in rows:
+                if list(row) != VECTORIZED_ROW_KEYS or \
+                        row['vectorized'] is not True:
+                    raise AssertionError(f'{tag} row keys {list(row)}')
+            roll, sens = VECTORIZED_LAUNCHES[method]
+            if experiment == 'INSIGHT_CONFOUNDING':
+                roll += 1                # the 1-step plan rows' rollout
+            want = {'rollout': roll * len(keys), 'sens': sens * len(keys)}
+            if launches != want:
+                raise AssertionError(f'{tag}: expected {want} launches, got '
+                                     f'{launches}')
+            for i, key in enumerate(keys):
+                col = rows[i * VECTORIZED_SEEDS:(i + 1) * VECTORIZED_SEEDS]
+                for j, metric in enumerate(RMSE_METRICS):
+                    mean = float(np.mean([r[metric] for r in col]))
+                    ref = VECTORIZED_REF[key][j]
+                    lo, hi = (f * ref for f in
+                              VECTORIZED_BANDS[key][min(j, 1)])
+                    log(f'  {key} {metric}: {VECTORIZED_SEEDS}-seed mean '
+                        f'{mean:.6f} % vs JAX {ref:.6f} % (x{mean / ref:.3f});'
+                        f' band ({lo:.6f}, {hi:.6f})')
+                    if not lo < mean < hi:
+                        raise AssertionError(f'{key} {metric} mean {mean} is '
+                                             f'not in ({lo}, {hi})')
+            if experiment == 'MAIN_TABLE' and ds == 'EQ_4_D' and \
+                    method in phase5:
+                got = rows[0]['encoder_test_rmse_orig']
+                want = phase5[method]['encoder_test_rmse_orig']
+                gap = got / want - 1
+                log(f'  EQ_4_D {method} seed 0: vectorized 1-step '
+                    f'{got:.6f} % vs phase 5 {want:.6f} % on the same cohort '
+                    f'({100 * gap:+.2f} %)')
+                if abs(gap) > VECTORIZED_SEED0_RTOL:
+                    raise AssertionError(f'EQ_4_D {method} seed 0: {got} is '
+                                         f'not within rtol '
+                                         f'{VECTORIZED_SEED0_RTOL} of {want}')
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+    log(f'[vectorized] kernel launches of all columns: {total}')
+    return total, by_column
+
+
+def check_vectorized_card_against_host(device):
+    """One small insite column (EQ_4_D, 2 seeds, 200 / 10) on the card in
+    f32 against the same cohorts on the host in f64: the same supports,
+    coefficients within rtol 1e-3, RMSEs within 5 %."""
+    import torch
+    from insite_tpu_torch.harness import vectorized
+    cohorts = [vectorized.eq4_cohort(s, 'EQ_4_D', 200, 10, 60, 2.0, 5,
+                                     device=device) for s in (0, 1)]
+    host = [{k: tuple(None if x is None else
+                      (x.cpu().double() if x.is_floating_point() else x.cpu())
+                      for x in v) for k, v in c.items()} for c in cohorts]
+    kw = dict(family='eq4', method='insite', threshold=0.1, alpha=0.5,
+              lam=10.0, projection_horizon=5)
+    card = vectorized.column(cohorts, **kw)
+    ref = vectorized.column(host, **kw)
+    c_k, c_h = card['global_coefs'], ref['global_coefs']
+    rel = np.abs(c_k - c_h) / np.maximum(np.abs(c_h), 1e-12)
+    gaps = {m: float(np.max(np.abs(card[m] / ref[m] - 1)))
+            for m in RMSE_METRICS}
+    worst = max(gaps, key=gaps.get)
+    log(f'  EQ_4_D insite column, 2 seeds, 200 training patients, card f32 '
+        f'vs host f64: coef max rel diff {rel[np.abs(c_h) > 1e-3].max():.3e}; '
+        f'largest RMSE gap {gaps[worst]:.3e} ({worst})')
+    if not ((np.abs(c_k) > 1e-3) == (np.abs(c_h) > 1e-3)).all():
+        raise AssertionError(f'supports differ: {c_k} vs {c_h}')
+    np.testing.assert_allclose(c_k, c_h, rtol=1e-3, atol=1e-6)
+    if max(gaps.values()) > 0.05:
+        raise AssertionError('card and host RMSEs differ by more than 5 %')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1712,6 +2035,8 @@ def main():
     assert len(n_case['active_idx']) < len(n_step_case['active_idx'])
     insight_cases = {'insight_eq4b_nstep': n_case,
                      'insight_eq4b_1step_shared': one_case}
+    # phase 11's seed-stacked batches: per-row models of 10 supports
+    stacked = stacked_cases(device)
     log('[kernels] device time per call, f32, before any plain version '
         'runs')
     dev_times = kernel_times({'northstar': northstar_case,
@@ -1719,7 +2044,7 @@ def main():
                               '1step_shared_b11800_t59': one_step_case,
                               'degree4_f35_kr16_b10000_t59': degree4_case,
                               **tumor_cases, **sindy_family_cases,
-                              **insight_cases},
+                              **insight_cases, **stacked},
                              device)
     log('[kernels] kernel vs plain PyTorch version on the card')
     main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
@@ -1743,7 +2068,7 @@ def main():
         f'{tag} B={case["arms"].shape[0]} T={case["arms"].shape[1]} '
         f'Kr={len(case["active_idx"])}', case, device, timed=True)
         for tag, case in {**tumor_cases, **sindy_family_cases,
-                          **insight_cases}.items()}
+                          **insight_cases, **stacked}.items()}
     fold_res = {tag: run_fold_case(
         f'{tag} vs plain joint B={len(case["y0"])} '
         f'T={case["arms"].shape[1]}', case['joint'], device)
@@ -1823,6 +2148,13 @@ def main():
         '(200 / 10 / 10), 3 epochs')
     check_neural_card_against_host(device, NEURAL_6B_METHODS)
 
+    # 11. the vectorized seed columns
+    log(f'[vectorized] vectorized_sweep: {VECTORIZED_SEEDS} seeds a column, '
+        '1000/100/100')
+    vec_launches, vec_by_column = run_vectorized(device, table_rows)
+    log('[vectorized] card f32 against host f64, one EQ_4_D insite column')
+    check_vectorized_card_against_host(device)
+
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
@@ -1849,6 +2181,9 @@ def main():
             'launches_insight': insight_launches[key],
             'launches_neural': {m: n[key]
                                 for m, n in neural_launches.items()},
+            'launches_vectorized': vec_launches[key],
+            'launches_vectorized_by_column': {
+                tag: n[key] for tag, n in vec_by_column.items()},
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

@@ -6,6 +6,11 @@ tiny STLSQ thresholding iteration runs in float64 numpy
 (`stlsq_from_qr`), with the semantics of pysindy's STLSQ plus the unbias
 refit.
 
+The vectorized seed columns take `stlsq`, the JAX package's masked-ridge
+form (a relative ridge floor, 20 fixed iterations), batched over seeds:
+the [S, F, F] normal equations are formed in float64 on the device and
+solved in float64 on the host whatever the compute dtype (F <= 7, S <= 10).
+
 One deliberate difference from `insite_tpu.discovery.stlsq`: where the
 support's columns are linearly dependent (the EQ_5 A/B design, whose
 single patient type makes the 'u0' column a copy of '1' and 'x0 u0' one of
@@ -101,3 +106,61 @@ def stlsq_hostsolve(theta, y, threshold, alpha, sample_weight=None,
     return stlsq_from_qr(R.cpu().numpy(), qty.cpu().numpy(), threshold,
                          alpha, max_iter=max_iter, initial_mask=initial_mask,
                          unbias=unbias)
+
+
+def stlsq(theta, y, threshold, alpha, sample_weight=None,
+          max_iter: int = 20, unbias: bool = True):
+    """The masked-ridge STLSQ of `insite_tpu.discovery.stlsq.stlsq`,
+    batched over a leading seed axis: theta [S, N, F] (or [N, F]), y and
+    sample_weight [S, N] (or [N]). Returns numpy (coefs [S, F], support
+    [S, F]), without the seed axis if the input had none.
+
+    Each iteration solves the ridge normal equations restricted to the
+    support (masked columns get a unit diagonal and a zero right-hand
+    side) and thresholds; ``max_iter`` fixed iterations reach the fixed
+    point of the reference's converge-or-break loop. The ridge is
+    ``max(alpha, floor)`` with the JAX package's relative floor
+    ``rel * trace(gram) / F`` (rel 1e-6 for float32 inputs, 1e-12
+    otherwise), which keeps an exactly duplicated column pair (EQ_5_A's
+    constant static) solvable; the unbias refit takes the floor alone.
+
+    The JAX package forms and solves these equations in the compute dtype;
+    here the gram and right-hand side are accumulated in float64 on the
+    tensors' device and the F x F solves run in float64 on the host."""
+    batched = theta.ndim == 3
+    if not batched:
+        theta, y = theta[None], y[None]
+        sample_weight = None if sample_weight is None else sample_weight[None]
+    rel = 1e-6 if theta.dtype == torch.float32 else 1e-12
+    th = theta.double()
+    yw = y.double()
+    if sample_weight is not None:
+        w = sample_weight.double()
+        gram = torch.einsum('snf,sng,sn->sfg', th, th, w)
+        rhs = torch.einsum('snf,sn->sf', th, yw * w)
+    else:
+        gram = torch.einsum('snf,sng->sfg', th, th)
+        rhs = torch.einsum('snf,sn->sf', th, yw)
+    gram, rhs = gram.cpu().numpy(), rhs.cpu().numpy()
+    S, F = rhs.shape
+    floor = rel * np.trace(gram, axis1=1, axis2=2) / F          # [S]
+    alpha_eff = np.maximum(alpha, floor)
+    eye = np.eye(F)
+
+    def solve(mask, a):
+        m = mask.astype(np.float64)
+        A = gram * m[:, :, None] * m[:, None, :] + \
+            eye * (a[:, None, None] * m[:, None, :] + (1.0 - m)[:, None, :])
+        return np.linalg.solve(A, (rhs * m)[..., None])[..., 0]
+
+    mask = np.ones((S, F), bool)
+    coefs = np.zeros((S, F))
+    for _ in range(max_iter):
+        c = solve(mask, alpha_eff)
+        mask = (np.abs(c) >= threshold) & mask
+        coefs = np.where(mask, c, 0.0)
+    if unbias:
+        coefs = np.where(mask, solve(mask, floor), 0.0)
+    if not batched:
+        return coefs[0], mask[0]
+    return coefs, mask

@@ -12,8 +12,10 @@ sparse solve and the candidate selection run on the host in float64.
 The per-seed path of `insite_tpu.discovery.wsindy`: `_test_functions`,
 `_hat_weights`, `weak_system`, `weak_system_segments`, `weak_stlsq_host`
 (one pair of `weak_candidates_host`, the solve over a grid) and
-`weak_select_host`. The window starts come from numpy's `RandomState`, so a
-seed gives the JAX package's windows.
+`weak_select_host`; and `weak_sindy_fit_select`, the threshold-grid fit
+of the vectorized seed columns, on the same host pieces. The window starts
+come from numpy's `RandomState`, so a seed gives the JAX package's
+windows.
 """
 
 from __future__ import annotations
@@ -183,7 +185,7 @@ def _normal_equations(A, b, sample_weight):
     return An.T @ An, An.T @ bn, A64.T @ A64, A64.T @ b64
 
 
-def _stlsq_on(normal, threshold, alpha, max_iter):
+def _stlsq_on(normal, threshold, alpha, max_iter, refit_ridge=1e-12):
     G, rhs, Gw, rhs_raw = normal
     F = G.shape[0]
     eye = np.eye(F)
@@ -195,13 +197,13 @@ def _stlsq_on(normal, threshold, alpha, max_iter):
         mask = np.abs(c) > threshold
     m = mask.astype(np.float64)
     Gr = Gw * np.outer(m, m) + np.diag(1.0 - m) + \
-        1e-12 * np.trace(Gw) / F * eye
+        refit_ridge * np.trace(Gw) / F * eye
     c_raw = np.linalg.solve(Gr, rhs_raw * m)
     return np.where(mask, c_raw, 0.0)
 
 
 def weak_candidates_host(A, b, sample_weight, thresholds, alphas,
-                         max_iter: int = 20):
+                         max_iter: int = 20, refit_ridge: float = 1e-12):
     """One sparse solve of the weak system per (threshold, alpha) pair,
     [G, F], from one set of normal equations: sequential hard thresholding
     in correlation units, then an unbiased raw-space refit on the support;
@@ -211,9 +213,10 @@ def weak_candidates_host(A, b, sample_weight, thresholds, alphas,
     Columns and b are scaled to unit norm, so the ridge ``alpha`` and the
     threshold are scale-free: the weak system's time-constant columns are
     near-parallel, and a plain least squares puts large cancelling
-    coefficients on them."""
+    coefficients on them. The refit's ridge is ``refit_ridge`` times the
+    mean diagonal of the raw normal matrix."""
     normal = _normal_equations(A, b, sample_weight)
-    return np.stack([_stlsq_on(normal, t, al, max_iter)
+    return np.stack([_stlsq_on(normal, t, al, max_iter, refit_ridge)
                      for t, al in zip(thresholds, alphas)])
 
 
@@ -243,3 +246,30 @@ def weak_select_host(cands, flat_theta, flat_y, sample_w,
     order = np.lexsort((-np.arange(G), np.where(nnz > 0, nnz, 10**9)))
     g = next(int(i) for i in order if admissible[i])
     return cands[g], g
+
+
+def weak_sindy_fit_select(volumes, statics, lengths, library, dt,
+                          thresholds, flat_theta, flat_y, sample_w,
+                          alphas=None, select_tol: float = 0.05,
+                          n_windows: int = 100, window_len: int = 30,
+                          trajectory_mask=None, seed: int = 0):
+    """`insite_tpu.discovery.wsindy.weak_sindy_fit_select`: the weak
+    system of one arm (float64 on the tensors' device), one sparse solve
+    per (threshold, alpha) of the grid and the strong-form selection over
+    this arm's design (``flat_theta`` [N, F], ``flat_y`` [N], ``sample_w``
+    [N]), in float64 on the host. ``alphas`` default to 0.5. The refit's
+    ridge is the JAX function's, 1e-8 of the mean diagonal. Returns numpy
+    coefficients [F]."""
+    A, b, w = weak_system(volumes.double(), statics.double(), lengths,
+                          library, dt, n_windows=n_windows,
+                          window_len=window_len,
+                          trajectory_mask=trajectory_mask, seed=seed)
+    thresholds = np.asarray(thresholds, np.float64)
+    alphas = (np.full_like(thresholds, 0.5) if alphas is None
+              else np.asarray(alphas, np.float64))
+    cands = weak_candidates_host(A.cpu().numpy(), b.cpu().numpy(),
+                                 w.cpu().numpy(), thresholds, alphas,
+                                 refit_ridge=1e-8)
+    return weak_select_host(cands, flat_theta.cpu().numpy(),
+                            flat_y.cpu().numpy(), sample_w.cpu().numpy(),
+                            select_tol=select_tol)[0]

@@ -22,6 +22,12 @@ EQ_4_B) and INSIGHT_LESS_SAMPLES (the training cohort over
 isolation and metrics-sink settings, and collections with a vitals stream,
 raise `NotImplementedError` naming the slice of ROADMAP.md that brings
 them.
+
+`vectorized_sweep` (``run.py --vectorized``) runs each (dataset, method)
+column of seeds as one batch (`harness/vectorized.py` for the ODE methods,
+`harness/vectorized_msm.py` for msm) and logs the same per-seed rows,
+marked ``'vectorized': True``. The neural methods' columns are Slice 7b
+and give an errored row.
 """
 
 from __future__ import annotations
@@ -80,15 +86,15 @@ TABLE_EXPERIMENTS = (Experiment.MAIN_TABLE, Experiment.ABLATION_ONE_ODE,
 
 def _require_served(cfg: RunConfig, methods=()) -> None:
     """Raise for what the port does not serve yet: the sweep settings of
-    Slice 7, and for a method the JAX package does not have."""
+    Slice 7c, and for a method the JAX package does not have."""
     later = []
     for name in ('tune_hparams', 'load_from_cache', 'force_recache',
                  'isolate_runs'):
         if getattr(cfg, name):
-            later.append(f'{name} (Slice 7)')
+            later.append(f'{name} (Slice 7c)')
     for name in ('resume_log', 'metrics_jsonl'):
         if getattr(cfg, name):
-            later.append(f'{name}={getattr(cfg, name)!r} (Slice 7)')
+            later.append(f'{name}={getattr(cfg, name)!r} (Slice 7c)')
     later += [f'method {m} (not in the JAX package)'
               for m in methods if m not in METHODS]
     if later:
@@ -99,7 +105,7 @@ def _require_served(cfg: RunConfig, methods=()) -> None:
 def _collection_for(dataset_name, method_name, seed, domain_conf,
                     cfg: RunConfig, experiment=Experiment.MAIN_TABLE, *,
                     device, dtype=None):
-    """A fresh collection per run (the dataset cache is Slice 7). The
+    """A fresh collection per run (the dataset cache is Slice 7c). The
     SINDy family runs multiclass, and multilabel under ABLATION_ONE_ODE,
     whose joint library reads the raw treatment columns; every other method
     runs multilabel."""
@@ -297,6 +303,11 @@ def _sweep_fingerprint(cfg: RunConfig, experiment_name: str) -> dict:
     }
 
 
+def _log_fingerprint(cfg: RunConfig, experiment_name: str, log) -> None:
+    log.info('[Sweep config] ' + json.dumps(
+        _sweep_fingerprint(cfg, experiment_name), sort_keys=True))
+
+
 def _enumerate_runs(cfg: RunConfig, experiment: Experiment) -> list:
     """The sweep's runs in order: ``(dataset, method, seed, gamma)`` and,
     where the experiment sweeps a field of the config, a fifth entry
@@ -353,8 +364,7 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
         if unmatched:
             log.warning(f'[sweep] model_overrides keys matching no run in '
                         f'this sweep: {sorted(unmatched)}')
-    log.info('[Sweep config] ' + json.dumps(
-        _sweep_fingerprint(cfg, experiment.name), sort_keys=True))
+    _log_fingerprint(cfg, experiment.name, log)
 
     rows = []
     for args in args_for_runs:
@@ -381,3 +391,242 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
         log.info(f'[Exp evaluation complete] {result}')
         rows.append(result)
     return rows, generate_main_results_table(rows)
+
+
+# ---------------------------------------------------------------------------
+# --vectorized: one batch per (dataset, method) column of seeds
+
+VECTORIZED_NEURAL_NOT_PORTED = (
+    'the vectorized columns of the neural baselines (the JAX package\'s '
+    'harness/vectorized_neural.py) are not ported yet (ROADMAP.md, Slice '
+    '7b)')
+
+
+class ColumnSkipped(Exception):
+    """A (dataset, method) vectorized column has no path (wsindy outside
+    the EQ_4 family, as the JAX package skips it)."""
+
+
+def _vectorized_column(cfg: RunConfig, dataset_name: str, method_name: str,
+                       log=logger, *, device, dtype=None):
+    """One (dataset, method) vectorized column of ``cfg.seed_runs`` seeds
+    on ``device``. Returns ``(r, seeds)``: metric name -> np.ndarray [S],
+    and the seed of each entry. Raises ColumnSkipped where the column has
+    no path, and NotImplementedError for the neural methods."""
+    from insite_tpu_torch.harness import vectorized
+    from insite_tpu_torch.harness.vectorized_msm import vectorized_msm_sweep
+    S = cfg.seed_runs
+    if method_name == 'msm':
+        r = vectorized_msm_sweep(
+            dataset_name, n_seeds=S,
+            num_patients={'train': cfg.train_samples,
+                          'val': cfg.val_samples,
+                          'test': cfg.test_samples},
+            coeff=cfg.domain_conf, epochs=cfg.epochs,
+            seed_start=cfg.seed_start, cf_seq_mode=cfg.cf_seq_mode,
+            noise_scale=cfg.noise_scale,
+            model_overrides=_merged_overrides(
+                cfg, method_name, dataset_name, cfg.domain_conf),
+            device=device, dtype=dtype)
+        return r, list(range(cfg.seed_start, cfg.seed_start + S))
+    if method_name in NEURAL_MODELS:
+        raise NotImplementedError(VECTORIZED_NEURAL_NOT_PORTED)
+    if method_name == 'wsindy' and 'EQ_4' not in dataset_name:
+        raise ColumnSkipped('wsindy runs on the EQ_4 family only; skipping '
+                            f'{dataset_name}')
+    thr, lam = sindy_params_for(dataset_name)
+    if cfg.seed_start:
+        log.warning('[vectorized] ODE columns always run seeds 0..S-1; '
+                    'ignoring seed_start')
+    kw = dict(n_seeds=S, n_train=cfg.train_samples, n_test=cfg.test_samples,
+              threshold=thr, alpha=SINDY_ALPHA, lam=lam, method=method_name,
+              device=device, dtype=dtype)
+    if 'EQ_4' in dataset_name:
+        r = vectorized.vectorized_eq4_sweep(
+            dataset_name, conf_coeff=cfg.domain_conf, **kw)
+    else:
+        r = vectorized.vectorized_tumor_sweep(dataset_name,
+                                              coeff=cfg.domain_conf, **kw)
+    return r, list(range(S))
+
+
+def _seed_row(r: dict, i: int, S: int) -> dict:
+    """The metrics of entry ``i`` of a column: every [S] array of ``r``,
+    in its order."""
+    return {k: float(v[i]) for k, v in r.items()
+            if isinstance(v, np.ndarray) and v.ndim == 1 and len(v) == S}
+
+
+def _errored(cfg: RunConfig, e: Exception, log, dataset_name: str,
+             method_name: str, **setting) -> dict:
+    """The fault wall of a column: with ``cfg.debug_mode`` re-raise,
+    otherwise log the error and return the column's errored row."""
+    if cfg.debug_mode:
+        raise e
+    log.exception(f'[Error] {e}')
+    traceback.print_exc()
+    return {'errored': True, 'dataset_name': dataset_name,
+            'method_name': method_name, 'seed': -1,
+            'domain_conf': cfg.domain_conf, **setting}
+
+
+def _vectorized_confounding_sweep(cfg: RunConfig, log, *, device,
+                                  dtype=None) -> list:
+    """INSIGHT_CONFOUNDING under --vectorized: a column of seeds per gamma
+    of ``cfg.domain_confs`` for each ODE method on EQ_4_D, logged as
+    per-seed rows (``domain_conf`` set per gamma)."""
+    from insite_tpu_torch.harness.vectorized import \
+        vectorized_confounding_sweep
+    rows = []
+    for method_name in cfg.methods:
+        if method_name not in SINDY_METHODS:
+            log.warning(f'[vectorized] INSIGHT_CONFOUNDING has a '
+                        f'vectorized path for the ODE methods only; '
+                        f'skipping {method_name}')
+            continue
+        S = cfg.seed_runs
+        thr, lam = sindy_params_for('EQ_4_D')
+        log.info(f'[Now evaluating exp] (vectorized confounding, EQ_4_D, '
+                 f'{method_name}, gammas={tuple(cfg.domain_confs)}, '
+                 f'{S} seeds)')
+        t0 = time.perf_counter()
+        try:
+            r = vectorized_confounding_sweep(
+                'EQ_4_D', gammas=tuple(float(g) for g in cfg.domain_confs),
+                n_seeds=S, n_train=cfg.train_samples,
+                n_test=cfg.test_samples, method=method_name, threshold=thr,
+                alpha=SINDY_ALPHA, lam=lam, device=device, dtype=dtype)
+            secs = time.perf_counter() - t0
+            n_rows = len(r['gammas']) * S
+            for gi, gamma in enumerate(r['gammas']):
+                for s in range(S):
+                    row = {k: float(v[gi, s]) for k, v in r.items()
+                           if isinstance(v, np.ndarray) and v.ndim == 2}
+                    row.update({'method': method_name, 'seed': s,
+                                'seconds_taken': secs / n_rows,
+                                'vectorized': True, 'errored': False,
+                                'dataset_name': 'EQ_4_D',
+                                'method_name': method_name,
+                                'domain_conf': float(gamma)})
+                    log.info(f'[Exp evaluation complete] {row}')
+                    rows.append(row)
+        except Exception as e:          # the fault wall
+            rows.append(_errored(cfg, e, log, 'EQ_4_D', method_name))
+    return rows
+
+
+def _vectorized_grid_sweep(cfg: RunConfig, log, *, device,
+                           dtype=None) -> list:
+    """INSIGHT_NOISE (EQ_4_B over ``cfg.noise_scales``) and
+    INSIGHT_LESS_SAMPLES (EQ_4_D over ``cfg.train_sample_grid``): a column
+    of seeds per grid point for each ODE method, logged as per-seed rows
+    with the grid's ``noise_scale`` or ``train_samples``."""
+    from insite_tpu_torch.harness.vectorized import vectorized_eq4_sweep
+    noise_exp = cfg.experiment == 'INSIGHT_NOISE'
+    dataset = 'EQ_4_B' if noise_exp else 'EQ_4_D'
+    grid = cfg.noise_scales if noise_exp else cfg.train_sample_grid
+    grid_key = 'noise_scale' if noise_exp else 'train_samples'
+    rows = []
+    for method_name in cfg.methods:
+        if method_name not in SINDY_METHODS:
+            log.warning(f'[vectorized] {cfg.experiment} has a vectorized '
+                        f'path for the ODE methods only; skipping '
+                        f'{method_name}')
+            continue
+        S = cfg.seed_runs
+        thr, lam = sindy_params_for(dataset)
+        for g in grid:
+            log.info(f'[Now evaluating exp] (vectorized {cfg.experiment}, '
+                     f'{dataset}, {method_name}, {grid_key}={g}, '
+                     f'{S} seeds)')
+            t0 = time.perf_counter()
+            try:
+                kw = dict(n_seeds=S, n_test=cfg.test_samples,
+                          conf_coeff=cfg.domain_conf, threshold=thr,
+                          alpha=SINDY_ALPHA, lam=lam, method=method_name,
+                          device=device, dtype=dtype)
+                if noise_exp:
+                    kw.update(n_train=cfg.train_samples,
+                              noise_scale=float(g))
+                else:
+                    kw.update(n_train=int(g))
+                r = vectorized_eq4_sweep(dataset, **kw)
+                secs = time.perf_counter() - t0
+                for s in range(S):
+                    row = _seed_row(r, s, S)
+                    row.update({'method': method_name, 'seed': s,
+                                'seconds_taken': secs / S,
+                                'vectorized': True, 'errored': False,
+                                'dataset_name': dataset,
+                                'method_name': method_name,
+                                'domain_conf': cfg.domain_conf,
+                                grid_key: float(g)})
+                    log.info(f'[Exp evaluation complete] {row}')
+                    rows.append(row)
+            except Exception as e:      # the fault wall
+                rows.append(_errored(cfg, e, log, dataset, method_name,
+                                     **{grid_key: float(g)}))
+    return rows
+
+
+def vectorized_sweep(cfg: RunConfig = None, log=None, *, device,
+                     dtype=None):
+    """``run.py --vectorized``: each (dataset, method) column of seeds
+    runs as one batch on ``device`` and is logged as per-seed rows with
+    the JAX package's keys (``'vectorized': True``, ``seconds_taken`` the
+    column's seconds over its seeds), which `rows_from_log` reads back.
+    ODE columns run seeds 0..S-1; msm columns honour ``seed_start``.
+    INSIGHT_CONFOUNDING runs a column per gamma, INSIGHT_NOISE and
+    INSIGHT_LESS_SAMPLES one per grid point; every other experiment runs
+    the main table's columns. With ``cfg.debug_mode`` a failing column
+    raises, otherwise it becomes one errored row (not logged as a result),
+    as in the JAX package, whose vectorized sweep also ignores
+    ``flush_mode``. Returns (rows, LaTeX tables by metric)."""
+    cfg = cfg or RunConfig()
+    log = log or logger
+    _require_served(cfg, cfg.methods)
+    _log_fingerprint(cfg, cfg.experiment, log)
+    if cfg.experiment == 'INSIGHT_CONFOUNDING':
+        rows = _vectorized_confounding_sweep(cfg, log, device=device,
+                                             dtype=dtype)
+    elif cfg.experiment in ('INSIGHT_NOISE', 'INSIGHT_LESS_SAMPLES'):
+        rows = _vectorized_grid_sweep(cfg, log, device=device, dtype=dtype)
+    else:
+        rows = []
+        for dataset_name in cfg.datasets:
+            for method_name in cfg.methods:
+                rows += _vectorized_main_column(cfg, dataset_name,
+                                                method_name, log,
+                                                device=device, dtype=dtype)
+    rows = [_plain(r) for r in rows]
+    return rows, generate_main_results_table(rows)
+
+
+def _vectorized_main_column(cfg: RunConfig, dataset_name: str,
+                            method_name: str, log, *, device,
+                            dtype=None) -> list:
+    """The rows of one main-table column: one per seed, or one errored
+    row, or none where the column is skipped."""
+    S = cfg.seed_runs
+    log.info(f'[Now evaluating exp] (vectorized, {dataset_name}, '
+             f'{method_name}, {S} seeds)')
+    t0 = time.perf_counter()
+    rows = []
+    try:
+        r, seeds = _vectorized_column(cfg, dataset_name, method_name, log,
+                                      device=device, dtype=dtype)
+        secs = time.perf_counter() - t0
+        for i, seed in enumerate(seeds):
+            row = _seed_row(r, i, S)
+            row.update({'method': method_name, 'seed': seed,
+                        'seconds_taken': secs / S, 'vectorized': True,
+                        'errored': False, 'dataset_name': dataset_name,
+                        'method_name': method_name,
+                        'domain_conf': cfg.domain_conf})
+            log.info(f'[Exp evaluation complete] {row}')
+            rows.append(row)
+    except ColumnSkipped as e:
+        log.warning(f'[vectorized] {e}')
+    except Exception as e:              # the fault wall
+        rows.append(_errored(cfg, e, log, dataset_name, method_name))
+    return rows

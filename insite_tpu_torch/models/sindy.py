@@ -318,16 +318,6 @@ class SINDyRegressor(CausalEstimator):
                                          max_iter=cfg.max_stlsq_iter)[0]
                          for a in range(self._n_arms)])
 
-    def _wsindy_grid(self):
-        """(thresholds [G], paired alphas [G]) of the candidate grid."""
-        cfg = self.cfg
-        if cfg.wsindy_select:
-            ths = np.asarray(cfg.wsindy_threshold_grid, float) * \
-                cfg.sindy_threshold
-            als = np.asarray(cfg.wsindy_alpha_grid, float)
-            return np.repeat(ths, len(als)), np.tile(als, len(ths))
-        return np.asarray([cfg.sindy_threshold]), np.asarray([0.5])
-
     def _weak_solve_arms(self, systems, design):
         """Per arm, the candidate weak solves and the strong-form
         selection, in float64 on the host: [A, F]. Every arm's weak system
@@ -335,7 +325,7 @@ class SINDyRegressor(CausalEstimator):
         systems = [tuple(x.cpu().numpy() for x in sys_a)
                    for sys_a in systems]
         theta, xdot, ok, arm = (x.cpu().numpy() for x in design)
-        grid, alphas = self._wsindy_grid()
+        grid, alphas = wsindy_grid(self.cfg)
         coefs = []
         for a, (A, b, w) in enumerate(systems):
             cands = weak_candidates_host(A, b, w, grid, alphas)
@@ -473,6 +463,18 @@ class SINDyRegressor(CausalEstimator):
         return preds
 
 
+def wsindy_grid(cfg: SINDyConfig):
+    """(thresholds [G], paired alphas [G]) of the weak fit's candidate
+    grid: ``cfg.sindy_threshold`` times each multiplier, each paired with
+    every ridge alpha; one candidate without ``cfg.wsindy_select``."""
+    if cfg.wsindy_select:
+        ths = np.asarray(cfg.wsindy_threshold_grid, float) * \
+            cfg.sindy_threshold
+        als = np.asarray(cfg.wsindy_alpha_grid, float)
+        return np.repeat(ths, len(als)), np.tile(als, len(ths))
+    return np.asarray([cfg.sindy_threshold]), np.asarray([0.5])
+
+
 def _weak_precision(volumes, statics):
     """The weak systems are integrated in float64 on the device whatever
     the compute dtype: -<phi', x> is a signed sum that cancels, the host
@@ -499,10 +501,12 @@ def _empty_support_predict(library, global_coefs, prev, statics, arms,
     """The fine-tune when no global coefficient exceeds 1e-3: nothing can
     move, so rows longer than the horizon roll out the masked global model
     ``global * (|global| > 1e-3)`` and the others the full global model,
-    in one rollout. Returns (preds [B, T], coefs [B, A, F])."""
-    masked = global_coefs * (global_coefs.abs() > 1e-3)
+    in one rollout. global_coefs [A, F], or [B, A, F] per row. Returns
+    (preds [B, T], coefs [B, A, F])."""
+    g = global_coefs if global_coefs.ndim == 3 else global_coefs[None]
+    masked = g * (g.abs() > 1e-3)
     skip = (lengths <= projection_horizon)[:, None, None]
-    coefs = torch.where(skip, global_coefs[None], masked[None])
+    coefs = torch.where(skip, g, masked)
     roll, _ = _rollouts(library, fold)
     preds = roll(coefs, prev[:, 0], statics, arms, dt, y_clip=y_clip)
     return preds, coefs
@@ -581,7 +585,18 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     global_coefs [A, F]; prev [B, T] observed y[0..T-1]; statics [B, S];
     arms [B, T]; lengths [B]; active_idx: the flat (arm * F + feature)
     coordinates with |global coef| > 1e-3. Returns (preds [B, T],
-    coefs [B, A, F]). With ``fold`` (a `JointFold` of ``library``) the
+    coefs [B, A, F]).
+
+    global_coefs may also be [B, A, F], a global model per row (the
+    vectorized seed columns: each row its own seed's), with active_idx the
+    union of the rows' supports. Each row then moves only its own
+    support: the kernel's sensitivities of the union coordinates outside
+    it are zeroed, so those stay at the row's global value and are masked
+    out of its model, as in the JAX package's full-K problem, where they
+    have a zero Jacobian. A row whose support is empty rolls out its
+    masked global model, as `_empty_support_predict` gives.
+
+    With ``fold`` (a `JointFold` of ``library``) the
     model is the joint one: global_coefs [1, F_joint], arms the combination
     index per step, and the loop works on the joint coordinates while the
     kernels run the folded per-arm model.
@@ -596,14 +611,19 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
                          'coefficient')
     dev, dtype = prev.device, prev.dtype
     roll, roll_sens = _rollouts(library, fold)
-    global_coefs = global_coefs.to(dtype)
-    A, F = global_coefs.shape
+    per_row = global_coefs.ndim == 3
+    g_rows = global_coefs.to(dtype)
+    if not per_row:
+        g_rows = g_rows[None]                                   # [1|B, A, F]
+    A, F = g_rows.shape[1:]
     K = A * F
     act = torch.tensor(active_idx, device=dev)
     Kr = len(active_idx)
     B, T = prev.shape
-    sparse_flat = (global_coefs.abs() > 1e-3).to(dtype).reshape(-1)
-    g_red = global_coefs.reshape(-1)[act]
+    sparse_flat = (g_rows.abs() > 1e-3).to(dtype).reshape(-1, K)
+    g_red = g_rows.reshape(-1, K)[:, act]                       # [1|B, Kr]
+    # each row's own support among the union's coordinates
+    own = sparse_flat[:, act] > 0 if per_row else None          # [B, Kr]
 
     ph = projection_horizon
     prefix = (torch.arange(T - 1, device=dev)[None, :]
@@ -616,13 +636,15 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     def to_full(c_red):                                         # [B, Kr]
         c = torch.zeros((B, K), dtype=dtype, device=dev)
         c[:, act] = c_red
-        return (c * sparse_flat[None, :]).reshape(B, A, F)
+        return (c * sparse_flat).reshape(B, A, F)
 
     def resid_jac(c_red):
         y, s = roll_sens(to_full(c_red), prev[:, 0], statics, arms, dt,
                          active_idx, y_clip=y_clip)
         r = torch.where(prefix, prev[:, 1:] - y[:, :-1], 0.0)
         J = torch.where(prefix[..., None], -s[:, :-1, :], 0.0)
+        if per_row:
+            J = torch.where(own[:, None, :], J, 0.0)
         return r, J
 
     r0, J0 = resid_jac(g_red.expand(B, Kr))
@@ -631,13 +653,13 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
 
     def full_obj(r, c):
         return ((r * ds[:, None]) ** 2).sum(1) + \
-            reg2 * ((c - g_red[None, :]) ** 2).sum(1)
+            reg2 * ((c - g_red) ** 2).sum(1)
 
     def solve_step(r, J, c, mu):
         Js = J * ds[:, None, None]
         JtJ = torch.einsum('btj,btk->bjk', Js, Js) + reg2 * eye[None]
         rhs = -torch.einsum('btj,bt->bj', Js, r * ds[:, None]) \
-            - reg2 * (c - g_red[None, :])
+            - reg2 * (c - g_red)
         # solve_ex: no host sync for the error check; a non-finite row
         # yields a non-finite candidate, which the acceptance test rejects
         delta = torch.linalg.solve_ex(JtJ + mu[:, None, None] * eye[None],
@@ -660,10 +682,9 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
         mu = torch.clamp(torch.where(better, mu * 0.3, mu * 10.0), 1e-8, 1e8)
         cand = solve_step(r_best, J_best, c_best, mu)
 
-    coefs = torch.where(skip[:, None], g_red[None, :], c_best)
+    coefs = torch.where(skip[:, None], g_red, c_best)
     # skip rows roll out the FULL unmasked global model: to_full drops
     # retained sub-threshold (|coef| <= 1e-3) entries
-    coefs_full = torch.where(skip[:, None, None], global_coefs[None],
-                             to_full(coefs))
+    coefs_full = torch.where(skip[:, None, None], g_rows, to_full(coefs))
     preds = roll(coefs_full, prev[:, 0], statics, arms, dt, y_clip=y_clip)
     return preds, coefs_full
