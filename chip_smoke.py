@@ -165,6 +165,26 @@ Phases, in order; any failure exits non-zero:
             peak device memory. Then a 2-seed EQ_4_D insite column (200 /
             10) on the card in f32 against the same cohorts on the host in
             f64: the same supports, coefficients within rtol 1e-3.
+12. vectorized neural  the neural methods' `vectorized_sweep` columns on
+            the card, 10 seeds a column, 1,000 / 100 / 100, f32, full
+            width, debug mode: ct, crn, edct, rmsn and gnet on EQ_4_D, ct
+            and gnet on cancer_sim, each stage of a column one
+            seed-stacked fit (epochs `VEC_NEURAL_EPOCHS`: ct and gnet
+            `VEC_NEURAL_FAST_E`, the rest `VEC_NEURAL_E`, cuts the time
+            limit forces). Per column: 10 rows with the JAX package's keys
+            in order (rmsn's with `sw_mode`), every RMSE finite; no kernel
+            launch; the 10-seed mean at 1 step and at each of 2..6 steps
+            inside a two-sided band around the JAX package's vectorized
+            column (`VECTORIZED_NEURAL_REF`, `VECTORIZED_NEURAL_BANDS`, from
+            `tools/vectorized_neural_reference_rmses.py`); on EQ_4_D the
+            1-step mean above phase 11's insite column; peak device memory
+            within 40 GiB; each column's wall time and peak printed. Then a
+            2-seed column a method (EQ_4_D, 200 / 10 / 10, 3 epochs,
+            dropout 0, one batch an epoch) f32 on the card against f32 on
+            the host, the same cohorts and bitwise-equal initial weights:
+            RMSEs within rtol 1e-3; and the device's idle share of one
+            epoch of the stacked crn encoder fit of a 10-seed column
+            (`tools/profile_torch_northstar.py --path column-fit`).
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -405,9 +425,10 @@ INSIGHT_BANDS = {'sindy': ((0.4, 2.5), (0.4, 2.5)),
 # (the card idles > 90 % of a crn fit): at 100 epochs their six runs alone
 # take ~2,100 s, past the script's 1,200-s limit (per epoch and dataset on
 # an H100 80GB HBM3 at 700 W: crn 2.2-2.5 s, rmsn 4.0-4.1 s, edct 4.1-4.2
-# s), so the three take one common count, `NEURAL_E`: the whole script then
-# ends in ~800 s on a slow host, within 1,050 s on one 1.3x slower still.
-NEURAL_E = 18
+# s), so the three take one common count, `NEURAL_E`: 10 since phase 12
+# joined the script (18 before), so that the whole script ends within
+# ~1,000 s on a slow host.
+NEURAL_E = 10
 NEURAL_EPOCHS = {'ct': 100, 'crn': NEURAL_E, 'rmsn': NEURAL_E, 'gnet': 100,
                  'edct': NEURAL_E}
 # The JAX package's neural rows at seed 0, 1,000 / 100 / 100 patients, at
@@ -421,30 +442,30 @@ NEURAL_REF = {
     ('cancer_sim', 'ct'): (0.8858592719360117, 0.9425512460934417,
                            1.1226936225562807, 1.237430379912266,
                            1.3042949139986377, 1.3198181423820459),
-    ('EQ_4_D', 'crn'): (0.6986300025383037, 0.9706407129038305,
-                        1.0882383533428868, 1.2966586296267797,
-                        1.4822063793842808, 1.623432853272375),
-    ('cancer_sim', 'crn'): (0.9195220443997806, 1.1294088559171795,
-                            1.3391724510234742, 1.4662314359925284,
-                            1.5482049390070203, 1.6045564160221355),
-    ('EQ_4_D', 'rmsn'): (1.59209291081542, 1.2947123634271676,
-                         1.135116801214023, 1.0784710278321659,
-                         1.0671237357907148, 1.0854739780718934),
-    ('cancer_sim', 'rmsn'): (0.7293712903162833, 1.4078166394776204,
-                             1.4290077862198147, 1.4867385480264856,
-                             1.547502199660149, 1.6165925860824857),
+    ('EQ_4_D', 'crn'): (0.8964328625654182, 1.6648490998423773,
+                        1.6226396429651804, 1.7540845373073617,
+                        1.942868419108158, 2.128375747125765),
+    ('cancer_sim', 'crn'): (1.0880361850355103, 1.349400582058068,
+                            1.5604214589040795, 1.706503943817816,
+                            1.802972887069848, 1.8687638813062262),
+    ('EQ_4_D', 'rmsn'): (2.8474944217193205, 2.4256322036159244,
+                         2.3007300505524126, 2.2880095779938,
+                         2.3291561414608037, 2.3949409660533094),
+    ('cancer_sim', 'rmsn'): (1.0159156509949918, 1.6657647824328885,
+                             1.6270083606765022, 1.6150454737731104,
+                             1.5928081428271117, 1.57230056840634),
     ('EQ_4_D', 'gnet'): (0.5761336616204725, 0.7134392317710364,
                          0.836870714568908, 0.9349265885428446,
                          1.0150799195641653, 1.0779590501092622),
     ('cancer_sim', 'gnet'): (0.6903167401447208, 0.7484567915665562,
                              0.9251468560789172, 1.0587084438666867,
                              1.1640690248672214, 1.2548171652271778),
-    ('EQ_4_D', 'edct'): (0.3602335183211379, 0.48412985125800045,
-                         0.4343892681459679, 0.381299728604672,
-                         0.35730362572021446, 0.3627300714974347),
-    ('cancer_sim', 'edct'): (1.2896759600990924, 1.0176242346891802,
-                             1.0908312431169984, 1.1420863608177052,
-                             1.1718031340988353, 1.1835912758330274)}
+    ('EQ_4_D', 'edct'): (0.6475848557332772, 0.6621655976428016,
+                         0.5940026977200824, 0.5142882399038425,
+                         0.48980424632252706, 0.4771176733832437),
+    ('cancer_sim', 'edct'): (1.277184631111807, 1.1444911758971008,
+                             1.2743055635365468, 1.3894512947447633,
+                             1.4722506996693432, 1.5378630290235815)}
 NEURAL_DATASETS = ('EQ_4_D', 'cancer_sim')
 # phase 9's methods, then phase 10's
 NEURAL_METHODS = ('ct', 'crn')
@@ -456,18 +477,18 @@ NEURAL_6B_METHODS = ('rmsn', 'gnet', 'edct')
 # package's own rows at seeds 0-3 (the tool above with --seed 0..3), as
 # ratios to seed 0, over both datasets:
 #   ct   1 step x0.613-1.739, 2..6 steps x0.575-3.395 (EQ_4_D 2-step, seed 2)
-#   crn  1 step x0.707-1.426, 2..6 steps x0.687-3.275 (EQ_4_D 2-step, seed 2)
-#   rmsn 1 step x0.830-1.722, 2..6 steps x0.507-1.931
+#   crn  1 step x0.781-1.360, 2..6 steps x0.593-1.945 (at 10 epochs)
+#   rmsn 1 step x0.772-1.655, 2..6 steps x0.570-1.224 (at 10 epochs)
 #   gnet 1 step x0.493-1.184, 2..6 steps x0.376-1.169
-#   edct 1 step x0.662-1.599, 2..6 steps x0.699-3.004 (EQ_4_D 5-step, seed 2)
+#   edct 1 step x0.733-1.362, 2..6 steps x0.619-3.971 (at 10 epochs)
 # Each lower edge is half the lowest ratio, rounded down to 0.05; each upper
 # edge 1.25x the highest, rounded up to 0.5. The port is read against these
 # edges, which come from the reference alone.
 NEURAL_BANDS = {'ct': ((0.3, 2.5), (0.25, 4.5)),
-                'crn': ((0.35, 2.0), (0.3, 4.5)),
-                'rmsn': ((0.4, 2.5), (0.25, 2.5)),
+                'crn': ((0.35, 2.0), (0.25, 2.5)),
+                'rmsn': ((0.35, 2.5), (0.25, 2.0)),
                 'gnet': ((0.2, 1.5), (0.15, 1.5)),
-                'edct': ((0.3, 2.0), (0.3, 4.0))}
+                'edct': ((0.35, 2.0), (0.3, 5.0))}
 # a neural row's keys in the JAX package's order; an rmsn row also names
 # its stabilized weights' formula, before 'method'
 NEURAL_ROW_KEYS = (['encoder_test_rmse_all', 'encoder_test_rmse_orig',
@@ -576,6 +597,62 @@ VECTORIZED_ROW_KEYS = (['encoder_test_rmse_orig', 'encoder_test_rmse_all',
                        ['method', 'seed', 'seconds_taken', 'vectorized',
                         'errored', 'dataset_name', 'method_name',
                         'domain_conf'])
+# phase 12: the neural `--vectorized` columns at the reference size (10
+# seeds, 1,000 / 100 / 100 patients, f32, the JAX package's widths), by
+# column "<dataset> <method>", and the epochs of each method there. A
+# stacked fit is host-bound like a standard one (1.4-2.2x a standard epoch
+# for ten seeds, `tools/vectorized_neural_epoch_times.py`), so the JAX
+# package's 100 epochs do not fit phase 12's ~200 s: ct and gnet train
+# `VEC_NEURAL_FAST_E`, crn, rmsn and edct `VEC_NEURAL_E` (the CLI at 100
+# epochs: PERF.md).
+VEC_NEURAL_FAST_E = 20
+VEC_NEURAL_E = 2
+VEC_NEURAL_EPOCHS = {'ct': VEC_NEURAL_FAST_E, 'gnet': VEC_NEURAL_FAST_E,
+                     'crn': VEC_NEURAL_E, 'rmsn': VEC_NEURAL_E,
+                     'edct': VEC_NEURAL_E}
+VEC_NEURAL_COLUMNS = tuple(('EQ_4_D', m) for m in
+                           ('ct', 'crn', 'edct', 'rmsn', 'gnet')) + (
+    ('cancer_sim', 'ct'), ('cancer_sim', 'gnet'))
+# The JAX package's vectorized neural columns at the same size and epochs,
+# float32 on the CPU: the 10-seed means of the 1-step and the 2..6-step RMSE,
+# %, from `JAX_PLATFORMS=cpu python3 tools/vectorized_neural_reference_rmses.py
+# --column <dataset> <method> <epochs>`. ct and gnet: their columns' n-step
+# evaluation (59,000 rows a seed; gnet 25 Monte-Carlo views of them) takes
+# ~25 min and, for gnet, ~25 GB on the host at 10 seeds, so their means are
+# over seeds 0-3 (`--seeds 4`).
+VECTORIZED_NEURAL_REF = {
+    'EQ_4_D ct': (0.983301, 1.407082, 1.532603,          # 4 seeds
+                  1.588124, 1.623770, 1.640984),
+    'EQ_4_D crn': (3.120782, 8.308597, 7.079283,
+                   6.307690, 5.788508, 5.455981),
+    'EQ_4_D edct': (3.771090, 4.028751, 3.478616,
+                    3.116031, 2.934098, 2.833504),
+    'EQ_4_D rmsn': (10.078219, 6.585369, 6.590902,
+                    6.373551, 6.174568, 5.996847),
+    'EQ_4_D gnet': (0.740218, 0.914764, 1.003316,        # 4 seeds
+                    1.061683, 1.102282, 1.131378),
+    'cancer_sim ct': (1.148871, 1.099857, 1.237579,      # 4 seeds
+                      1.412552, 1.546744, 1.621830),
+    'cancer_sim gnet': (0.720702, 0.849174, 0.875266,    # 4 seeds
+                        0.914356, 0.955097, 0.992005),
+}
+# The same command's two-sided (lower, upper) factors on each mean at 1 step
+# and at 2..6 steps, built as `VECTORIZED_BANDS` are: the JAX per-seed values
+# as ratios to their column's mean, half the lowest ratio rounded down to
+# 0.05, 1.25x the highest rounded up to 0.5. The two packages share no
+# random stream (cohorts on EQ_4, initial weights, batches, masks), so a
+# column's mean is held to the JAX package's own spread.
+VECTORIZED_NEURAL_BANDS = {
+    'EQ_4_D ct': ((0.3, 2.0), (0.3, 2.0)),
+    'EQ_4_D crn': ((0.35, 2.5), (0.25, 2.5)),
+    'EQ_4_D edct': ((0.3, 2.5), (0.2, 3.0)),
+    'EQ_4_D rmsn': ((0.4, 2.0), (0.3, 2.0)),
+    'EQ_4_D gnet': ((0.35, 1.5), (0.35, 2.0)),
+    'cancer_sim ct': ((0.35, 1.5), (0.4, 2.0)),
+    'cancer_sim gnet': ((0.35, 1.5), (0.35, 2.0)),
+}
+# a column's peak device memory may take half of the 80 GB card
+VEC_NEURAL_PEAK_MIB = 40 * 1024
 # the JAX package's tolerance between a vectorized seed and the standard
 # run of the same cohort (tests/test_vectorized.py, 1-step RMSE)
 VECTORIZED_SEED0_RTOL = 0.2
@@ -1833,22 +1910,24 @@ def check_neural_card_against_host(device, methods):
                                        atol=1e-5, err_msg=f'{method} {what}')
 
 
-def neural_idle_share():
-    """The device's idle share during one crn fit (EQ_4_D, 1,000 patients,
-    one epoch: 15 encoder and ~103 decoder batches) from torch.profiler, in
-    a process of its own: a second profiler session in this process would
-    see no kernel events."""
+def neural_idle_share(path='fit', tag='neural'):
+    """The device's idle share during one epoch of a fit from
+    torch.profiler, in a process of its own (a second profiler run in
+    this process would see no kernel events): ``path`` 'fit', one crn fit
+    (EQ_4_D, 1,000 patients: 15 encoder and ~103 decoder batches), or
+    'column-fit', the stacked crn encoder fit of a 10-seed column (15
+    batches of 64 rows a seed)."""
     from pathlib import Path
     tool = Path(__file__).resolve().parent / 'tools' / \
         'profile_torch_northstar.py'
-    out = subprocess.run([sys.executable, str(tool), '--path', 'fit',
+    out = subprocess.run([sys.executable, str(tool), '--path', path,
                           '--epochs', '1'],
                          capture_output=True, text=True, timeout=600,
                          check=True).stdout
-    log('[neural] ' + out.strip().replace('\n', '\n[neural] '))
+    log(f'[{tag}] ' + out.strip().replace('\n', f'\n[{tag}] '))
     m = re.search(r'device busy .* idle ([0-9.]+) %', out)
     if m is None:
-        raise AssertionError('the profile of the crn fit gave no idle share')
+        raise AssertionError(f'the profile of the {path} gave no idle share')
     return float(m.group(1))
 
 
@@ -1863,7 +1942,7 @@ def run_vectorized(device, table_rows):
     Seed 0 of EQ_4_D sindy and insite is phase 5's cohort: its 1-step RMSE
     within `VECTORIZED_SEED0_RTOL` of phase 5's row. Prints each call's
     wall time and peak device memory. Returns the launches of all calls
-    and by column."""
+    and by column, and each column's 10-seed 1-step mean."""
     import torch
     from insite_tpu_torch.harness.config import RunConfig
     from insite_tpu_torch.harness.logging_utils import (
@@ -1871,7 +1950,7 @@ def run_vectorized(device, table_rows):
     from insite_tpu_torch.harness.runner import vectorized_sweep
     from insite_tpu_torch.ops import rollout
     total = {'rollout': 0, 'sens': 0}
-    by_column = {}
+    by_column, one_step_means = {}, {}
     phase5 = {r['method_name']: r for r in table_rows
               if r['dataset_name'] == 'EQ_4_D'}
     with tempfile.TemporaryDirectory() as log_dir:
@@ -1930,6 +2009,8 @@ def run_vectorized(device, table_rows):
                     if not lo < mean < hi:
                         raise AssertionError(f'{key} {metric} mean {mean} is '
                                              f'not in ({lo}, {hi})')
+                    if j == 0:
+                        one_step_means[key] = mean
             if experiment == 'MAIN_TABLE' and ds == 'EQ_4_D' and \
                     method in phase5:
                 got = rows[0]['encoder_test_rmse_orig']
@@ -1946,7 +2027,7 @@ def run_vectorized(device, table_rows):
             logger.removeHandler(h)
             h.close()
     log(f'[vectorized] kernel launches of all columns: {total}')
-    return total, by_column
+    return total, by_column, one_step_means
 
 
 def check_vectorized_card_against_host(device):
@@ -1977,6 +2058,157 @@ def check_vectorized_card_against_host(device):
     np.testing.assert_allclose(c_k, c_h, rtol=1e-3, atol=1e-6)
     if max(gaps.values()) > 0.05:
         raise AssertionError('card and host RMSEs differ by more than 5 %')
+
+
+def run_vectorized_neural(device, insite_eq4d_column_mean):
+    """Phase 12: the neural methods' `vectorized_sweep` columns on the card
+    (`VEC_NEURAL_COLUMNS`, `VECTORIZED_SEEDS` seeds, 1,000 / 100 / 100,
+    f32, `VEC_NEURAL_EPOCHS`, debug mode), one call a column. Asserts per
+    column: a row per seed with the JAX package's keys in its order (rmsn
+    rows with ``sw_mode`` last), none errored, every RMSE finite; no kernel
+    launch; the 10-seed mean at 1 step and at each of 2..6 steps inside
+    `VECTORIZED_NEURAL_BANDS` around `VECTORIZED_NEURAL_REF`; on EQ_4_D
+    the 1-step mean above phase 11's insite column mean; the peak device
+    memory within `VEC_NEURAL_PEAK_MIB`. Prints each column's wall time
+    and peak. Returns the launches by method."""
+    import torch
+    from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch.harness.logging_utils import (
+        create_logger_in_process, generate_log_file_path)
+    from insite_tpu_torch.harness.runner import vectorized_sweep
+    from insite_tpu_torch.ops import rollout
+    log(f'[vectorized-neural] epochs {VEC_NEURAL_EPOCHS} (the JAX package '
+        f'trains 100; cut to keep the script within its time limit)')
+    by_method = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        logger = create_logger_in_process(
+            generate_log_file_path('vectorized-neural', log_dir))
+        for ds, method in VEC_NEURAL_COLUMNS:
+            key = f'{ds} {method}'
+            cfg = RunConfig(methods=(method,), datasets=(ds,),
+                            seed_runs=VECTORIZED_SEEDS,
+                            epochs=VEC_NEURAL_EPOCHS[method],
+                            debug_mode=True, log_dir=log_dir)
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            rollout.reset_launch_counts()
+            t0 = perf_counter()
+            rows, _ = vectorized_sweep(cfg, log=logger, device=device)
+            torch.cuda.synchronize(device)
+            wall = perf_counter() - t0
+            launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                        'sens': rollout.SENS_LAUNCHES}
+            peak = torch.cuda.max_memory_allocated(device) / 2**20
+            for k, n in launches.items():
+                by_method.setdefault(method, {'rollout': 0, 'sens': 0})
+                by_method[method][k] += n
+            log(f'[vectorized-neural] {key}: {len(rows)} rows, epochs '
+                f'{VEC_NEURAL_EPOCHS[method]}, wall {wall:.4f} s, peak device '
+                f'memory {peak:.1f} MiB, kernel launches {launches}')
+            if launches != {'rollout': 0, 'sens': 0}:
+                raise AssertionError(f'{key} launched kernels: {launches}')
+            if peak > VEC_NEURAL_PEAK_MIB:
+                raise AssertionError(f'{key} peaked at {peak:.1f} MiB')
+            keys = VECTORIZED_ROW_KEYS + (['sw_mode'] if method == 'rmsn'
+                                          else [])
+            if len(rows) != VECTORIZED_SEEDS or any(
+                    r['errored'] or list(r) != keys for r in rows):
+                raise AssertionError(f'{key}: expected {VECTORIZED_SEEDS} '
+                                     f'rows with keys {keys}: {rows}')
+            for j, metric in enumerate(RMSE_METRICS):
+                values = [r[metric] for r in rows]
+                if not np.isfinite(values).all():
+                    raise AssertionError(f'{key} {metric}: {values}')
+                mean = float(np.mean(values))
+                ref = VECTORIZED_NEURAL_REF[key][j]
+                lo, hi = (f * ref for f in
+                          VECTORIZED_NEURAL_BANDS[key][min(j, 1)])
+                log(f'  {key} {metric}: {VECTORIZED_SEEDS}-seed mean '
+                    f'{mean:.6f} % vs JAX {ref:.6f} % (x{mean / ref:.3f}); '
+                    f'band ({lo:.6f}, {hi:.6f})')
+                if not lo < mean < hi:
+                    raise AssertionError(f'{key} {metric} mean {mean} is not '
+                                         f'in ({lo}, {hi})')
+            one = float(np.mean([r['encoder_test_rmse_orig'] for r in rows]))
+            if ds == 'EQ_4_D' and not one > insite_eq4d_column_mean:
+                raise AssertionError(f'{key} 1-step mean {one} is not above '
+                                     f'the insite column\'s '
+                                     f'{insite_eq4d_column_mean}')
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+    return by_method
+
+
+def check_vectorized_neural_card_against_host(device):
+    """For each neural method, one 2-seed column (EQ_4_D, 200 / 10 / 10, 3
+    epochs, dropout 0, one batch an epoch in every stage:
+    `NEURAL_ONE_BATCH`; gnet with 2 Monte-Carlo samples, which keeps the
+    host's rollouts short) f32 on the card against f32 on the host, on the
+    same cohorts (simulated once on the card, a copy for each side) and
+    from bitwise-equal initial weights (each seed's from the seed, built
+    on the host whatever the device; checked per stage): every seed's
+    RMSEs within `NEURAL_CARD_RTOL`. Prints each side's seconds."""
+    import copy
+
+    import torch
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.harness import vectorized_neural as vn
+    cohorts = {seed: make_collection(
+        'EQ_4_D', {'train': 200, 'val': 10, 'test': 10}, seed, coeff=2.0,
+        device=device, treatment_mode='multilabel') for seed in (0, 1)}
+    make, initial_stack = vn.make_collection, vn._initial_stack
+    try:
+        vn.make_collection = (lambda name, num, seed, **kw:
+                              copy.deepcopy(cohorts[seed]))
+        for method in ('ct', 'crn', 'edct', 'rmsn', 'gnet'):
+            results, inits, secs = {}, {}, {}
+            for tag, dev in (('card', device), ('host', torch.device('cpu'))):
+                inits[tag] = []
+
+                def record(build, seeds, device_, tag=tag):
+                    base, params = initial_stack(build, seeds, device_)
+                    inits[tag].append({k: p.detach().cpu().clone()
+                                       for k, p in params.items()})
+                    return base, params
+
+                vn._initial_stack = record
+                kw = dict(n_seeds=2, num_patients={'train': 200, 'val': 10,
+                                                   'test': 10},
+                          epochs=3, model_overrides=NEURAL_ONE_BATCH[method],
+                          device=dev)
+                t0 = perf_counter()
+                if method == 'ct':
+                    r = vn.vectorized_ct_sweep('EQ_4_D', **kw)
+                elif method in ('crn', 'edct'):
+                    r = vn.vectorized_enc_dec_sweep(method, 'EQ_4_D', **kw)
+                elif method == 'rmsn':
+                    r = vn.vectorized_rmsn_sweep('EQ_4_D', **kw)
+                else:
+                    r = vn.vectorized_gnet_sweep('EQ_4_D', mc_samples=2,
+                                                 **kw)
+                if dev.type == 'cuda':
+                    torch.cuda.synchronize(dev)
+                secs[tag] = perf_counter() - t0
+                results[tag] = r
+            for card, host in zip(inits['card'], inits['host']):
+                for k in host:
+                    if not torch.equal(card[k], host[k]):
+                        raise AssertionError(f'{method} initial {k} differs')
+            gap = max(float(np.max(np.abs(results['card'][m] /
+                                          results['host'][m] - 1)))
+                      for m in results['host'])
+            log(f'  {method} 2-seed column, card f32 vs host f32: '
+                f'{len(inits["card"])} stages from equal initial weights; '
+                f'largest relative RMSE gap {gap:.3e}; card '
+                f'{secs["card"]:.2f} s, host {secs["host"]:.2f} s')
+            for m in results['host']:
+                np.testing.assert_allclose(results['card'][m],
+                                           results['host'][m],
+                                           rtol=NEURAL_CARD_RTOL,
+                                           err_msg=f'{method} {m}')
+    finally:
+        vn.make_collection, vn._initial_stack = make, initial_stack
 
 
 def main():
@@ -2151,9 +2383,24 @@ def main():
     # 11. the vectorized seed columns
     log(f'[vectorized] vectorized_sweep: {VECTORIZED_SEEDS} seeds a column, '
         '1000/100/100')
-    vec_launches, vec_by_column = run_vectorized(device, table_rows)
+    vec_launches, vec_by_column, vec_means = run_vectorized(device,
+                                                            table_rows)
     log('[vectorized] card f32 against host f64, one EQ_4_D insite column')
     check_vectorized_card_against_host(device)
+
+    # 12. the neural methods' vectorized seed columns
+    t12 = perf_counter()
+    log(f'[vectorized-neural] vectorized_sweep: {VECTORIZED_SEEDS} seeds a '
+        'column, 1000/100/100')
+    vec_neural_launches = run_vectorized_neural(device,
+                                                vec_means['EQ_4_D insite'])
+    log('[vectorized-neural] card f32 against host f32, 2-seed columns '
+        '(EQ_4_D, 200 / 10 / 10), 3 epochs')
+    check_vectorized_neural_card_against_host(device)
+    log(f'[vectorized-neural] stacked crn encoder fit of a 10-seed column, '
+        f'device idle {neural_idle_share("column-fit", "vectorized-neural")}'
+        ' %')
+    log(f'[vectorized-neural] phase 12 wall {perf_counter() - t12:.4f} s')
 
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
@@ -2184,6 +2431,8 @@ def main():
             'launches_vectorized': vec_launches[key],
             'launches_vectorized_by_column': {
                 tag: n[key] for tag, n in vec_by_column.items()},
+            'launches_vectorized_neural': {
+                m: n[key] for m, n in vec_neural_launches.items()},
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

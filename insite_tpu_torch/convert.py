@@ -172,3 +172,15 @@ def state_dict_from_flax(params: dict, module: torch.nn.Module) -> dict:
                              f'shape {tuple(ref.shape)}')
         out[k] = torch.tensor(out[k], dtype=ref.dtype, device=ref.device)
     return out
+
+
+def stacked_params_from_flax(trees, module: torch.nn.Module) -> dict:
+    """The seed-stacked parameters of a vectorized column's stage
+    (`models.nn.training.stack_nets`) from S flax ``trees``, one a seed,
+    for example the JAX package's initial parameters of each seed of a
+    column: {name: [S, ...]} in ``module``'s dtypes and on its device, new
+    leaf tensors that require gradients. Raises as `state_dict_from_flax`
+    does."""
+    states = [state_dict_from_flax(t, module) for t in trees]
+    return {name: torch.stack([st[name] for st in states]).requires_grad_()
+            for name, _ in module.named_parameters()}

@@ -25,9 +25,9 @@ them.
 
 `vectorized_sweep` (``run.py --vectorized``) runs each (dataset, method)
 column of seeds as one batch (`harness/vectorized.py` for the ODE methods,
-`harness/vectorized_msm.py` for msm) and logs the same per-seed rows,
-marked ``'vectorized': True``. The neural methods' columns are Slice 7b
-and give an errored row.
+`harness/vectorized_msm.py` for msm, `harness/vectorized_neural.py` for
+the neural baselines, each stage of which trains as one seed-stacked fit)
+and logs the same per-seed rows, marked ``'vectorized': True``.
 """
 
 from __future__ import annotations
@@ -396,12 +396,6 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
 # ---------------------------------------------------------------------------
 # --vectorized: one batch per (dataset, method) column of seeds
 
-VECTORIZED_NEURAL_NOT_PORTED = (
-    'the vectorized columns of the neural baselines (the JAX package\'s '
-    'harness/vectorized_neural.py) are not ported yet (ROADMAP.md, Slice '
-    '7b)')
-
-
 class ColumnSkipped(Exception):
     """A (dataset, method) vectorized column has no path (wsindy outside
     the EQ_4 family, as the JAX package skips it)."""
@@ -412,25 +406,35 @@ def _vectorized_column(cfg: RunConfig, dataset_name: str, method_name: str,
     """One (dataset, method) vectorized column of ``cfg.seed_runs`` seeds
     on ``device``. Returns ``(r, seeds)``: metric name -> np.ndarray [S],
     and the seed of each entry. Raises ColumnSkipped where the column has
-    no path, and NotImplementedError for the neural methods."""
+    no path. msm and the neural columns run seeds ``cfg.seed_start`` ..;
+    the ODE columns seeds 0..S-1."""
     from insite_tpu_torch.harness import vectorized
+    from insite_tpu_torch.harness import vectorized_neural as vn
     from insite_tpu_torch.harness.vectorized_msm import vectorized_msm_sweep
     S = cfg.seed_runs
-    if method_name == 'msm':
-        r = vectorized_msm_sweep(
-            dataset_name, n_seeds=S,
-            num_patients={'train': cfg.train_samples,
-                          'val': cfg.val_samples,
-                          'test': cfg.test_samples},
-            coeff=cfg.domain_conf, epochs=cfg.epochs,
-            seed_start=cfg.seed_start, cf_seq_mode=cfg.cf_seq_mode,
-            noise_scale=cfg.noise_scale,
-            model_overrides=_merged_overrides(
-                cfg, method_name, dataset_name, cfg.domain_conf),
-            device=device, dtype=dtype)
+    if method_name == 'msm' or method_name in NEURAL_MODELS:
+        kw = dict(n_seeds=S,
+                  num_patients={'train': cfg.train_samples,
+                                'val': cfg.val_samples,
+                                'test': cfg.test_samples},
+                  coeff=cfg.domain_conf, epochs=cfg.epochs,
+                  seed_start=cfg.seed_start, cf_seq_mode=cfg.cf_seq_mode,
+                  noise_scale=cfg.noise_scale,
+                  model_overrides=_merged_overrides(
+                      cfg, method_name, dataset_name, cfg.domain_conf),
+                  device=device, dtype=dtype)
+        if method_name == 'msm':
+            r = vectorized_msm_sweep(dataset_name, **kw)
+        elif method_name == 'ct':
+            r = vn.vectorized_ct_sweep(dataset_name, **kw)
+        elif method_name in ('crn', 'edct'):
+            r = vn.vectorized_enc_dec_sweep(method_name, dataset_name, **kw)
+        elif method_name == 'rmsn':
+            r = vn.vectorized_rmsn_sweep(dataset_name, **kw)
+        else:
+            r = vn.vectorized_gnet_sweep(
+                dataset_name, mc_samples=cfg.gnet_mc_samples, **kw)
         return r, list(range(cfg.seed_start, cfg.seed_start + S))
-    if method_name in NEURAL_MODELS:
-        raise NotImplementedError(VECTORIZED_NEURAL_NOT_PORTED)
     if method_name == 'wsindy' and 'EQ_4' not in dataset_name:
         raise ColumnSkipped('wsindy runs on the EQ_4 family only; skipping '
                             f'{dataset_name}')
@@ -574,8 +578,9 @@ def vectorized_sweep(cfg: RunConfig = None, log=None, *, device,
     """``run.py --vectorized``: each (dataset, method) column of seeds
     runs as one batch on ``device`` and is logged as per-seed rows with
     the JAX package's keys (``'vectorized': True``, ``seconds_taken`` the
-    column's seconds over its seeds), which `rows_from_log` reads back.
-    ODE columns run seeds 0..S-1; msm columns honour ``seed_start``.
+    column's seconds over its seeds, and on rmsn rows ``sw_mode``), which
+    `rows_from_log` reads back. ODE columns run seeds 0..S-1; msm and the
+    neural columns honour ``seed_start``.
     INSIGHT_CONFOUNDING runs a column per gamma, INSIGHT_NOISE and
     INSIGHT_LESS_SAMPLES one per grid point; every other experiment runs
     the main table's columns. With ``cfg.debug_mode`` a failing column
@@ -623,6 +628,11 @@ def _vectorized_main_column(cfg: RunConfig, dataset_name: str,
                         'errored': False, 'dataset_name': dataset_name,
                         'method_name': method_name,
                         'domain_conf': cfg.domain_conf})
+            if method_name == 'rmsn':
+                # which stabilized-weight formula the column ran
+                row['sw_mode'] = _merged_overrides(
+                    cfg, method_name, dataset_name, cfg.domain_conf).get(
+                        'sw_mode', rmsn.RMSNConfig.sw_mode)
             log.info(f'[Exp evaluation complete] {row}')
             rows.append(row)
     except ColumnSkipped as e:

@@ -22,8 +22,8 @@ from insite_tpu_torch.core.dtypes import resolve_float
 from insite_tpu_torch.models.base import CausalEstimator, VITALS_NOT_PORTED
 from insite_tpu_torch.models.nn.blocks import (BRTreatmentOutcomeHead,
                                                VariationalLSTM)
-from insite_tpu_torch.models.nn.training import (BRStage, TrainConfig,
-                                                 device_batch, seeded_net)
+from insite_tpu_torch.models.nn.training import (
+    BRStage, device_batch, encoder_decoder_train_configs, seeded_net)
 
 
 @dataclass
@@ -95,12 +95,31 @@ class CRNSubNetwork(nn.Module):
             h, batch['current_treatments'], alpha, detach_treatment)
 
 
-_ENC_KEYS = ('prev_treatments', 'prev_outputs', 'static_features',
-             'current_treatments', 'outputs', 'active_entries')
-_DEC_KEYS = _ENC_KEYS + ('init_state',)
-_ENC_IN = ('prev_treatments', 'prev_outputs', 'static_features',
-           'current_treatments')
-_DEC_IN = _ENC_IN + ('init_state',)
+def encoder_network(cfg: CRNConfig, dtype=None) -> CRNSubNetwork:
+    """The encoder stage's network, on the host."""
+    return CRNSubNetwork(cfg.enc_seq_hidden_units, cfg.enc_br_size,
+                         cfg.enc_fc_hidden_units, cfg.dim_treatments,
+                         cfg.dim_outcome, cfg.dim_static_features,
+                         cfg.enc_dropout_rate, cfg.num_layer, cfg.balancing,
+                         False, dtype=dtype)
+
+
+def decoder_network(cfg: CRNConfig, dtype=None) -> CRNSubNetwork:
+    """The decoder stage's network (its LSTM as wide as the encoder's
+    representation, started from ``init_state``), on the host."""
+    return CRNSubNetwork(cfg.enc_br_size, cfg.dec_br_size,
+                         cfg.dec_fc_hidden_units, cfg.dim_treatments,
+                         cfg.dim_outcome, cfg.dim_static_features,
+                         cfg.dec_dropout_rate, cfg.num_layer, cfg.balancing,
+                         True, dtype=dtype)
+
+
+ENC_KEYS = ('prev_treatments', 'prev_outputs', 'static_features',
+            'current_treatments', 'outputs', 'active_entries')
+DEC_KEYS = ENC_KEYS + ('init_state',)
+ENC_IN = ('prev_treatments', 'prev_outputs', 'static_features',
+          'current_treatments')
+DEC_IN = ENC_IN + ('init_state',)
 
 
 class CRN(CausalEstimator):
@@ -119,29 +138,15 @@ class CRN(CausalEstimator):
         self.device = device = torch.device(device)
         self.dtype = dtype = resolve_float(dtype)
         kw = dict(device=device, dtype=dtype)
-        dims = (cfg.dim_treatments, cfg.dim_outcome, cfg.dim_static_features)
-        enc_net = seeded_net(cfg.seed, lambda: CRNSubNetwork(
-            cfg.enc_seq_hidden_units, cfg.enc_br_size,
-            cfg.enc_fc_hidden_units, *dims, cfg.enc_dropout_rate,
-            cfg.num_layer, cfg.balancing, False, dtype=dtype), device)
-        dec_net = seeded_net(cfg.seed + 1, lambda: CRNSubNetwork(
-            cfg.enc_br_size, cfg.dec_br_size, cfg.dec_fc_hidden_units, *dims,
-            cfg.dec_dropout_rate, cfg.num_layer, cfg.balancing, True,
-            dtype=dtype), device)
-        common = dict(epochs=cfg.epochs, balancing=cfg.balancing,
-                      alpha=cfg.alpha, update_alpha=cfg.update_alpha,
-                      weights_ema=cfg.weights_ema, beta=cfg.beta,
-                      treatment_mode=cfg.treatment_mode)
-        self.encoder = BRStage(
-            enc_net, TrainConfig(batch_size=cfg.enc_batch_size,
-                                 learning_rate=cfg.enc_learning_rate,
-                                 **common),
-            cfg.seed, _ENC_KEYS, _ENC_IN, **kw)
-        self.decoder = BRStage(
-            dec_net, TrainConfig(batch_size=cfg.dec_batch_size,
-                                 learning_rate=cfg.dec_learning_rate,
-                                 **common),
-            cfg.seed + 1, _DEC_KEYS, _DEC_IN, **kw)
+        enc_net = seeded_net(cfg.seed, lambda: encoder_network(cfg, dtype),
+                             device)
+        dec_net = seeded_net(cfg.seed + 1,
+                             lambda: decoder_network(cfg, dtype), device)
+        enc_tc, dec_tc = encoder_decoder_train_configs(cfg)
+        self.encoder = BRStage(enc_net, enc_tc, cfg.seed, ENC_KEYS, ENC_IN,
+                               **kw)
+        self.decoder = BRStage(dec_net, dec_tc, cfg.seed + 1, DEC_KEYS,
+                               DEC_IN, **kw)
         if not dataset_collection.processed_data_encoder:
             dataset_collection.process_data_encoder()
 
@@ -162,7 +167,7 @@ class CRN(CausalEstimator):
         prediction becomes ``prev_outputs`` of step t + 1 (float64, as the
         JAX package returns them)."""
         ph = self.cfg.projection_horizon
-        batch = device_batch(dataset.data, _DEC_IN, self.device, self.dtype)
+        batch = device_batch(dataset.data, DEC_IN, self.device, self.dtype)
         # written into: never the dataset's own array
         batch['prev_outputs'] = batch['prev_outputs'].clone()
         predicted = []

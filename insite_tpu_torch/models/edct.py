@@ -27,8 +27,8 @@ from insite_tpu_torch.models.nn.blocks import (BRTreatmentOutcomeHead,
                                                TransformerDecoderBlock,
                                                TransformerEncoderBlock,
                                                dropout)
-from insite_tpu_torch.models.nn.training import (BRStage, TrainConfig,
-                                                 device_batch, seeded_net)
+from insite_tpu_torch.models.nn.training import (
+    BRStage, device_batch, encoder_decoder_train_configs, seeded_net)
 
 
 @dataclass
@@ -159,12 +159,20 @@ class EDCTDecoderNetwork(_EDCTNetwork):
         return x
 
 
-_ENC_KEYS = ('prev_treatments', 'prev_outputs', 'static_features',
-             'current_treatments', 'outputs', 'active_entries')
-_ENC_IN = ('prev_treatments', 'prev_outputs', 'static_features',
-           'current_treatments', 'active_entries')
-_DEC_KEYS = _ENC_KEYS + ('encoder_r', 'active_encoder_r')
-_DEC_IN = _ENC_IN + ('encoder_r', 'active_encoder_r')
+def encoder_network(cfg: EDCTConfig, dtype=None) -> EDCTEncoderNetwork:
+    return EDCTEncoderNetwork(cfg, dtype=dtype)
+
+
+def decoder_network(cfg: EDCTConfig, dtype=None) -> EDCTDecoderNetwork:
+    return EDCTDecoderNetwork(cfg, dtype=dtype)
+
+
+ENC_KEYS = ('prev_treatments', 'prev_outputs', 'static_features',
+            'current_treatments', 'outputs', 'active_entries')
+ENC_IN = ('prev_treatments', 'prev_outputs', 'static_features',
+          'current_treatments', 'active_entries')
+DEC_KEYS = ENC_KEYS + ('encoder_r', 'active_encoder_r')
+DEC_IN = ENC_IN + ('encoder_r', 'active_encoder_r')
 
 
 class EDCT(CausalEstimator):
@@ -182,24 +190,15 @@ class EDCT(CausalEstimator):
         self.device = device = torch.device(device)
         self.dtype = dtype = resolve_float(dtype)
         kw = dict(device=device, dtype=dtype)
-        enc_net = seeded_net(cfg.seed, lambda: EDCTEncoderNetwork(
-            cfg, dtype=dtype), device)
-        dec_net = seeded_net(cfg.seed + 1, lambda: EDCTDecoderNetwork(
-            cfg, dtype=dtype), device)
-        common = dict(epochs=cfg.epochs, balancing=cfg.balancing,
-                      alpha=cfg.alpha, update_alpha=cfg.update_alpha,
-                      weights_ema=cfg.weights_ema, beta=cfg.beta,
-                      treatment_mode=cfg.treatment_mode)
-        self.encoder = BRStage(
-            enc_net, TrainConfig(batch_size=cfg.enc_batch_size,
-                                 learning_rate=cfg.enc_learning_rate,
-                                 **common),
-            cfg.seed, _ENC_KEYS, _ENC_IN, **kw)
-        self.decoder = BRStage(
-            dec_net, TrainConfig(batch_size=cfg.dec_batch_size,
-                                 learning_rate=cfg.dec_learning_rate,
-                                 **common),
-            cfg.seed + 1, _DEC_KEYS, _DEC_IN, **kw)
+        enc_net = seeded_net(cfg.seed, lambda: encoder_network(cfg, dtype),
+                             device)
+        dec_net = seeded_net(cfg.seed + 1,
+                             lambda: decoder_network(cfg, dtype), device)
+        enc_tc, dec_tc = encoder_decoder_train_configs(cfg)
+        self.encoder = BRStage(enc_net, enc_tc, cfg.seed, ENC_KEYS, ENC_IN,
+                               **kw)
+        self.decoder = BRStage(dec_net, dec_tc, cfg.seed + 1, DEC_KEYS,
+                               DEC_IN, **kw)
         if not dataset_collection.processed_data_encoder:
             dataset_collection.process_data_encoder()
 
@@ -226,7 +225,7 @@ class EDCT(CausalEstimator):
         JAX package returns them)."""
         ph = self.cfg.projection_horizon
         data = dict(dataset.data, encoder_r=dataset.encoder_r)
-        batch = device_batch(data, _DEC_IN, self.device, self.dtype)
+        batch = device_batch(data, DEC_IN, self.device, self.dtype)
         # written into: never the dataset's own array
         batch['prev_outputs'] = batch['prev_outputs'].clone()
         predicted = []

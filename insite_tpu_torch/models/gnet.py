@@ -97,6 +97,47 @@ def _inputs(data):
                            statics], axis=-1)
 
 
+def train_config(cfg: GNetConfig) -> TrainConfig:
+    return TrainConfig(cfg.epochs, cfg.batch_size, cfg.learning_rate)
+
+
+def outcome_loss(dim_outcome: int):
+    """The fit's loss, ``loss(net, batch, gen)``: the masked MSE of the
+    outcome head on ``batch['x']``."""
+    def loss(net, b, gen):
+        pred = net(b['x'], gen)[..., :dim_outcome]
+        return masked_mean((pred - b['outputs']) ** 2, b['active_entries'])
+    return loss
+
+
+@torch.no_grad()
+def mc_rollout(net, cfg: GNetConfig, x, split, ridx, resid_bank,
+               resid_len):
+    """The noisy rollout of one chunk of rows, in place on ``x`` (a tensor
+    of its own), by ``net(x)``: ``[ph, rows, dim_outcome]``, the clean
+    predictions of passes 1..ph. ``ridx [ph + 1, rows]`` picks each
+    pass's residual row of ``resid_bank [H, T, dim_outcome]``, read at the
+    predicted step clipped to the row's length ``resid_len [H]``."""
+    ph = cfg.projection_horizon
+    po = cfg.dim_treatments
+    do = cfg.dim_outcome
+    rows = torch.arange(len(x), device=x.device)
+    T = x.shape[1]
+    wt = (split + torch.arange(ph, device=x.device)[:, None]).clamp(
+        max=T - 1)                                        # [ph, rows]
+    outs = []
+    for t in range(ph + 1):
+        idx = split - 1 + t
+        out_t = net(x)[rows, idx, :do]
+        if t < ph:
+            r = ridx[t]
+            resid = resid_bank[r, torch.minimum(idx, resid_len[r] - 1)]
+            x[rows, wt[t], po:po + do] = out_t + resid
+        if t > 0:
+            outs.append(out_t)
+    return torch.stack(outs)
+
+
 class GNet(CausalEstimator):
     """G-Net on ``device`` in ``dtype`` (float32 unless named). The network
     is built when the estimator is, with PyTorch's init drawn from
@@ -132,15 +173,9 @@ class GNet(CausalEstimator):
                  'outputs': self._tensor(data['outputs']),
                  'active_entries': self._tensor(data['active_entries'])}
 
-        def loss_fn(net, b, gen):
-            pred = net(b['x'], gen)[..., :cfg.dim_outcome]
-            return masked_mean((pred - b['outputs']) ** 2,
-                               b['active_entries'])
-
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        fit_simple(self.net, loss_fn, batch,
-                   TrainConfig(cfg.epochs, cfg.batch_size,
-                               cfg.learning_rate), gen)
+        fit_simple(self.net, outcome_loss(cfg.dim_outcome), batch,
+                   train_config(cfg), gen)
 
         # the holdout rows' residuals: the rollouts' noise (none without a
         # holdout split)
@@ -161,30 +196,6 @@ class GNet(CausalEstimator):
 
     def get_predictions(self, dataset) -> np.ndarray:
         return self._predict_data(dataset.data)
-
-    @torch.no_grad()
-    def _rollout(self, x, split, ridx, resid_bank, resid_len):
-        """One chunk's rollout, in place on ``x`` (its own tensor):
-        ``[ph, rows, dim_outcome]``, the clean predictions of passes
-        1..ph."""
-        ph = self.cfg.projection_horizon
-        po = self.cfg.dim_treatments
-        do = self.cfg.dim_outcome
-        rows = torch.arange(len(x), device=x.device)
-        T = x.shape[1]
-        wt = (split + torch.arange(ph, device=x.device)[:, None]).clamp(
-            max=T - 1)                                    # [ph, rows]
-        outs = []
-        for t in range(ph + 1):
-            idx = split - 1 + t
-            out_t = self.net(x)[rows, idx, :do]
-            if t < ph:
-                r = ridx[t]
-                resid = resid_bank[r, torch.minimum(idx, resid_len[r] - 1)]
-                x[rows, wt[t], po:po + do] = out_t + resid
-            if t > 0:
-                outs.append(out_t)
-        return torch.stack(outs)
 
     def get_autoregressive_predictions(self, datasets) -> np.ndarray:
         """The mean over the ``mc_samples`` views of their noisy rollouts
@@ -218,9 +229,9 @@ class GNet(CausalEstimator):
                                      dtype=self.dtype, device=self.device)
             resid_len = torch.ones(1, dtype=torch.int64, device=self.device)
         ridx = torch.as_tensor(ridx, dtype=torch.int64, device=self.device)
-        outs = [self._rollout(x[s:s + CHUNK_ROWS], split[s:s + CHUNK_ROWS],
-                              ridx[:, s:s + CHUNK_ROWS], resid_bank,
-                              resid_len).cpu()
+        outs = [mc_rollout(self.net, cfg, x[s:s + CHUNK_ROWS],
+                           split[s:s + CHUNK_ROWS], ridx[:, s:s + CHUNK_ROWS],
+                           resid_bank, resid_len).cpu()
                 for s in range(0, len(x), CHUNK_ROWS)]
         predicted = torch.cat(outs, dim=1).numpy()        # [ph, M n, do]
         return predicted.transpose(1, 0, 2).reshape(

@@ -7,7 +7,8 @@ the meaning of `insite_tpu.models.nn.blocks`:
   classifier and treatment-conditioned outcome head;
 - `ROutcomeVitalsHead`: G-Net's sequentially conditioned output heads;
 - `VariationalLSTM`: a stacked LSTM whose dropout masks are drawn once per
-  batch and multiply the carried state;
+  batch and multiply the carried state; under `torch.func.vmap` over
+  stacked parameters its step is `lstm_step`;
 - `fixed_sin_cos`, `RelativePositionalEncoding`, `MultiHeadedAttention` with
   relative positions on keys and values, `PositionwiseFeedForward`,
   `TransformerMultiInputBlock` (CT's two-stream block) and EDCT's
@@ -47,12 +48,17 @@ def dropout(x, rate: float, gen):
 
 class GradReverse(torch.autograd.Function):
     """Identity forward; the backward pass multiplies the gradient by
-    ``-scale``."""
+    ``-scale``. `torch.func.vmap` generates its batching rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, scale):
-        ctx.save_for_backward(scale)
+    def forward(x, scale):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
 
     @staticmethod
     def backward(ctx, g):
@@ -150,6 +156,25 @@ class ROutcomeVitalsHead(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+def lstm_input_gates(x, w_ih, b_ih, b_hh):
+    """The input's share of the LSTM gates, ``x W_ih^T + b_ih + b_hh``, for
+    every step of ``x [..., T, in]`` at once."""
+    return x @ w_ih.T + (b_ih + b_hh)
+
+
+def lstm_step(x_gates, hx, cx, w_hh):
+    """One step of `torch.lstm_cell`'s math in plain ops, which
+    `torch.func.vmap` can batch: gates ``x_gates + h W_hh^T`` (from
+    `lstm_input_gates`) in the order i, f, g, o; ``c' = sigmoid(f) c +
+    sigmoid(i) tanh(g)``, ``h' = sigmoid(o) tanh(c')``. Returns (h', c')."""
+    gates = torch.addmm(x_gates, hx, w_hh.T)
+    H = hx.shape[-1]
+    s = torch.sigmoid(gates)
+    c = torch.addcmul(s[:, H:2 * H] * cx, s[:, :H],
+                      torch.tanh(gates[:, 2 * H:3 * H]))
+    return s[:, 3 * H:] * torch.tanh(c), c
+
+
 class VariationalLSTM(nn.Module):
     """Stacked LSTM, gate order i, f, g, o, with the parameters of
     `nn.LSTM` (``weight_ih_l{k}`` ``[4H, in]``, ``weight_hh_l{k}``
@@ -161,7 +186,11 @@ class VariationalLSTM(nn.Module):
 
     cuDNN's fused LSTM cannot mask the carried state, so this loops over
     time with `torch.lstm_cell` (on the card: two matmuls and one fused
-    gate kernel a step), masking between the steps."""
+    gate kernel a step), masking between the steps. `torch.lstm_cell` has
+    no batching rule: under `torch.func.vmap` (parameters stacked over
+    seeds) the input gates of every step come from one matmul and the step
+    is `lstm_step`. The masks and the zero state are made from the input,
+    so that under `vmap` they carry its batch (seed) axis."""
 
     def __init__(self, input_size, hidden_size, num_layer=1,
                  dropout_rate=0.0, *, device=None, dtype=None):
@@ -183,27 +212,34 @@ class VariationalLSTM(nn.Module):
                 self.register_parameter(f'{name}_l{layer}', p)
 
     def forward(self, x, init_states=None, gen=None):
-        B, T, _ = x.shape
+        T = x.shape[1]
         H = self.hidden_size
         h = x
         for layer in range(self.num_layer):
             weights = [getattr(self, f'{name}_l{layer}') for name in
                        ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')]
+            # [B, H] with x's batch dimensions
+            state = torch.zeros_like(h[:, 0, :1]).repeat(1, H)
             if init_states is None:
-                hx = cx = h.new_zeros(B, H)
+                hx = cx = state
             else:
                 hx = cx = init_states.to(h.dtype)
             if gen is not None and self.dropout_rate > 0.0:
                 keep = 1.0 - self.dropout_rate
                 out_m, h_m, c_m = (
-                    torch.empty(B, H, device=x.device, dtype=x.dtype)
-                    .bernoulli_(keep, generator=gen) / keep
-                    for _ in range(3))
+                    torch.empty_like(state).bernoulli_(keep, generator=gen)
+                    / keep for _ in range(3))
             else:
                 out_m = h_m = c_m = None
+            stacked = torch._C._functorch.is_batchedtensor(weights[1])
+            if stacked:
+                x_gates = lstm_input_gates(h, weights[0], *weights[2:])
             outputs = []
             for t in range(T):
-                hx, cx = torch.lstm_cell(h[:, t], (hx, cx), *weights)
+                if stacked:
+                    hx, cx = lstm_step(x_gates[:, t], hx, cx, weights[1])
+                else:
+                    hx, cx = torch.lstm_cell(h[:, t], (hx, cx), *weights)
                 if out_m is None:
                     outputs.append(hx)
                 else:

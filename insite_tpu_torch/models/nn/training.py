@@ -17,6 +17,12 @@ end (`make_batches`).
 `fit_simple`: one optimizer over every parameter, one step a batch on a
 loss the caller gives, no EMA.
 
+`fit_br_column` and `fit_simple_column` are the two for a column of S
+seeds at once (the vectorized columns): the S networks' parameters stacked
+on a leading seed axis (`stack_nets`), each batch one `torch.func.vmap`
+forward over them and one gradient of the sum of the S per-seed losses,
+the optimizers stepping every seed and clipping each seed by its own norm.
+
 Both loops run on the device of the data: the batch indices and every
 dropout mask come from one `torch.Generator` on that device, and nothing in
 them copies to the host.
@@ -51,6 +57,20 @@ class TrainConfig:
     weights_ema: bool = False
     beta: float = 0.99                  # EMA decay
     treatment_mode: str = 'multiclass'
+
+
+def encoder_decoder_train_configs(cfg) -> tuple:
+    """The encoder's and the decoder's `TrainConfig` of a two-stage model
+    config (CRN, EDCT): the stage's batch size and learning rate, the
+    balancing, alpha, EMA and treatment mode shared."""
+    common = dict(epochs=cfg.epochs, balancing=cfg.balancing,
+                  alpha=cfg.alpha, update_alpha=cfg.update_alpha,
+                  weights_ema=cfg.weights_ema, beta=cfg.beta,
+                  treatment_mode=cfg.treatment_mode)
+    return (TrainConfig(batch_size=cfg.enc_batch_size,
+                        learning_rate=cfg.enc_learning_rate, **common),
+            TrainConfig(batch_size=cfg.dec_batch_size,
+                        learning_rate=cfg.dec_learning_rate, **common))
 
 
 def _base_optimizer(params, cfg: TrainConfig):
@@ -236,6 +256,167 @@ def fit_simple(net: torch.nn.Module, loss_fn, data: dict, cfg: TrainConfig,
     for p in params:
         p.grad = None
     return net
+
+
+# ---------------------------------------------------------------------------
+# seed columns: S networks of one architecture trained as one
+
+
+def stack_nets(nets) -> tuple:
+    """``(base, params)``: ``nets[0]``, whose forward `stacked_call` and
+    the column fits run with the seeds' parameters, and the parameters of
+    the S ``nets`` (one architecture) stacked on a leading seed axis,
+    {name: [S, ...]}, as new leaf tensors that require gradients. Buffers
+    stay ``base``'s own, shared by the seeds."""
+    params, _ = torch.func.stack_module_state(list(nets))
+    return nets[0], params
+
+
+def stacked_call(base, params: dict, args: tuple, kwargs=None):
+    """``base(*args, **kwargs)`` under `torch.func.vmap` over the seed axis
+    of ``params`` and of every tensor in ``args`` (no dropout: ``kwargs``
+    are shared by the seeds)."""
+    kwargs = kwargs or {}
+
+    def one(p, a):
+        return functional_call(base, p, a, kwargs)
+
+    return torch.func.vmap(one)(params, args)
+
+
+def column_batches(gen, n_seeds: int, n: int, batch_size: int):
+    """Per seed a shuffled drop-last index matrix, stacked: ``[n //
+    batch_size, n_seeds, batch_size]`` on the generator's device, so that
+    every seed takes the same number of batches."""
+    perms = torch.stack([torch.randperm(n, generator=gen, device=gen.device)
+                         for _ in range(n_seeds)])
+    n_batches = n // batch_size
+    return perms[:, :n_batches * batch_size].view(
+        n_seeds, n_batches, batch_size).transpose(0, 1)
+
+
+def _gather_rows(data: dict, idx):
+    """``data[k][s, idx[s]]`` for every seed s: [S, batch, ...]."""
+    seeds = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return {k: v[seeds, idx] for k, v in data.items()}
+
+
+def _step_column(opt, params, grads, max_grad_norm=None):
+    """`_step` with a seed axis: each seed's gradients scaled to a global
+    norm of at most ``max_grad_norm`` over its own slices, then one step
+    of ``opt`` (elementwise, so each seed's update is its own)."""
+    if max_grad_norm:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.flatten(1), dim=1) for g in grads]),
+            dim=0)                                          # [S]
+        clipped = []
+        for g in grads:
+            n = norm.view((-1,) + (1,) * (g.dim() - 1))
+            clipped.append(torch.where(n < max_grad_norm, g,
+                                       g / n * max_grad_norm))
+        grads = clipped
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+
+
+def fit_br_column(base: torch.nn.Module, params: dict, data: dict,
+                  cfg: TrainConfig, gen: torch.Generator) -> dict:
+    """`fit_br_model` for a column of S seeds at once: ``params`` (from
+    `stack_nets`) train in place on ``data`` (tensors ``[S, N, ...]``, on
+    the generator's device; short seeds zero-padded). Each batch is one
+    vmapped forward of ``base`` and one gradient of the sum of the S
+    per-seed losses (each seed's slice is its own gradient), both
+    optimizers step every seed, clipping per seed; the EMA count is
+    shared, as every seed takes ``N // batch_size`` batches. Dropout masks
+    differ between the seeds and all come from ``gen``. Returns the EMA,
+    stacked like ``params``."""
+    treat = treatment_head_mask(base)
+    group0 = [p for k, p in params.items() if not treat[k]]
+    group1 = [p for k, p in params.items() if treat[k]]
+    opt0 = _base_optimizer(group0, cfg)
+    opt1 = _base_optimizer(group1, cfg)
+    ema = {k: p.detach().clone() for k, p in params.items()}
+    ema_list, param_list = list(ema.values()), list(params.values())
+    mode = cfg.treatment_mode
+
+    def losses(p, batch, alpha, detach_treatment):
+        def one(p_s, b_s):
+            tp, op, _ = functional_call(
+                base, p_s, (b_s, alpha),
+                {'gen': gen, 'detach_treatment': detach_treatment})
+            if not detach_treatment:
+                mse_loss, bce_loss = br_losses(tp, op, b_s, alpha,
+                                               cfg.balancing, mode)
+                return mse_loss + bce_loss
+            bce_elem = bce(tp, b_s['current_treatments'], mode)
+            if cfg.balancing == 'domain_confusion':
+                bce_elem = alpha * bce_elem
+            return masked_mean(bce_elem, b_s['active_entries'][..., 0])
+        return torch.func.vmap(one, randomness='different')(p, batch).sum()
+
+    def grads(loss, group):
+        return torch.autograd.grad(loss, group, allow_unused=True,
+                                   materialize_grads=True)
+
+    S, n = next(iter(data.values())).shape[:2]
+    bs = min(cfg.batch_size, n)
+    alphas = alpha_at_epoch(torch.arange(cfg.epochs), cfg.epochs, cfg.alpha,
+                            cfg.alpha_rate, cfg.update_alpha)
+    alphas = alphas.expand(cfg.epochs).to(gen.device)
+    count = 0
+    for epoch in range(cfg.epochs):
+        alpha = alphas[epoch]
+        for idx in column_batches(gen, S, n, bs):
+            batch = _gather_rows(data, idx)
+            p = merge_by_mask(ema, params, treat) if cfg.weights_ema \
+                else params
+            _step_column(opt0, group0,
+                         grads(losses(p, batch, alpha, False), group0),
+                         cfg.max_grad_norm)
+            p = merge_by_mask(params, ema, treat) if cfg.weights_ema \
+                else params
+            _step_column(opt1, group1,
+                         grads(losses(p, batch, alpha, True), group1),
+                         cfg.max_grad_norm)
+            if cfg.weights_ema:
+                count = _ema_update(ema_list, param_list, count, cfg.beta)
+    for p in param_list:
+        p.grad = None
+    return ema
+
+
+def fit_simple_column(base: torch.nn.Module, params: dict, loss_fn,
+                      data: dict, cfg: TrainConfig,
+                      gen: torch.Generator) -> dict:
+    """`fit_simple` for a column of S seeds at once: ``params`` (from
+    `stack_nets`) train in place on ``data`` (tensors ``[S, N, ...]``, on
+    the generator's device; short seeds zero-padded), one step a batch on
+    the sum of the S per-seed ``loss_fn(net, batch, gen)``, where ``net``
+    calls ``base`` with one seed's parameters; clipping per seed.
+    Returns ``params``."""
+    trainable = list(params.values())
+    opt = _base_optimizer(trainable, cfg)
+
+    def loss(batch):
+        def one(p_s, b_s):
+            def net(*args, **kwargs):
+                return functional_call(base, p_s, args, kwargs)
+            return loss_fn(net, b_s, gen)
+        return torch.func.vmap(one, randomness='different')(
+            params, batch).sum()
+
+    S, n = next(iter(data.values())).shape[:2]
+    bs = min(cfg.batch_size, n)
+    for _ in range(cfg.epochs):
+        for idx in column_batches(gen, S, n, bs):
+            g = torch.autograd.grad(loss(_gather_rows(data, idx)), trainable,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+            _step_column(opt, trainable, g, cfg.max_grad_norm)
+    for p in trainable:
+        p.grad = None
+    return params
 
 
 def device_batch(data: dict, keys, device, dtype) -> dict:

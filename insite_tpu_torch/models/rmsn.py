@@ -140,6 +140,72 @@ def _decoder_inputs(data):
                            _statics_expanded(data, T)], axis=-1)
 
 
+def network_factories(cfg: RMSNConfig, dtype=None) -> list:
+    """Zero-argument factories of the four networks, on the host, in the
+    order they train: propensity-treatment, propensity-history, encoder,
+    decoder (with the memory adapter from the encoder's width)."""
+    c = cfg
+    n_in = c.dim_treatments + c.dim_outcome + c.dim_static_features
+
+    def factory(*args, **kwargs):
+        return lambda: LSTMOutputNet(*args, num_layer=c.num_layer,
+                                     dtype=dtype, **kwargs)
+
+    return [factory(c.dim_treatments, c.prop_treat_hidden, c.dim_treatments,
+                    c.prop_treat_dropout),
+            factory(n_in, c.prop_hist_hidden, c.dim_treatments,
+                    c.prop_hist_dropout),
+            factory(n_in, c.enc_hidden, c.dim_outcome, c.enc_dropout),
+            factory(n_in, c.dec_hidden, c.dim_outcome, c.dec_dropout,
+                    memory_size=c.enc_hidden)]
+
+
+def train_configs(cfg: RMSNConfig) -> list:
+    """The four networks' `TrainConfig`s, in training order; the encoder
+    trains ``epochs * enc_epoch_mult`` epochs."""
+    c = cfg
+    return [TrainConfig(c.epochs, c.prop_treat_bs, c.prop_treat_lr,
+                        max_grad_norm=c.prop_treat_clip),
+            TrainConfig(c.epochs, c.prop_hist_bs, c.prop_hist_lr,
+                        max_grad_norm=c.prop_hist_clip),
+            TrainConfig(c.epochs * c.enc_epoch_mult, c.enc_bs, c.enc_lr,
+                        max_grad_norm=c.enc_clip),
+            TrainConfig(c.epochs, c.dec_bs, c.dec_lr,
+                        max_grad_norm=c.dec_clip)]
+
+
+def propensity_loss(mode: str):
+    """The propensity networks' loss: the masked treatment BCE."""
+    def loss(out, batch):
+        elem = bce(out, batch['current_treatments'], mode)
+        return masked_mean(elem, batch['active_entries'][..., 0])
+    return loss
+
+
+def weighted_mse(out, batch):
+    """The encoder's and the decoder's loss: the masked MSE, each entry
+    weighted by its stabilized weight ``sw``."""
+    mse = (out - batch['outputs']) ** 2 * batch['sw'][..., None]
+    return masked_mean(mse, batch['active_entries'])
+
+
+def stabilized_weights(a, pt, ph, sw_mode: str):
+    """The stabilized weights ``[N, T]`` from the current treatments ``a``
+    and both networks' scores ``pt``, ``ph`` ``[N, T, A]``: 'likelihood',
+    the ratio of the observed treatment's probabilities, or 'score_ratio',
+    the reference's ratio of the scores, each a product over the
+    treatments."""
+    if sw_mode == 'likelihood':
+        eps = 1e-6
+        lik_t = np.clip(a * pt + (1 - a) * (1 - pt), eps, None)
+        lik_h = np.clip(a * ph + (1 - a) * (1 - ph), eps, None)
+        return np.prod(lik_t / lik_h, axis=2)
+    if sw_mode == 'score_ratio':
+        return np.prod(pt / ph, axis=2)
+    raise ValueError(f'unknown sw_mode {sw_mode!r}: expected '
+                     f"'likelihood' or 'score_ratio'")
+
+
 class _Net:
     """One of RMSN's networks with its training: the network, its inputs
     from a dataset's data and its seed."""
@@ -163,24 +229,12 @@ class RMSN(CausalEstimator):
         self.collection = dataset_collection
         self.device = device = torch.device(device)
         self.dtype = dtype = resolve_float(dtype)
-        n_in = c.dim_treatments + c.dim_outcome + c.dim_static_features
-
-        def net(i, *args, **kwargs):
-            return seeded_net(c.seed + i, lambda: LSTMOutputNet(
-                *args, num_layer=c.num_layer, dtype=dtype, **kwargs), device)
-
-        self.prop_treat = _Net(net(0, c.dim_treatments, c.prop_treat_hidden,
-                                   c.dim_treatments, c.prop_treat_dropout),
-                               _propensity_inputs_treat, c.seed)
-        self.prop_hist = _Net(net(1, n_in, c.prop_hist_hidden,
-                                  c.dim_treatments, c.prop_hist_dropout),
-                              _propensity_inputs_hist, c.seed + 1)
-        self.encoder = _Net(net(2, n_in, c.enc_hidden, c.dim_outcome,
-                                c.enc_dropout),
-                            _encoder_inputs, c.seed + 2)
-        self.decoder = _Net(net(3, n_in, c.dec_hidden, c.dim_outcome,
-                                c.dec_dropout, memory_size=c.enc_hidden),
-                            _decoder_inputs, c.seed + 3)
+        nets = [seeded_net(c.seed + i, build, device)
+                for i, build in enumerate(network_factories(c, dtype))]
+        self.prop_treat = _Net(nets[0], _propensity_inputs_treat, c.seed)
+        self.prop_hist = _Net(nets[1], _propensity_inputs_hist, c.seed + 1)
+        self.encoder = _Net(nets[2], _encoder_inputs, c.seed + 2)
+        self.decoder = _Net(nets[3], _decoder_inputs, c.seed + 3)
         if not dataset_collection.processed_data_encoder:
             dataset_collection.process_data_encoder()
 
@@ -213,53 +267,23 @@ class RMSN(CausalEstimator):
         cfg = self.cfg
         coll = self.collection
         data = coll.train_f.data
-        mode = cfg.treatment_mode
-
-        def bce_loss(out, batch):
-            elem = bce(out, batch['current_treatments'], mode)
-            return masked_mean(elem, batch['active_entries'][..., 0])
-
-        def weighted_mse(out, batch):
-            mse = (out - batch['outputs']) ** 2 * batch['sw'][..., None]
-            return masked_mean(mse, batch['active_entries'])
-
+        tcs = train_configs(cfg)
+        bce_loss = propensity_loss(cfg.treatment_mode)
         extra = {k: data[k] for k in ('current_treatments',
                                       'active_entries')}
-        self._fit_net(self.prop_treat, data, extra, bce_loss,
-                      TrainConfig(cfg.epochs, cfg.prop_treat_bs,
-                                  cfg.prop_treat_lr,
-                                  max_grad_norm=cfg.prop_treat_clip))
-        self._fit_net(self.prop_hist, data, extra, bce_loss,
-                      TrainConfig(cfg.epochs, cfg.prop_hist_bs,
-                                  cfg.prop_hist_lr,
-                                  max_grad_norm=cfg.prop_hist_clip))
+        self._fit_net(self.prop_treat, data, extra, bce_loss, tcs[0])
+        self._fit_net(self.prop_hist, data, extra, bce_loss, tcs[1])
 
-        if cfg.sw_mode == 'likelihood':
-            pt = self._treat_scores(coll.train_f)
-            ph = self._hist_scores(coll.train_f)
-            a = np.asarray(data['current_treatments'])
-            eps = 1e-6
-            lik_t = np.clip(a * pt + (1 - a) * (1 - pt), eps, None)
-            lik_h = np.clip(a * ph + (1 - a) * (1 - ph), eps, None)
-            data['stabilized_weights'] = np.prod(lik_t / lik_h, axis=2)
-        elif cfg.sw_mode == 'score_ratio':
-            class _Scores:
-                def __init__(shim, fn):
-                    shim.get_propensity_scores = fn
-            coll.process_propensity_train_f(_Scores(self._treat_scores),
-                                            _Scores(self._hist_scores))
-        else:
-            raise ValueError(f'unknown sw_mode {cfg.sw_mode!r}: expected '
-                             f"'likelihood' or 'score_ratio'")
+        data['stabilized_weights'] = stabilized_weights(
+            np.asarray(data['current_treatments']),
+            self._treat_scores(coll.train_f),
+            self._hist_scores(coll.train_f), cfg.sw_mode)
         data['sw_tilde_enc'] = clip_normalize_stabilized_weights(
             data['stabilized_weights'], data['active_entries'])
         self._fit_net(self.encoder, data,
                       {'outputs': data['outputs'],
                        'active_entries': data['active_entries'],
-                       'sw': data['sw_tilde_enc']}, weighted_mse,
-                      TrainConfig(cfg.epochs * cfg.enc_epoch_mult,
-                                  cfg.enc_bs, cfg.enc_lr,
-                                  max_grad_norm=cfg.enc_clip))
+                       'sw': data['sw_tilde_enc']}, weighted_mse, tcs[2])
 
         if not coll.processed_data_decoder:
             coll.process_data_decoder(self)
@@ -270,9 +294,7 @@ class RMSN(CausalEstimator):
         self._fit_net(self.decoder, ddata,
                       {'outputs': ddata['outputs'],
                        'active_entries': ddata['active_entries'],
-                       'sw': ddata['sw_tilde_dec']}, weighted_mse,
-                      TrainConfig(cfg.epochs, cfg.dec_bs, cfg.dec_lr,
-                                  max_grad_norm=cfg.dec_clip),
+                       'sw': ddata['sw_tilde_dec']}, weighted_mse, tcs[3],
                       init_state=ddata['init_state'])
         return self
 

@@ -20,6 +20,8 @@ Usage:
         --datasets EQ_4_D cancer_sim --seeds 1
     python -m insite_tpu_torch.run --vectorized --methods sindy insite \
         wsindy msm --datasets EQ_4_D cancer_sim     # 10-seed columns
+    python -m insite_tpu_torch.run --vectorized --methods ct crn edct \
+        rmsn gnet --datasets EQ_4_D
 
 ``msm`` is a host model in float64 whatever the device; ``--epochs`` bounds
 the iterations of its propensity fits. The neural baselines, ``ct`` (the
@@ -30,10 +32,10 @@ rmsn's encoder three times as many).
 With ``--vectorized`` each (dataset, method) column of ``--seeds`` seeds
 runs as one batch (sindy, insite and wsindy: every seed's test rows through
 one fine-tune and one rollout, each row with its own seed's model; msm:
-its solves batched over seeds) and logs one row per seed, marked
-``'vectorized': True``; wsindy's tumor-family columns are skipped, and the
-neural methods' columns are not ported yet (an error naming the slice).
-``--flush`` does not apply there, as in the JAX package.
+its solves batched over seeds; ct, crn, edct, rmsn and gnet: each network
+of the method trained for all seeds as one seed-stacked fit) and logs one
+row per seed, marked ``'vectorized': True``; wsindy's tumor-family columns
+are skipped. ``--flush`` does not apply there, as in the JAX package.
 
 Each run logs an '[Exp evaluation complete] {...}' line into
 ``<log dir>/run-<timestamp>.txt`` (the results database, read back by
@@ -76,7 +78,7 @@ def main(argv=None):
                         'raising')
     p.add_argument('--vectorized', action='store_true',
                    help='run each (dataset, method) column of seeds as one '
-                        'batch (sindy, insite, wsindy, msm)')
+                        'batch (all nine methods)')
     p.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
                    help='"cuda": the kernels on the first card (an error '
                         'without one); "cpu": their plain PyTorch versions')

@@ -303,18 +303,26 @@ def test_vectorized_sweep_rows_match_jax_runner(tmp_path, experiment,
 
 
 def test_skipped_and_unported_columns(caplog):
-    cfg = RunConfig(methods=('wsindy', 'ct'), datasets=('cancer_sim',),
-                    seed_runs=1, train_samples=20, val_samples=2,
-                    test_samples=2, debug_mode=False)
+    cfg = RunConfig(methods=('wsindy', 'ct'),
+                    datasets=('cancer_sim', 'EQ_9_X'), seed_runs=1, epochs=1,
+                    train_samples=20, val_samples=2, test_samples=2,
+                    debug_mode=False)
     rows, _ = runner.vectorized_sweep(cfg, device='cpu')
-    # wsindy on the tumor family is skipped (no row); ct is an errored row
-    assert rows == [{'errored': True, 'dataset_name': 'cancer_sim',
-                     'method_name': 'ct', 'seed': -1, 'domain_conf': 2.0}]
-    assert 'Slice 7b' in caplog.text
+    # wsindy outside the EQ_4 family is skipped (no row); ct on cancer_sim
+    # gives its row; a column that fails (an unknown dataset) is an errored
+    # row
+    assert [(r['dataset_name'], r['method_name'], r['errored'])
+            for r in rows] == [('cancer_sim', 'ct', False),
+                               ('EQ_9_X', 'ct', True)]
+    assert rows[0]['vectorized'] is True
+    assert np.isfinite(rows[0]['decoder_test_rmse_6-step'])
+    assert rows[1] == {'errored': True, 'dataset_name': 'EQ_9_X',
+                       'method_name': 'ct', 'seed': -1, 'domain_conf': 2.0}
+    assert 'unknown dataset EQ_9_X' in caplog.text
     assert 'wsindy runs on the EQ_4 family only' in caplog.text
     cfg.debug_mode = True
-    cfg.methods = ('ct',)
-    with pytest.raises(NotImplementedError, match='Slice 7b'):
+    cfg.methods, cfg.datasets = ('ct',), ('EQ_9_X',)
+    with pytest.raises(ValueError, match='unknown dataset EQ_9_X'):
         runner.vectorized_sweep(cfg, device='cpu')
     cfg.isolate_runs = True
     with pytest.raises(NotImplementedError, match='isolate_runs .Slice 7c'):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port, on one NVIDIA card.
 
-    python3 tools/profile_torch_northstar.py [--path northstar|main-table|fit]
+    python3 tools/profile_torch_northstar.py [--path northstar|main-table|
+                                                      fit|column-fit]
                                              [--dataset EQ_4_D]
-                                             [--epochs 100]
+                                             [--epochs 100] [--seeds 10]
                                              [--trace trace.json]
 
 ``northstar`` (the default): after an untimed warm-up, runs the
@@ -13,7 +14,10 @@ same for one insite run of the main table (`run_experiment` on
 ``--dataset``, EQ_4_D unless given, e.g. cancer_sim or EQ_5_D; 1,000 / 100
 / 100 patients). ``fit``: the same for the fit alone of one crn run
 (``--epochs``, 100 unless given) on ``--dataset``, each on a collection and
-a model made before the clock starts. Prints the card's name
+a model made before the clock starts. ``column-fit``: the same for the
+seed-stacked fit of a vectorized crn column's encoder (``--seeds``
+seeds, 10 unless given; `training.fit_br_column`), on collections and
+networks made before the clock starts. Prints the card's name
 and power limit,
 device time by kernel, and the device's busy and idle shares of the
 profiled run (the union of device-event intervals over the run's wall
@@ -61,11 +65,13 @@ def busy_us(events):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--path', default='northstar',
-                    choices=('northstar', 'main-table', 'fit'))
+                    choices=('northstar', 'main-table', 'fit', 'column-fit'))
     ap.add_argument('--dataset', default='EQ_4_D',
                     help='the main-table or fit run\'s dataset')
     ap.add_argument('--epochs', type=int, default=100,
                     help='the fit run\'s epochs')
+    ap.add_argument('--seeds', type=int, default=10,
+                    help='the column fit\'s seeds')
     ap.add_argument('--trace', default=None,
                     help='write a Chrome trace of the profiled run here')
     args = ap.parse_args()
@@ -97,6 +103,39 @@ def main():
                     f'{r["encoder_test_rmse_orig"]:.6f} %')
 
         run()
+    elif args.path == 'column-fit':
+        from insite_tpu_torch.harness import vectorized_neural as vn
+        from insite_tpu_torch.models import crn
+        from insite_tpu_torch.models.nn.training import (
+            encoder_decoder_train_configs, fit_br_column)
+        seeds = range(args.seeds)
+        colls = vn._collections(args.dataset, seeds, vn.DEFAULT_PATIENTS,
+                                2.0, 'sliding_treatment', 1.0, 60, device,
+                                torch.float32)
+        for c in colls:
+            c.process_data_encoder()
+        ccfg = vn._config(crn.CRNConfig, colls, args.epochs, None,
+                          treatment_mode='multilabel')
+        train, _ = vn._stack_padded([c.train_f.data for c in colls],
+                                    crn.ENC_KEYS, device, torch.float32)
+        tc = encoder_decoder_train_configs(ccfg)[0]
+
+        def prepare():
+            base, params = vn._initial_stack(
+                lambda: crn.encoder_network(ccfg, torch.float32), seeds,
+                device)
+            gen = torch.Generator(device=device).manual_seed(0)
+            return lambda: fit_br_column(base, params, train, tc, gen)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = perf_counter()
+            fit()
+            torch.cuda.synchronize()
+            return perf_counter() - t0
+
+        def report(seconds):
+            return f'crn encoder column fit ({args.seeds} seeds) {seconds:.4f}'
     else:
         cfg = RunConfig(epochs=args.epochs)
 
@@ -117,12 +156,12 @@ def main():
         def report(seconds):
             return f'crn fit {seconds:.4f}'
 
-    if args.path == 'fit':
+    if args.path in ('fit', 'column-fit'):
         fit = prepare()
     r = run()
     print('stages (s, no profiler): ' + report(r))
 
-    if args.path == 'fit':
+    if args.path in ('fit', 'column-fit'):
         fit = prepare()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
