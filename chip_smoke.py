@@ -46,7 +46,10 @@ Phases, in order; any failure exits non-zero:
             simulated as `harness/vectorized.py` simulates them, with
             per-row models from 10 different supports (each seed's fit
             with a subset of the union dropped) and the union as the
-            active set. Every case asserts its launches. First, before any
+            active set, and at phase 13's lam tune: the validation cohort
+            of an EQ_4_D fit (100 patients) stacked once per value of the
+            7-value grid (B=700, per-row coefficients, the fit's
+            support). Every case asserts its launches. First, before any
             plain version runs, the device time of one call of each
             kernel (torch.profiler, median of 20 calls, one session; a
             call is one launch, two for the case that goes in groups, and
@@ -185,6 +188,29 @@ Phases, in order; any failure exits non-zero:
             RMSEs within rtol 1e-3; and the device's idle share of one
             epoch of the stacked crn encoder fit of a 10-seed column
             (`tools/profile_torch_northstar.py --path column-fit`).
+13. harness the sweep harness around the runs, on the card at the
+            reference size (1,000 / 100 / 100, f32), each step's wall time
+            printed, every run writing its JSONL records into a temporary
+            metrics sink: (a) an insite EQ_4_D run with ``tune_hparams``:
+            ``tuned_lam`` first in the row, as in the JAX package, and
+            exactly 3 rollout and 39 sensitivity launches (an untuned
+            run's 2 + 26 and one fine-tune over the 700 stacked validation
+            rows); then `tune_insite_lam` f32 on the card against f64 on
+            the host on one EQ_4_D collection (200 / 100 / 10): one call
+            is 1 + 13 launches, all seven scores within rtol 1e-3, the
+            same best lam wherever the best two differ by more; (b) ct
+            with ``tune_hparams``: `grid_search` of 2 trials at 2 epochs,
+            `successive_halving_search` of 3 trials in rungs of 1 and 3
+            epochs: ``tuned_hparams`` from the grid, finite RMSEs, no
+            launch; (c) a sindy EQ_4_D run twice with the dataset cache in
+            a temporary directory: the second simulates nothing and its
+            row equals the first; (d) a sindy + insite sweep on EQ_4_A at
+            1 seed, resumed at 2 seeds from its log (only seed 1 runs),
+            and under other epochs (all 4 run); (e) `run_isolated` of
+            insite on EQ_4_D equal to the in-process row (rtol 1e-6), a
+            2-seed `run_isolated_column`, and a failing isolated run
+            raising, the children loading the library built in phase 2;
+            (f) the sink holds 2 records a run.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -656,6 +682,11 @@ VEC_NEURAL_PEAK_MIB = 40 * 1024
 # the JAX package's tolerance between a vectorized seed and the standard
 # run of the same cohort (tests/test_vectorized.py, 1-step RMSE)
 VECTORIZED_SEED0_RTOL = 0.2
+# phase 13: a lam tune stacks the validation cohort (100 patients) once
+# per value of the 7-value grid; card f32 and host f64 scores agree to
+# this relative tolerance
+TUNING_ROWS = 700
+TUNE_SCORE_RTOL = 1e-3
 # repetitions of a plain version in phase 3's call timing (each takes
 # 0.1-0.3 s; the kernels take 20)
 PLAIN_REPS = 5
@@ -2211,6 +2242,307 @@ def check_vectorized_neural_card_against_host(device):
         vn.make_collection, vn._initial_stack = make, initial_stack
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sweep harness
+
+
+def tuning_case(device):
+    """Kernel inputs at the shape of a lam tune's launches: the validation
+    cohort of the EQ_4_D fit (100 patients) stacked once per value of
+    `INSITE_LAM_GRID` (B = 700), per-row coefficients 5 % around the
+    fit's, its support."""
+    from insite_tpu_torch.harness.tuning import INSITE_LAM_GRID
+    coll, model = fitted_model('EQ_4_D', device)
+    case = model_case(model, coll.val_f)
+    G = len(INSITE_LAM_GRID)
+    B = G * len(case['y0'])
+    rng = np.random.RandomState(16)
+    case.update(y0=np.tile(case['y0'], G),
+                statics=np.tile(case['statics'], (G, 1)),
+                arms=np.tile(case['arms'], (G, 1)),
+                coefs=case['coefs'] * (1 + 0.05 * rng.randn(
+                    B, *case['coefs'].shape[1:])))
+    assert case['arms'].shape[0] == TUNING_ROWS
+    log(f'  tuning case: B={B}, T={case["arms"].shape[1]}, '
+        f'Kr={len(case["active_idx"])}')
+    return case
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(original)`` inside the block."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def recording(calls):
+    """A wrap for `patched` that appends the first three positional
+    arguments of every call (a run's dataset, method and seed)."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            calls.append(args[:3])
+            return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def check_tune_card_against_host(device):
+    """`tune_insite_lam` f32 on the card against f64 on the host, each on a
+    model fitted on one EQ_4_D collection (200 / 100 / 10): all seven
+    scores within rtol `TUNE_SCORE_RTOL`, the same best lam wherever the
+    best two scores differ by more than that, relative. Returns the card
+    call's launches (asserted: one fine-tune)."""
+    import dataclasses
+
+    import torch
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.harness.config import sindy_params_for
+    from insite_tpu_torch.harness.tuning import tune_insite_lam
+    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    from insite_tpu_torch.ops import rollout
+    coll = make_collection('EQ_4_D', {'train': 200, 'val': 100, 'test': 10},
+                           seed=7, coeff=2.0, device=device)
+    cfg = SINDyConfig(dataset_name='EQ_4_D',
+                      sindy_threshold=sindy_params_for('EQ_4_D')[0],
+                      insite=True)
+    out = {}
+    for tag, dev, dtype in (('card', device, None),
+                            ('host', 'cpu', torch.float64)):
+        m = SINDyRegressor(dataclasses.replace(cfg), coll, device=dev,
+                           dtype=dtype).fit(coll.train_f)
+        rollout.reset_launch_counts()
+        t0 = perf_counter()
+        best, scores = tune_insite_lam(m, coll.val_f)
+        secs = perf_counter() - t0
+        out[tag] = (best, scores, {'rollout': rollout.ROLLOUT_LAUNCHES,
+                                   'sens': rollout.SENS_LAUNCHES}, secs)
+    (best_k, s_k, n_k, t_k), (best_h, s_h, _, t_h) = out['card'], out['host']
+    gap = max(abs(s_k[lam] / s_h[lam] - 1) for lam in s_h)
+    log(f'  lam tune card f32 vs host f64 (100 validation patients): best '
+        f'{best_k} vs {best_h}; largest relative score gap {gap:.3e}; '
+        f'card {t_k:.4f} s ({n_k}), host {t_h:.4f} s; card scores {s_k}')
+    if n_k != {'rollout': 1, 'sens': GN_ITERS + 1}:
+        raise AssertionError(f'one tune launched {n_k}, expected 1 rollout '
+                             f'and {GN_ITERS + 1} sensitivity launches')
+    if gap > TUNE_SCORE_RTOL:
+        raise AssertionError(f'card and host lam scores differ by {gap:.3e}')
+    first, second = sorted(s_h.values())[:2]
+    if second / first - 1 > TUNE_SCORE_RTOL and best_k != best_h:
+        raise AssertionError(f'best lam {best_k} on the card, {best_h} on '
+                             'the host')
+    return n_k
+
+
+def run_harness(device):
+    """Phase 13: the sweep harness on the card at the reference size
+    (1,000 / 100 / 100, f32), every run writing its JSONL records into a
+    temporary sink: the lam tune in an insite run and card against host,
+    the neural grid and successive-halving searches, the dataset cache,
+    resume, isolated runs and columns. Returns (the tuned run's launches,
+    one tuning call's launches, the phase's wall by step)."""
+    import dataclasses
+    import logging
+
+    import torch
+    from insite_tpu_torch.harness import cache, isolated, runner, tuning
+    from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch.ops import build, rollout
+
+    def launches():
+        return {'rollout': rollout.ROLLOUT_LAUNCHES,
+                'sens': rollout.SENS_LAUNCHES}
+
+    walls = {}
+    runs = 0                 # runs that write the sink: 2 records each
+
+    def step(name, t0):
+        torch.cuda.synchronize(device)
+        walls[name] = perf_counter() - t0
+        log(f'[harness] {name}: {walls[name]:.4f} s')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = f'{tmp}/metrics.jsonl'
+        base = RunConfig(metrics_jsonl=sink)
+
+        # 1. insite with the lam tune; then one tune card against host
+        t0 = perf_counter()
+        rollout.reset_launch_counts()
+        row = runner.run_experiment(
+            'EQ_4_D', 'insite', 0, 2.0,
+            dataclasses.replace(base, tune_hparams=True), device=device)
+        tuned = launches()
+        runs += 1
+        step('insite EQ_4_D run with --tune', t0)
+        log(f'  tuned_lam {row["tuned_lam"]}; 1-step '
+            f'{row["encoder_test_rmse_orig"]:.6f} %, 6-step '
+            f'{row["decoder_test_rmse_6-step"]:.6f} %; launches {tuned}')
+        if list(row)[:2] != ['tuned_lam', 'encoder_test_rmse_all'] or \
+                row['tuned_lam'] not in tuning.INSITE_LAM_GRID:
+            raise AssertionError(f'the tuned row starts {list(row)[:2]}')
+        want = {'rollout': 3, 'sens': 3 * (GN_ITERS + 1)}
+        if tuned != want:
+            raise AssertionError(f'tuned insite run launched {tuned}, '
+                                 f'expected {want}')
+        t0 = perf_counter()
+        tune_call = check_tune_card_against_host(device)
+        step('lam tune card vs host', t0)
+
+        # 2. the neural tuners on ct
+        for algo, trials, epochs, rungs in (('grid', 2, 2, None),
+                                            ('sha', 3, 3, [(0, 1)] * 3
+                                             + [(1, 3)])):
+            t0 = perf_counter()
+            searches = []
+
+            def keep_trials(fn):
+                def search(*args, **kwargs):
+                    out = fn(*args, **kwargs)
+                    searches.append(out[2])
+                    return out
+                return search
+
+            rollout.reset_launch_counts()
+            name = ('successive_halving_search' if algo == 'sha'
+                    else 'grid_search')
+            with patched(tuning, name, keep_trials):
+                row = runner.run_experiment(
+                    'EQ_4_D', 'ct', 0, 2.0,
+                    dataclasses.replace(base, tune_hparams=True,
+                                        tune_algo=algo, tune_trials=trials,
+                                        epochs=epochs), device=device)
+            runs += 1
+            step(f'ct --tune-algo {algo}', t0)
+            (trial_list,) = searches
+            hp = row['tuned_hparams']
+            log(f'  {algo}: {len(trial_list)} trials, tuned_hparams {hp}; '
+                f'1-step {row["encoder_test_rmse_orig"]:.6f} %')
+            space = tuning.NEURAL_HPARAM_GRIDS['ct']
+            if list(row)[0] != 'tuned_hparams' or set(hp) != set(space) or \
+                    any(v not in space[k] for k, v in hp.items()):
+                raise AssertionError(f'tuned_hparams {hp} not of the grid')
+            if launches() != {'rollout': 0, 'sens': 0}:
+                raise AssertionError(f'ct tune launched {launches()}')
+            vals = [t['val_rmse_all'] for t in trial_list] + \
+                [row[k] for k in RMSE_METRICS]
+            if not np.isfinite(vals).all():
+                raise AssertionError(f'non-finite RMSEs: {vals}')
+            got = ([(t['rung'], t['epochs']) for t in trial_list]
+                   if rungs else len(trial_list))
+            if got != (rungs or trials):
+                raise AssertionError(f'{algo} trials {got}')
+
+        # 3. the dataset cache
+        t0 = perf_counter()
+        made = []
+        cfg = dataclasses.replace(base, load_from_cache=True)
+        cache_dir = cache.CACHE_DIR
+        cache.CACHE_DIR = f'{tmp}/cache'
+        try:
+            with patched(runner, 'make_collection', recording(made)):
+                rows = [runner.run_experiment('EQ_4_D', 'sindy', 0, 2.0, cfg,
+                                              device=device)
+                        for _ in range(2)]
+        finally:
+            cache.CACHE_DIR = cache_dir
+        runs += 2
+        step('sindy EQ_4_D twice from the cache', t0)
+        timeless = [{k: v for k, v in r.items() if k != 'seconds_taken'}
+                    for r in rows]
+        log(f'  collections simulated {len(made)}; seconds '
+            f'{[round(r["seconds_taken"], 4) for r in rows]}')
+        if len(made) != 1 or timeless[0] != timeless[1]:
+            raise AssertionError('the cached run simulated again or its '
+                                 'row differs')
+
+        # 4. resume
+        t0 = perf_counter()
+        log_path = f'{tmp}/resume.txt'
+        sweep_log = logging.getLogger('chip_smoke.resume')
+        sweep_log.propagate = False
+        sweep_log.setLevel(logging.INFO)
+        handler = logging.FileHandler(log_path)
+        sweep_log.addHandler(handler)
+        cfg = dataclasses.replace(base, methods=('sindy', 'insite'),
+                                  datasets=('EQ_4_A',), seed_runs=1)
+        executed = []
+        try:
+            first, _ = runner.sweep(cfg, log=sweep_log, device=device)
+            with patched(runner, 'run_experiment', recording(executed)):
+                resumed, _ = runner.sweep(
+                    dataclasses.replace(cfg, seed_runs=2,
+                                        resume_log=log_path),
+                    log=sweep_log, device=device)
+                n_resumed = len(executed)
+                other, _ = runner.sweep(
+                    dataclasses.replace(cfg, seed_runs=2, epochs=7,
+                                        resume_log=log_path),
+                    log=sweep_log, device=device)
+        finally:
+            sweep_log.removeHandler(handler)
+            handler.close()
+        runs += 2 + len(executed)
+        step('resume: 1 seed, 2 seeds resumed, other epochs', t0)
+        log(f'  resumed sweep ran {executed[:n_resumed]}; the sweep under '
+            f'other epochs ran {len(executed) - n_resumed} runs')
+        if executed[:n_resumed] != [('EQ_4_A', 'sindy', 1),
+                                    ('EQ_4_A', 'insite', 1)] or \
+                resumed[:2] != first or len(executed) - n_resumed != 4 or \
+                len(other) != 4:
+            raise AssertionError('resume reused or ran the wrong runs')
+
+        # 5. isolation: the children load the library built above
+        t0 = perf_counter()
+        lib = build.build_dir() / 'libinsite_kernels.so'
+        built = lib.stat().st_mtime_ns
+        iso = isolated.run_isolated('EQ_4_D', 'insite', 0, 2.0, base,
+                                    runner.Experiment.MAIN_TABLE,
+                                    device=device)
+        ref = runner.run_experiment('EQ_4_D', 'insite', 0, 2.0, base,
+                                    device=device)
+        runs += 2
+        gap = max(abs(iso[k] / ref[k] - 1) for k in RMSE_METRICS)
+        log(f'  isolated insite row vs in-process: largest relative RMSE '
+            f'gap {gap:.3e}; seconds {iso["seconds_taken"]:.4f} vs '
+            f'{ref["seconds_taken"]:.4f}')
+        if list(iso) != list(ref) or gap > 1e-6 or \
+                iso['global_equation_string'] != ref['global_equation_string']:
+            raise AssertionError('the isolated row differs')
+        r, seeds = isolated.run_isolated_column(
+            'EQ_4_D', 'insite', dataclasses.replace(base, seed_runs=2),
+            device=device)
+        log(f'  isolated 2-seed insite column: seeds {seeds}, 1-step '
+            f'{r["encoder_test_rmse_orig"]}')
+        if seeds != [0, 1] or not all(np.isfinite(v).all() and len(v) == 2
+                                      for v in r.values()):
+            raise AssertionError('the isolated column is not 2 finite rows')
+        try:
+            isolated.run_isolated('NO_SUCH_DATASET', 'sindy', 0, 2.0, base,
+                                  runner.Experiment.MAIN_TABLE,
+                                  device=device)
+        except RuntimeError as e:
+            if 'isolated run' not in str(e):
+                raise
+        else:
+            raise AssertionError('an isolated run on a bad dataset did not '
+                                 'raise')
+        if lib.stat().st_mtime_ns != built:
+            raise AssertionError('an isolated child rebuilt the kernels')
+        step('isolation: a run, a column, a failing run', t0)
+
+        # 6. the metrics sink
+        with open(sink) as f:
+            recs = [json.loads(line) for line in f]
+        log(f'  metrics sink: {len(recs)} records of {runs} runs')
+        if len(recs) != 2 * runs or [r['kind'] for r in recs] != \
+                ['params', 'metrics'] * runs:
+            raise AssertionError(f'{len(recs)} sink records for {runs} runs')
+    return tuned, tune_call, walls
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2269,6 +2601,8 @@ def main():
                      'insight_eq4b_1step_shared': one_case}
     # phase 11's seed-stacked batches: per-row models of 10 supports
     stacked = stacked_cases(device)
+    # phase 13's lam tune: the validation cohort once per grid value
+    tune_cases = {'tuning_b700': tuning_case(device)}
     log('[kernels] device time per call, f32, before any plain version '
         'runs')
     dev_times = kernel_times({'northstar': northstar_case,
@@ -2276,7 +2610,7 @@ def main():
                               '1step_shared_b11800_t59': one_step_case,
                               'degree4_f35_kr16_b10000_t59': degree4_case,
                               **tumor_cases, **sindy_family_cases,
-                              **insight_cases, **stacked},
+                              **insight_cases, **stacked, **tune_cases},
                              device)
     log('[kernels] kernel vs plain PyTorch version on the card')
     main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
@@ -2300,7 +2634,7 @@ def main():
         f'{tag} B={case["arms"].shape[0]} T={case["arms"].shape[1]} '
         f'Kr={len(case["active_idx"])}', case, device, timed=True)
         for tag, case in {**tumor_cases, **sindy_family_cases,
-                          **insight_cases, **stacked}.items()}
+                          **insight_cases, **stacked, **tune_cases}.items()}
     fold_res = {tag: run_fold_case(
         f'{tag} vs plain joint B={len(case["y0"])} '
         f'T={case["arms"].shape[1]}', case['joint'], device)
@@ -2402,6 +2736,12 @@ def main():
         ' %')
     log(f'[vectorized-neural] phase 12 wall {perf_counter() - t12:.4f} s')
 
+    # 13. the sweep harness: tuning, cache, resume, isolation, the sink
+    t13 = perf_counter()
+    tuned_launches, tune_call, harness_walls = run_harness(device)
+    log(f'[harness] phase 13 wall {perf_counter() - t13:.4f} s; by step '
+        f'{json.dumps(harness_walls)}')
+
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
@@ -2433,6 +2773,10 @@ def main():
                 tag: n[key] for tag, n in vec_by_column.items()},
             'launches_vectorized_neural': {
                 m: n[key] for m, n in vec_neural_launches.items()},
+            # an insite run with --tune (its 1- and n-step fine-tunes and
+            # the lam tune), and one tuning call alone
+            'launches_tuning': tuned_launches[key],
+            'launches_tuning_call': tune_call[key],
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

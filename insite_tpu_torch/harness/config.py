@@ -1,14 +1,12 @@
 """Experiment configuration: the outer sweep config as a plain dataclass,
-with the fields and defaults of `insite_tpu.harness.config.RunConfig`.
-
-The sweep (`harness/runner.py`) serves every experiment and raises
-`NotImplementedError` for the settings of later slices: tuning, the dataset
-cache, resume, isolated runs and the JSONL metrics sink. Loading from YAML
-waits for a slice that needs it.
+with the fields and defaults of `insite_tpu.harness.config.RunConfig`,
+loaded from YAML (`RunConfig.from_yaml`, which needs PyYAML) or from a
+plain mapping (`RunConfig.from_dict`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 # per-dataset SINDy hyperparameters
@@ -53,10 +51,14 @@ class RunConfig:
     experiment: str = 'MAIN_TABLE'
     gnet_mc_samples: int = 25
     cf_seq_mode: str = 'sliding_treatment'
+    # the dataset-collection disk cache (harness/cache.py)
     load_from_cache: bool = False
     force_recache: bool = False
+    # insite: the lam grid scored on the validation cohort in one stacked
+    # fine-tune; neural: a search over tuning.NEURAL_HPARAM_GRIDS
     tune_hparams: bool = False
-    tune_trials: int = 10
+    tune_trials: int = 10        # neural trials subsampled from the grid
+    # 'grid': the seeded subsampled grid; 'sha': successive halving
     tune_algo: str = 'grid'
     # tuned model-hparam overlays: maps '<method>', '<method>@<dataset>' or
     # '<method>@<dataset>/<coeff>' (later wins) to model-config fields
@@ -64,9 +66,12 @@ class RunConfig:
     flush_mode: bool = False
     debug_mode: bool = True
     log_dir: str = 'logs'
-    # JSONL metrics sink; '' (off) until the metrics logger is ported
-    metrics_jsonl: str = ''
+    # JSONL metrics sink (mirrored to MLflow or wandb where configured;
+    # '' disables it)
+    metrics_jsonl: str = 'logs/metrics.jsonl'
+    # a previous sweep's log: its completed runs are reused, not re-run
     resume_log: str = ''
+    # each run (or --vectorized column) in a fresh interpreter
     isolate_runs: bool = False
 
     def flush(self):
@@ -76,3 +81,38 @@ class RunConfig:
         self.gnet_mc_samples = 2
         self.train_samples, self.val_samples, self.test_samples = 1000, 10, 10
         return self
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> 'RunConfig':
+        """Load a sweep config from a YAML mapping of RunConfig fields;
+        keyword overrides win over file values. Lists become tuples so
+        fields stay hashable. Needs PyYAML, which raises ImportError where
+        it is not installed."""
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError('RunConfig.from_yaml needs PyYAML (the yaml '
+                              'module), which is not installed') from e
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        if not isinstance(raw, dict):
+            raise ValueError(f'{path} must contain a YAML mapping of '
+                             f'RunConfig fields, got {type(raw).__name__}')
+        valid = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(raw) - valid
+        if unknown:
+            raise ValueError(f'unknown RunConfig fields in {path}: '
+                             f'{sorted(unknown)}')
+        bad_kw = set(overrides) - valid
+        if bad_kw:
+            raise ValueError(f'unknown RunConfig override kwargs: '
+                             f'{sorted(bad_kw)}')
+        raw.update(overrides)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: dict) -> 'RunConfig':
+        """Rebuild from a plain (e.g. JSON round-tripped) mapping; lists
+        become tuples so fields stay hashable."""
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in raw.items()})

@@ -1,7 +1,8 @@
 """Results tools without pandas: the sweep log's rows back as dicts, the
-95 % t-interval, and the LaTeX main table, whose text is that of
-`insite_tpu.harness.results.generate_main_results_table` on the same
-rows."""
+95 % t-interval, the LaTeX main table and the paper's, and the markdown
+parity table, whose texts are those of `insite_tpu.harness.results`'s
+`generate_main_results_table`, `generate_main_results_table_paper_format`
+and `parity_table` on the same rows."""
 
 from __future__ import annotations
 
@@ -88,17 +89,23 @@ def _unique(seq) -> list:
     return list(dict.fromkeys(seq))
 
 
-def generate_main_results_table(rows) -> dict:
-    """LaTeX table per n-step metric and for the 1-step
-    ``encoder_test_rmse_orig``: per (dataset, method), the mean over seeds
-    and its 95 % t-interval (0.00 where the interval is NaN, n = 1)."""
+def _completed(rows) -> list:
+    """The rows not marked errored (a NaN mark counts as not errored)."""
+    return [r for r in rows
+            if _is_nan(r.get('errored', False)) or not r.get('errored')]
+
+
+def _cell_stats(rows):
+    """(columns, {(dataset, method): {rmse column: (mean, 95 % CI)}},
+    the cells in table order) of the completed rows, or None where no
+    table can be made. Column order is first appearance; cells sort by
+    the dataset and method orderings, unknown names last."""
     columns = [c for c in _unique(k for r in rows for k in r)
                if c != 'errored']
-    rows = [r for r in rows
-            if _is_nan(r.get('errored', False)) or not r.get('errored')]
+    rows = _completed(rows)
     rmse_cols = [c for c in columns if 'rmse' in c]
     if not rows or 'dataset_name' not in columns or not rmse_cols:
-        return {}   # nothing completed: no tables to emit
+        return None   # nothing completed: no tables to emit
     groups = {}
     for r in rows:
         key = (r.get('dataset_name'), r.get('method_name'))
@@ -111,9 +118,27 @@ def generate_main_results_table(rows) -> dict:
                 for c in rmse_cols}
         stats_of[key] = {c: (_mean(v), ci(v)) for c, v in vals.items()}
     order = sorted(stats_of, key=_ordered)       # stable: ties keep a-z
+    return columns, stats_of, order
+
+
+def _cell(stats, metric):
+    """(mean, 95 % CI) strings of a cell, or None where it has no mean."""
+    if stats is None or math.isnan(stats[metric][0]):
+        return None
+    mean, err = stats[metric]
+    return custom_format(mean), custom_format(0.0 if np.isnan(err) else err)
+
+
+def generate_main_results_table(rows) -> dict:
+    """LaTeX table per n-step metric and for the 1-step
+    ``encoder_test_rmse_orig``: per (dataset, method), the mean over seeds
+    and its 95 % t-interval (0.00 where the interval is NaN, n = 1)."""
+    agg = _cell_stats(rows)
+    if agg is None:
+        return {}
+    columns, stats_of, order = agg
     datasets = _unique(ds for ds, _ in order)
     methods = _unique(m for _, m in order)
-
     metrics = [c for c in columns if 'decoder_test_rmse' in c] + \
         [c for c in columns if c == 'encoder_test_rmse_orig']
     tables = {}
@@ -126,16 +151,128 @@ def generate_main_results_table(rows) -> dict:
         for method_name in methods:
             line = METHOD_NAME_MAP.get(method_name, method_name)
             for dataset_name in datasets:
-                cell_stats = stats_of.get((dataset_name, method_name))
-                if cell_stats is None or math.isnan(cell_stats[metric][0]):
+                cell = _cell(stats_of.get((dataset_name, method_name)),
+                             metric)
+                if cell is None:
                     line += r'& NA'
                     continue
-                mean, err = cell_stats[metric]
-                cell = (custom_format(mean) + r'$\pm$' +
-                        custom_format(0.0 if np.isnan(err) else err))
+                cell = cell[0] + r'$\pm$' + cell[1]
                 line += (r'& \textbf{' + cell + '}'
                          if method_name == 'insite' else '&' + cell)
             lines.append(line + r'\\')
         lines += [r'\bottomrule', r'\end{tabular}']
         tables[metric] = '\n'.join(lines)
     return tables
+
+
+ODE_METHODS = ('sindy', 'wsindy', 'insite')
+
+
+def generate_main_results_table_paper_format(rows) -> dict:
+    """The paper's LaTeX tables, one per n-step metric: a tabularx layout
+    with \\cref dataset headers, the learned-treatment-effect (LTE) and
+    ODE-discovery (ODE-D) method groups, and the INSITE row shaded and in
+    bold. A group with no method in the rows emits nothing."""
+    agg = _cell_stats(rows)
+    if agg is None:
+        return {}
+    columns, stats_of, order = agg
+    datasets = _unique(ds for ds, _ in order)
+    methods = _unique(m for _, m in order)
+    eq4, eq5 = r'{\bf\cref{eq:one-compartment-pkpd}', r'{\bf\cref{eq:tumor}'
+    name_map = {f'EQ_4_{v}': f'{eq4}.{v}' + r'}' for v in 'ABCD'}
+    name_map.update({f'EQ_5_{v}': f'{eq5}.{v}' + r'}' for v in 'ABCD'})
+    name_map['cancer_sim'] = 'Cancer PKPD'
+    lte_methods = [m for m in methods if m not in ODE_METHODS]
+    oded_methods = [m for m in methods if m in ODE_METHODS]
+
+    tables = {}
+    for metric in [c for c in columns if 'decoder_test_rmse' in c]:
+        lines = [r'\begin{tabularx}{\textwidth}{cr | *{' +
+                 f'{len(datasets)}' + r'}{X}}', r'\toprule',
+                 r'&{\bf Method}&' + '&'.join(
+                     name_map.get(dn, dn) for dn in datasets) + r'\\',
+                 r'\midrule']
+        # a rotated group label spans exactly its group's rows
+        if lte_methods:
+            lines.append(r'\multirow{' + str(len(lte_methods)) +
+                         r'}{*}{\rotatebox{90}{\bf LTE}}')
+        ode_group_started = False
+        for method_name in lte_methods + oded_methods:
+            if method_name in ODE_METHODS and not ode_group_started:
+                if lte_methods:
+                    lines.append(r'\midrule')
+                lines.append(r'\multirow{' + str(len(oded_methods)) +
+                             r'}{*}{\rotatebox{90}{\bf ODE-D}}')
+                ode_group_started = True
+            is_insite = method_name == 'insite'
+            line = (r'& \CC{black!5} INSITE' if is_insite else
+                    '&' + METHOD_NAME_MAP.get(method_name, method_name))
+            for dataset_name in datasets:
+                cell = _cell(stats_of.get((dataset_name, method_name)),
+                             metric)
+                if cell is None:
+                    line += r'& NA'
+                elif is_insite:
+                    line += (r'& \CC{black!5} {\bf ' + cell[0] + r'} ' +
+                             r'{\footnotesize $\pm$' + cell[1] + r'}')
+                else:
+                    line += ('&' + cell[0] + r'{\footnotesize $\pm$' +
+                             cell[1] + r'}')
+            lines.append(line + r'\\')
+        lines += [r'\bottomrule', r'\end{tabularx}']
+        tables[metric] = '\n'.join(lines)
+    return tables
+
+
+def parity_table(rows_ours, rows_ref,
+                 metrics=('encoder_test_rmse_orig',
+                          'decoder_test_rmse_6-step')) -> str:
+    """Side-by-side ours-vs-reference markdown table of two lists of rows
+    (each as `rows_from_log` reads a sweep log). Cells are mean±std
+    (ddof 0, NaN skipped) over seeds; '**' marks the better mean (ours
+    on a tie)."""
+    def agg(rows):
+        present = set(k for r in rows for k in r)
+        groups = {}
+        for r in _completed(rows):
+            groups.setdefault((r['dataset_name'], r['method_name']),
+                              []).append(r)
+        out = {}
+        for key in sorted(groups):
+            g = groups[key]
+            out[key] = {}
+            for k in metrics:
+                if k not in present:
+                    continue
+                v = np.array([float(r.get(k, math.nan)) for r in g])
+                v = v[~np.isnan(v)]
+                out[key][k] = ((v.mean(), v.std(), len(g)) if len(v)
+                               else (math.nan, math.nan, len(g)))
+        return out
+
+    ours, ref = agg(rows_ours), agg(rows_ref)
+    keys = sorted(set(ours) & set(ref))
+    if not keys:
+        return '(no overlapping (dataset, method) cells)'
+    head = '| dataset | method | n | ' + ' | '.join(
+        f'{m} ours | ref' for m in metrics) + ' |'
+    sep = '|' + '---|' * (3 + 2 * len(metrics))
+    lines = [head, sep]
+    for ds, m in keys:
+        cells = [ds, m, str(ours[(ds, m)][metrics[0]][2])]
+        for metric in metrics:
+            o = ours[(ds, m)].get(metric)
+            r = ref[(ds, m)].get(metric)
+            if o is None or r is None:
+                cells += ['—', '—']
+                continue
+            o_s = f'{o[0]:.3f}±{o[1]:.3f}'
+            r_s = f'{r[0]:.3f}±{r[1]:.3f}'
+            if o[0] <= r[0]:
+                o_s = f'**{o_s}**'
+            else:
+                r_s = f'**{r_s}**'
+            cells += [o_s, r_s]
+        lines.append('| ' + ' | '.join(cells) + ' |')
+    return '\n'.join(lines)

@@ -18,10 +18,19 @@ of the validation cohort) and the three robustness sweeps on the EQ_4
 family, INSIGHT_CONFOUNDING (gamma over ``cfg.domain_confs`` on EQ_4_D),
 INSIGHT_NOISE (the observation-noise scale over ``cfg.noise_scales`` on
 EQ_4_B) and INSIGHT_LESS_SAMPLES (the training cohort over
-``cfg.train_sample_grid`` on EQ_4_D). The sweep's tuning, cache, resume,
-isolation and metrics-sink settings, and collections with a vitals stream,
+``cfg.train_sample_grid`` on EQ_4_D). Collections with a vitals stream
 raise `NotImplementedError` naming the slice of ROADMAP.md that brings
-them.
+them; a method the JAX package does not have raises it too.
+
+Around the runs, as in the JAX package: ``tune_hparams`` tunes on the
+validation cohort before the test metrics (`harness/tuning.py`: insite's
+lam grid in one stacked fine-tune, the neural methods' grid or
+successive-halving search), ``load_from_cache`` keeps collections on disk
+(`harness/cache.py`), ``resume_log`` reuses the completed rows of an
+earlier sweep's log whose config fingerprints all match, ``isolate_runs``
+runs each run or column in a fresh interpreter (`harness/isolated.py`),
+and ``metrics_jsonl`` names the JSONL sink every run writes its metrics to
+(`harness/metrics_logger.py`).
 
 `vectorized_sweep` (``run.py --vectorized``) runs each (dataset, method)
 column of seeds as one batch (`harness/vectorized.py` for the ODE methods,
@@ -40,13 +49,18 @@ import traceback
 from enum import Enum
 
 import numpy as np
+import torch
 
+from insite_tpu_torch.core.dtypes import resolve_float
 from insite_tpu_torch.data.collection import make_collection
+from insite_tpu_torch.harness import cache, isolated, tuning
 from insite_tpu_torch.harness.config import (RunConfig, SINDY_ALPHA,
                                              model_dataset_name,
                                              sindy_params_for)
 from insite_tpu_torch.harness.insights import recover_parametric_dist
-from insite_tpu_torch.harness.results import generate_main_results_table
+from insite_tpu_torch.harness.metrics_logger import MetricsLogger
+from insite_tpu_torch.harness.results import (generate_main_results_table,
+                                              rows_from_log)
 from insite_tpu_torch.models import crn, ct, edct, gnet, rmsn
 from insite_tpu_torch.models.base import VITALS_NOT_PORTED
 
@@ -84,31 +98,24 @@ TABLE_EXPERIMENTS = (Experiment.MAIN_TABLE, Experiment.ABLATION_ONE_ODE,
                      Experiment.INSIGHT_RECOVER_PARAMETRIC_DIST)
 
 
-def _require_served(cfg: RunConfig, methods=()) -> None:
-    """Raise for what the port does not serve yet: the sweep settings of
-    Slice 7c, and for a method the JAX package does not have."""
-    later = []
-    for name in ('tune_hparams', 'load_from_cache', 'force_recache',
-                 'isolate_runs'):
-        if getattr(cfg, name):
-            later.append(f'{name} (Slice 7c)')
-    for name in ('resume_log', 'metrics_jsonl'):
-        if getattr(cfg, name):
-            later.append(f'{name}={getattr(cfg, name)!r} (Slice 7c)')
-    later += [f'method {m} (not in the JAX package)'
-              for m in methods if m not in METHODS]
-    if later:
-        raise NotImplementedError('not ported yet (ROADMAP.md): ' +
-                                  ', '.join(later))
+def _require_served(methods) -> None:
+    """Raise for a method the JAX package does not have."""
+    unknown = [f'method {m} (not in the JAX package)'
+               for m in methods if m not in METHODS]
+    if unknown:
+        raise NotImplementedError('not ported (ROADMAP.md): ' +
+                                  ', '.join(unknown))
 
 
 def _collection_for(dataset_name, method_name, seed, domain_conf,
                     cfg: RunConfig, experiment=Experiment.MAIN_TABLE, *,
                     device, dtype=None):
-    """A fresh collection per run (the dataset cache is Slice 7c). The
-    SINDy family runs multiclass, and multilabel under ABLATION_ONE_ODE,
-    whose joint library reads the raw treatment columns; every other method
-    runs multilabel."""
+    """The run's collection: simulated, or with ``cfg.load_from_cache``
+    read from the disk cache, where a simulated one is also stored (and
+    with ``cfg.force_recache`` stored without reading). The SINDy family
+    runs multiclass, and multilabel under ABLATION_ONE_ODE, whose joint
+    library reads the raw treatment columns; every other method runs
+    multilabel."""
     if method_name in SINDY_METHODS and \
             experiment != Experiment.ABLATION_ONE_ODE:
         treatment_mode = 'multiclass'
@@ -116,12 +123,25 @@ def _collection_for(dataset_name, method_name, seed, domain_conf,
         treatment_mode = 'multilabel'
     num_patients = {'train': cfg.train_samples, 'val': cfg.val_samples,
                     'test': cfg.test_samples}
-    return make_collection(dataset_name, num_patients, seed,
+    # the JAX package's key, plus where and in what type the cohort was
+    # drawn: the EQ_4 generators draw on the collection's device
+    key = (dataset_name, treatment_mode, seed, float(domain_conf),
+           tuple(sorted(num_patients.items())), cfg.cf_seq_mode,
+           cfg.noise_scale, torch.device(device).type,
+           str(resolve_float(dtype)))
+    if cfg.load_from_cache and not cfg.force_recache:
+        coll = cache.get_cached(key)
+        if coll is not None:
+            return coll
+    coll = make_collection(dataset_name, num_patients, seed,
                            coeff=float(domain_conf),
                            treatment_mode=treatment_mode,
                            cf_seq_mode=cfg.cf_seq_mode,
                            noise_scale=cfg.noise_scale, device=device,
                            dtype=dtype)
+    if cfg.load_from_cache or cfg.force_recache:
+        cache.put_cached(key, coll)
+    return coll
 
 
 def _merged_overrides(cfg: RunConfig, method_name: str, dataset_name: str,
@@ -229,24 +249,58 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
                    device, dtype=None) -> dict:
     """One (dataset, method, seed, gamma) run on ``device``: fit on the
     training cohort, then the 1-step and the 2..(ph+1)-step
-    counterfactual RMSEs (%) of the test cohort. Under
+    counterfactual RMSEs (%) of the test cohort. With ``cfg.tune_hparams``
+    a neural method is fitted by a search over its grid and its row
+    starts with ``tuned_hparams``; insite's lam is tuned after the fit and
+    its row starts with ``tuned_lam``. Under
     INSIGHT_RECOVER_PARAMETRIC_DIST an insite run adds the mean and std of
     the validation cohort's fine-tuned coefficients and, on the EQ_4
-    family, how well they recover the hidden decay constants."""
+    family, how well they recover the hidden decay constants. With
+    ``cfg.metrics_jsonl`` the run's params and metrics go to that sink."""
     cfg = cfg or RunConfig()
-    _require_served(cfg, (method_name,))
+    _require_served((method_name,))
     t0 = time.perf_counter()
     coll = _collection_for(dataset_name, method_name, seed, domain_conf,
                            cfg, experiment, device=device, dtype=dtype)
-    model = _build_model(method_name, dataset_name, coll, cfg, domain_conf,
-                         experiment, device=device, dtype=dtype, seed=seed)
-    model.fit(coll.train_f, coll.val_f)
+    results = {}
+    if cfg.tune_hparams and method_name in tuning.NEURAL_HPARAM_GRIDS:
+        # a search on the validation factual RMSE; the winner is evaluated
+        def build_and_fit(params_):
+            mo = dict(cfg.model_overrides or {})
+            mo[method_name] = {**mo.get(method_name, {}), **params_}
+            cfg_t = dataclasses.replace(cfg, model_overrides=mo)
+            m = _build_model(method_name, dataset_name, coll, cfg_t,
+                             domain_conf, experiment, device=device,
+                             dtype=dtype, seed=seed)
+            m.fit(coll.train_f, coll.val_f)
+            return m
+
+        space = tuning.NEURAL_HPARAM_GRIDS[method_name]
+        if cfg.tune_algo == 'sha':
+            best_params, model, _ = tuning.successive_halving_search(
+                build_and_fit, space, coll.val_f, n_trials=cfg.tune_trials,
+                seed=seed, max_budget=cfg.epochs,
+                min_budget=max(1, cfg.epochs // 9))
+        else:
+            best_params, model, _ = tuning.grid_search(
+                build_and_fit, space, coll.val_f, n_trials=cfg.tune_trials,
+                seed=seed)
+        results['tuned_hparams'] = best_params
+    else:
+        model = _build_model(method_name, dataset_name, coll, cfg,
+                             domain_conf, experiment, device=device,
+                             dtype=dtype, seed=seed)
+        model.fit(coll.train_f, coll.val_f)
+    if cfg.tune_hparams and method_name == 'insite':
+        # the whole lam grid scored on the validation cohort in one
+        # fine-tune
+        results['tuned_lam'], _ = tuning.tune_insite_lam(model, coll.val_f)
 
     rmse_orig, rmse_all, rmse_last = model.get_normalised_masked_rmse(
         coll.test_cf_one_step, one_step_counterfactual=True)
-    results = {'encoder_test_rmse_all': rmse_all,
-               'encoder_test_rmse_orig': rmse_orig,
-               'encoder_test_rmse_last': rmse_last}
+    results.update({'encoder_test_rmse_all': rmse_all,
+                    'encoder_test_rmse_orig': rmse_orig,
+                    'encoder_test_rmse_last': rmse_last})
     n_step = model.get_normalised_n_step_rmses(coll.test_cf_treatment_seq)
     results.update({f'decoder_test_rmse_{k + 2}-step': float(v)
                     for k, v in enumerate(np.asarray(n_step))})
@@ -272,6 +326,13 @@ def run_experiment(dataset_name: str, method_name: str, seed: int,
                     results[f'recover_{arm}_{k}'] = v
     results.update({'method': method_name, 'seed': int(seed),
                     'seconds_taken': time.perf_counter() - t0})
+    if cfg.metrics_jsonl:
+        ml = MetricsLogger(cfg.metrics_jsonl,
+                           run_name=f'{method_name}-{dataset_name}-{seed}')
+        ml.log_params({'dataset_name': dataset_name, 'method': method_name,
+                       'seed': seed, 'domain_conf': domain_conf})
+        ml.log_metrics(results)
+        ml.finish()
     return results
 
 
@@ -280,16 +341,19 @@ def _plain_value(k, v):
         v = v.item()
     if isinstance(v, (list, tuple)):
         return [_plain_value(k, x) for x in v]
+    if isinstance(v, dict):
+        return {kk: _plain_value(k, x) for kk, x in v.items()}
     if not isinstance(v, (bool, int, float, str)):
         raise TypeError(f'row value {k}={v!r} is not a plain float, int, '
-                        'bool or str, nor a list of such')
+                        'bool or str, nor a list or dict of such')
     return v
 
 
 def _plain(row: dict) -> dict:
     """Numpy scalars to Python's (the repr of np.float64 is not a
-    literal), also inside (nested) lists; anything else that is not a
-    plain scalar is an error."""
+    literal), also inside (nested) lists and dicts (a neural run's
+    ``tuned_hparams``); anything else that is not a plain scalar is an
+    error."""
     return {k: _plain_value(k, v) for k, v in row.items()}
 
 
@@ -306,6 +370,77 @@ def _sweep_fingerprint(cfg: RunConfig, experiment_name: str) -> dict:
 def _log_fingerprint(cfg: RunConfig, experiment_name: str, log) -> None:
     log.info('[Sweep config] ' + json.dumps(
         _sweep_fingerprint(cfg, experiment_name), sort_keys=True))
+
+
+def _read_sweep_fingerprints(log_path: str) -> list:
+    """Every distinct '[Sweep config] {json}' of a sweep log (a log can
+    hold several appended sweeps, each writing rows under its own config);
+    [] for a log without one or a path that cannot be read."""
+    tag = '[Sweep config] '
+    fps = []
+    try:
+        with open(log_path) as f:
+            for line in f:
+                if tag in line:
+                    try:
+                        fp = json.loads(line.split(tag, 1)[1])
+                    except json.JSONDecodeError:
+                        continue
+                    if fp not in fps:
+                        fps.append(fp)
+    except OSError:
+        return []
+    return fps
+
+
+# the INSIGHT grids' fields: part of a resumed run's key, not of the
+# fingerprint a resumed log must match
+GRID_FIELDS = ('noise_scale', 'train_samples')
+
+
+def _resume_key(ds, method, seed, gamma, overrides) -> tuple:
+    extra = tuple(sorted((k, float(v)) for k, v in overrides.items()))
+    return (ds, method, int(seed), float(gamma), extra)
+
+
+def _completed_runs(cfg: RunConfig, experiment: Experiment, fingerprint,
+                    prev_fps, log) -> dict:
+    """{resume key: row} of the completed (not errored) runs logged in
+    ``cfg.resume_log``, or {} where any sweep config in that log differs
+    from ``fingerprint`` (except, in the INSIGHT sweeps, on their grid
+    fields): rows written under other settings are never reused. Cells
+    logged as NaN are dropped from a reused row."""
+    skip = set(GRID_FIELDS) if experiment.name.startswith('INSIGHT_') \
+        else set()
+    mismatch = {}
+    for prev_fp in prev_fps:
+        for k in fingerprint:
+            if k not in skip and prev_fp.get(k) != fingerprint[k]:
+                mismatch[k] = prev_fp.get(k)
+    if not prev_fps:
+        log.warning(f'[Resume] {cfg.resume_log} carries no [Sweep config] '
+                    f'fingerprint (pre-fingerprint log); reusing rows '
+                    f'WITHOUT config verification')
+    if mismatch:
+        log.warning(
+            f'[Resume] REFUSING to reuse rows from {cfg.resume_log}: one of '
+            f'its {len(prev_fps)} sweep config(s) differs on '
+            f'{sorted(mismatch)} (theirs={mismatch} vs ours='
+            f'{ {k: fingerprint[k] for k in mismatch} }); all runs will '
+            f'execute fresh')
+        return {}
+    done = {}
+    for row in rows_from_log(cfg.resume_log):
+        if row.get('errored', False):
+            continue
+        row = {k: v for k, v in row.items()
+               if not (v == 'nan' or (isinstance(v, float) and np.isnan(v)))}
+        ov = {k: row[k] for k in GRID_FIELDS if k in row}
+        done[_resume_key(row['dataset_name'], row['method_name'],
+                         row['seed'], row['domain_conf'], ov)] = row
+    log.info(f'[Resume] {len(done)} completed runs found in '
+             f'{cfg.resume_log}')
+    return done
 
 
 def _enumerate_runs(cfg: RunConfig, experiment: Experiment) -> list:
@@ -345,12 +480,15 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
           log=None, *, device, dtype=None):
     """The benchmark sweep on ``device`` with per-run fault isolation:
     with ``cfg.debug_mode`` a failing run raises, otherwise it becomes a
-    row with ``errored=True``. Returns (rows, LaTeX tables by metric)."""
+    row with ``errored=True``. With ``cfg.resume_log`` the completed runs
+    of that log are re-logged and reused, not run; with
+    ``cfg.isolate_runs`` each run executes in a fresh interpreter. Returns
+    (rows, LaTeX tables by metric)."""
     cfg = cfg or RunConfig()
     log = log or logger
     if cfg.flush_mode:
         cfg.flush()
-    _require_served(cfg, cfg.methods)
+    _require_served(cfg.methods)
 
     args_for_runs = _enumerate_runs(cfg, experiment)
 
@@ -364,18 +502,33 @@ def sweep(cfg: RunConfig = None, experiment=Experiment.MAIN_TABLE,
         if unmatched:
             log.warning(f'[sweep] model_overrides keys matching no run in '
                         f'this sweep: {sorted(unmatched)}')
+    fingerprint = _sweep_fingerprint(cfg, experiment.name)
+    # read the resumed log before logging ours: resuming into the same log
+    # file must not see its own fingerprint
+    prev_fps = _read_sweep_fingerprints(cfg.resume_log) \
+        if cfg.resume_log else []
     _log_fingerprint(cfg, experiment.name, log)
+    done = _completed_runs(cfg, experiment, fingerprint, prev_fps, log) \
+        if cfg.resume_log else {}
 
     rows = []
     for args in args_for_runs:
         dataset_name, method_name, seed, domain_conf = args[:4]
         overrides = args[4] if len(args) > 4 else {}
+        key = _resume_key(dataset_name, method_name, seed, domain_conf,
+                          overrides)
+        if key in done:
+            # re-logged, so the new log is complete on its own
+            log.info(f'[Exp evaluation complete] {done[key]}')
+            rows.append(done[key])
+            continue
         run_cfg = dataclasses.replace(cfg, **overrides) if overrides else cfg
         log.info(f'[Now evaluating exp] {args}')
         try:
-            result = run_experiment(dataset_name, method_name, seed,
-                                    domain_conf, run_cfg, experiment,
-                                    device=device, dtype=dtype)
+            run = isolated.run_isolated if run_cfg.isolate_runs \
+                else run_experiment
+            result = run(dataset_name, method_name, seed, domain_conf,
+                         run_cfg, experiment, device=device, dtype=dtype)
             result['errored'] = False
             result.update(overrides)
         except Exception as e:          # the fault wall
@@ -583,13 +736,15 @@ def vectorized_sweep(cfg: RunConfig = None, log=None, *, device,
     neural columns honour ``seed_start``.
     INSIGHT_CONFOUNDING runs a column per gamma, INSIGHT_NOISE and
     INSIGHT_LESS_SAMPLES one per grid point; every other experiment runs
-    the main table's columns. With ``cfg.debug_mode`` a failing column
+    the main table's columns, each in a fresh interpreter with
+    ``cfg.isolate_runs``. With ``cfg.debug_mode`` a failing column
     raises, otherwise it becomes one errored row (not logged as a result),
     as in the JAX package, whose vectorized sweep also ignores
-    ``flush_mode``. Returns (rows, LaTeX tables by metric)."""
+    ``flush_mode`` and ``resume_log``. Returns (rows, LaTeX tables by
+    metric)."""
     cfg = cfg or RunConfig()
     log = log or logger
-    _require_served(cfg, cfg.methods)
+    _require_served(cfg.methods)
     _log_fingerprint(cfg, cfg.experiment, log)
     if cfg.experiment == 'INSIGHT_CONFOUNDING':
         rows = _vectorized_confounding_sweep(cfg, log, device=device,
@@ -618,8 +773,12 @@ def _vectorized_main_column(cfg: RunConfig, dataset_name: str,
     t0 = time.perf_counter()
     rows = []
     try:
-        r, seeds = _vectorized_column(cfg, dataset_name, method_name, log,
-                                      device=device, dtype=dtype)
+        if cfg.isolate_runs:
+            r, seeds = isolated.run_isolated_column(
+                dataset_name, method_name, cfg, device=device, dtype=dtype)
+        else:
+            r, seeds = _vectorized_column(cfg, dataset_name, method_name,
+                                          log, device=device, dtype=dtype)
         secs = time.perf_counter() - t0
         for i, seed in enumerate(seeds):
             row = _seed_row(r, i, S)

@@ -122,9 +122,11 @@ def _unserved(cfg: SINDyConfig) -> list:
     out = []
     if not (_is_eq4(cfg.dataset_name) or _is_tumor(cfg.dataset_name)):
         out.append(f'dataset_name={cfg.dataset_name!r} (not a simulated '
-                   'benchmark: real data is Slice 6)')
+                   'benchmark: the JAX package serves no SINDy fit on real '
+                   'data)')
     if cfg.insite_solver != 'gauss_newton':
-        out.append(f'insite_solver={cfg.insite_solver!r} (Slice 4)')
+        out.append(f'insite_solver={cfg.insite_solver!r} (the BFGS '
+                   'fine-tune is ported only when a caller needs it)')
     if cfg.rollout_backend != 'auto':
         out.append(f'rollout_backend={cfg.rollout_backend!r} (the tensors\' '
                    'device picks kernel or plain version)')
@@ -397,9 +399,14 @@ class SINDyRegressor(CausalEstimator):
         return tuple(int(i) for i in
                      np.flatnonzero(np.abs(self.coefs).reshape(-1) > 1e-3))
 
-    def _fine_tune(self, dataset, projection_horizon: int):
+    def _fine_tune(self, dataset, projection_horizon: int, lam_grid=None):
         """Run the per-patient fine-tune; returns (preds [N, T],
         per-patient coefs [N, A, F]) on the device.
+
+        With ``lam_grid`` (G values of the proximal penalty) the rows are
+        stacked G times on the batch axis, copy g fine-tuned with
+        ``lam_grid[g]``, all in one fine-tune: preds [G * N, T]. Otherwise
+        every row takes ``cfg.lam``.
 
         With ``cfg.finetune_chunk`` (2048 by default with the degree-4
         library, whose Jacobian is [rows, T, up to A * 35]) the rows go
@@ -409,10 +416,18 @@ class SINDyRegressor(CausalEstimator):
         prev, statics, arms, lengths = self._rollout_args(dataset)
         if cfg.smooth_input_data:
             prev = savgol_smooth(prev, lengths)
+        lam = cfg.lam
+        if lam_grid is not None:
+            n_rows = prev.shape[0]
+            prev, statics, arms, lengths = (
+                x.repeat(len(lam_grid), *[1] * (x.ndim - 1))
+                for x in (prev, statics, arms, lengths))
+            lam = torch.tensor(lam_grid, dtype=torch.float64,
+                               device=prev.device).repeat_interleave(n_rows)
         coefs = self._tensor(self.coefs)
         active_idx = self._active_idx()
 
-        def solve(prev_c, statics_c, arms_c, lengths_c):
+        def solve(prev_c, statics_c, arms_c, lengths_c, lam_c):
             if not active_idx:
                 return _empty_support_predict(
                     self.library, coefs, prev_c, statics_c, arms_c,
@@ -420,7 +435,7 @@ class SINDyRegressor(CausalEstimator):
                     fold=self._fold)
             return insite_gn_finetune_predict(
                 self.library, coefs, prev_c, statics_c, arms_c, lengths_c,
-                self.dt, lam=cfg.lam, projection_horizon=projection_horizon,
+                self.dt, lam=lam_c, projection_horizon=projection_horizon,
                 gn_iters=cfg.gn_iters, y_clip=self._y_clip(),
                 active_idx=active_idx, fold=self._fold)
 
@@ -429,7 +444,7 @@ class SINDyRegressor(CausalEstimator):
             chunk = 2048
         n = prev.shape[0]
         if not chunk or n <= chunk:
-            return solve(prev, statics, arms, lengths)
+            return solve(prev, statics, arms, lengths, lam)
         preds_l, coefs_l = [], []
         for i in range(0, n, chunk):
             take = min(chunk, n - i)
@@ -442,7 +457,8 @@ class SINDyRegressor(CausalEstimator):
                 return xs
 
             p, c = solve(padded(prev), padded(statics), padded(arms),
-                         padded(lengths))
+                         padded(lengths),
+                         padded(lam) if torch.is_tensor(lam) else lam)
             preds_l.append(p[:take])
             coefs_l.append(c[:take])
         return torch.cat(preds_l), torch.cat(coefs_l)
@@ -583,9 +599,10 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     keep, and roll out, the full unmasked global coefficients.
 
     global_coefs [A, F]; prev [B, T] observed y[0..T-1]; statics [B, S];
-    arms [B, T]; lengths [B]; active_idx: the flat (arm * F + feature)
-    coordinates with |global coef| > 1e-3. Returns (preds [B, T],
-    coefs [B, A, F]).
+    arms [B, T]; lengths [B]; lam a float, or a [B] tensor, a penalty per
+    row (the lam grid's rows stacked); active_idx: the flat
+    (arm * F + feature) coordinates with |global coef| > 1e-3. Returns
+    (preds [B, T], coefs [B, A, F]).
 
     global_coefs may also be [B, A, F], a global model per row (the
     vectorized seed columns: each row its own seed's), with active_idx the
@@ -631,7 +648,12 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     n_mask = torch.clamp(prefix.to(dtype).sum(1), min=1.0)      # [B]
     skip = lengths <= ph                                        # [B]
     eye = torch.eye(Kr, dtype=dtype, device=dev)
-    reg2 = lam / K                                              # reg_scale^2
+    if torch.is_tensor(lam):
+        # per row; lam / K in float64, then rounded once, as for a float
+        reg2 = (lam.to(torch.float64) / K).to(dtype)            # [B]
+        reg2_vec, reg2_mat = reg2[:, None], reg2[:, None, None]
+    else:
+        reg2 = reg2_vec = reg2_mat = lam / K                    # reg_scale^2
 
     def to_full(c_red):                                         # [B, Kr]
         c = torch.zeros((B, K), dtype=dtype, device=dev)
@@ -657,9 +679,9 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
 
     def solve_step(r, J, c, mu):
         Js = J * ds[:, None, None]
-        JtJ = torch.einsum('btj,btk->bjk', Js, Js) + reg2 * eye[None]
+        JtJ = torch.einsum('btj,btk->bjk', Js, Js) + reg2_mat * eye[None]
         rhs = -torch.einsum('btj,bt->bj', Js, r * ds[:, None]) \
-            - reg2 * (c - g_red)
+            - reg2_vec * (c - g_red)
         # solve_ex: no host sync for the error check; a non-finite row
         # yields a non-finite candidate, which the acceptance test rejects
         delta = torch.linalg.solve_ex(JtJ + mu[:, None, None] * eye[None],

@@ -37,6 +37,23 @@ of the method trained for all seeds as one seed-stacked fit) and logs one
 row per seed, marked ``'vectorized': True``; wsindy's tumor-family columns
 are skipped. ``--flush`` does not apply there, as in the JAX package.
 
+Around the runs, with the JAX package's semantics: ``--config FILE`` loads
+a YAML file of RunConfig fields (e.g. ``configs/ref_tuned.yaml``; needs
+PyYAML), which the other flags override only where given; ``--tune``
+tunes on the validation cohort (insite: the lam grid in one stacked
+fine-tune; the neural methods: ``--tune-trials`` trials of a seeded grid
+search, or successive halving with ``--tune-algo sha``); ``--cache`` keeps
+the collections on disk; ``--resume LOG`` reuses the completed runs of an
+earlier sweep's log; ``--isolate`` runs each run, or each ``--vectorized``
+column, in a fresh interpreter and implies ``--no-debug``. Every run
+writes its metrics to ``metrics_jsonl`` (``logs/metrics.jsonl``).
+
+    python -m insite_tpu_torch.run --device cpu --tune --datasets EQ_4_D \
+        --methods insite --seeds 1 --train-samples 40 --val-samples 4 \
+        --test-samples 4
+    python -m insite_tpu_torch.run --config configs/ref_tuned.yaml \
+        --methods crn --datasets EQ_4_D --seeds 1
+
 Each run logs an '[Exp evaluation complete] {...}' line into
 ``<log dir>/run-<timestamp>.txt`` (the results database, read back by
 `insite_tpu_torch.harness.results.rows_from_log`), and the LaTeX main
@@ -58,6 +75,9 @@ from insite_tpu_torch.harness.runner import (Experiment, sweep,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument('--config', default=None,
+                   help='YAML file of RunConfig fields (needs PyYAML; the '
+                        'flags below override it where given)')
     p.add_argument('--methods', nargs='+', default=None,
                    help='of sindy, wsindy, insite, msm, ct, crn, rmsn, '
                         'gnet, edct (default: all nine)')
@@ -76,9 +96,30 @@ def main(argv=None):
     p.add_argument('--no-debug', action='store_true',
                    help='turn a failing run into an errored row instead of '
                         'raising')
+    p.add_argument('--cache', action='store_true',
+                   help='keep dataset collections on disk '
+                        '($INSITE_TPU_TORCH_CACHE, default '
+                        '.insite_torch_cache)')
+    p.add_argument('--tune', action='store_true',
+                   help='tune on the validation cohort (insite: the lam '
+                        'grid in one fine-tune; neural: --tune-trials '
+                        'trials of a seeded search)')
+    p.add_argument('--tune-algo', choices=('grid', 'sha'), default=None,
+                   help='neural tuner: the seeded subsampled grid (default) '
+                        'or successive halving (small epoch budgets first, '
+                        'survivors promoted)')
+    p.add_argument('--tune-trials', type=int, default=None,
+                   help='neural tuning trials subsampled from the grid')
     p.add_argument('--vectorized', action='store_true',
                    help='run each (dataset, method) column of seeds as one '
                         'batch (all nine methods)')
+    p.add_argument('--isolate', action='store_true',
+                   help='run each run (or column) in a fresh interpreter, '
+                        'so a device-level failure cannot fail the rest of '
+                        'the sweep; implies --no-debug')
+    p.add_argument('--resume', default=None, metavar='LOG',
+                   help='reuse the completed runs of an earlier sweep log '
+                        'and run only the rest')
     p.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
                    help='"cuda": the kernels on the first card (an error '
                         'without one); "cpu": their plain PyTorch versions')
@@ -91,7 +132,9 @@ def main(argv=None):
     device = torch.device('cuda', 0) if args.device == 'cuda' else \
         torch.device('cpu')
 
-    cfg = RunConfig()
+    cfg = RunConfig.from_yaml(args.config) if args.config else RunConfig()
+    # a flag overrides the (possibly YAML-loaded) config only when given;
+    # store_true flags can only enable
     if args.methods:
         cfg.methods = tuple(args.methods)
     if args.datasets:
@@ -107,6 +150,20 @@ def main(argv=None):
         cfg.flush_mode = True
     if args.no_debug:
         cfg.debug_mode = False
+    if args.cache:
+        cfg.load_from_cache = True
+    if args.tune:
+        cfg.tune_hparams = True
+    if args.tune_trials is not None:
+        cfg.tune_trials = args.tune_trials
+    if args.tune_algo is not None:
+        cfg.tune_algo = args.tune_algo
+    if args.isolate:
+        cfg.isolate_runs = True
+        # a child's failure becomes an errored row, not the sweep's end
+        cfg.debug_mode = False
+    if args.resume:
+        cfg.resume_log = args.resume
 
     log_path = generate_log_file_path('run', cfg.log_dir)
     logger = create_logger_in_process(log_path)

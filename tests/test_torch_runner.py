@@ -2,11 +2,15 @@
 sweep through `python -m insite_tpu_torch.run` whose log the JAX parser
 reads, the LaTeX main table against the JAX package's text, msm rows and
 tiny INSIGHT sweeps against the JAX package's on handed-over cohorts (msm
-RMSEs equal to rtol 1e-12, sindy RMSEs to rtol 1e-8), the settings that
-still raise, and ct and crn served."""
+RMSEs equal to rtol 1e-12, sindy RMSEs to rtol 1e-8), the sweep harness's
+settings served, a method the JAX package lacks raising, and the neural
+baselines served."""
 
 import ast
 import copy
+import dataclasses
+import json
+import logging
 import math
 
 import jax.numpy as jnp
@@ -25,13 +29,14 @@ from insite_tpu.harness.runner import run_experiment as jax_run_experiment
 from insite_tpu.harness.runner import sweep as jax_sweep
 from insite_tpu_torch import convert, run
 from insite_tpu_torch.data.collection import SUBSETS
-from insite_tpu_torch.harness import runner
+from insite_tpu_torch.harness import runner, tuning
 from insite_tpu_torch.harness.config import RunConfig
 from insite_tpu_torch.harness.results import (ci, custom_format,
                                               generate_main_results_table,
                                               rows_from_log)
 
 TINY = dict(train_samples=40, val_samples=4, test_samples=2)
+F64 = dict(device='cpu', dtype=torch.float64)
 # the plain rollouts are thousands of small ops: intra-op threads only add
 # synchronisation, and across parallel test workers they oversubscribe the
 # cores (an order of magnitude slower on an 8-core host)
@@ -109,17 +114,18 @@ def test_ci_and_format():
     assert custom_format(0.0) == '0.00'
 
 
-# (change, what the error names; None: served); the first seven keep their
-# order
+# (change, what the error names; None: served; 'harness': a served setting
+# of the sweep harness, checked by `_check_harness_setting`); the first
+# seven keep their order
 LATER = [
-    (dict(tune_hparams=True), 'tune_hparams .Slice 7'),
-    (dict(load_from_cache=True), 'load_from_cache .Slice 7'),
-    (dict(resume_log='logs/run.txt'), 'resume_log=.* .Slice 7'),
-    (dict(isolate_runs=True), 'isolate_runs .Slice 7'),
-    (dict(metrics_jsonl='logs/metrics.jsonl'), 'metrics_jsonl=.* .Slice 7'),
+    (dict(tune_hparams=True), 'harness'),
+    (dict(load_from_cache=True), 'harness'),
+    (dict(resume_log='run.txt'), 'harness'),
+    (dict(isolate_runs=True), 'harness'),
+    (dict(metrics_jsonl='metrics.jsonl'), 'harness'),
     (dict(methods=('ct',)), None),
     (dict(methods=('wsindy',)), None),
-    (dict(force_recache=True), 'force_recache .Slice 7'),
+    (dict(force_recache=True), 'harness'),
     (dict(methods=('msm', 'crn')), None),
     (dict(methods=('rmsn',)), None),
     (dict(methods=('gnet',)), None),
@@ -127,14 +133,77 @@ LATER = [
     (dict(methods=('lstm',)), 'method lstm .not in the JAX package')]
 
 
+def _check_harness_setting(cfg, change, monkeypatch, tmp_path):
+    """The sweep with ``change`` serves it: a tuned lam on the insite row,
+    a collection read back from the cache (or, with force_recache, stored
+    without reading), the rows of a resumed log reused without a run, the
+    in-process row from a fresh interpreter, the run's two JSONL records."""
+    from insite_tpu_torch.harness import cache
+    monkeypatch.setattr(cache, 'CACHE_DIR', str(tmp_path / 'cache'))
+    monkeypatch.setenv('OMP_NUM_THREADS', '1')
+    made = []
+    real_make = runner.make_collection
+
+    def make_collection(*args, **kwargs):
+        made.append(args[0])
+        return real_make(*args, **kwargs)
+
+    monkeypatch.setattr(runner, 'make_collection', make_collection)
+    plain = dataclasses.replace(cfg, metrics_jsonl='')
+    cfg = dataclasses.replace(plain, **change)
+    name = next(iter(change))
+    if name == 'tune_hparams':
+        cfg.methods = ('sindy', 'insite')
+    if name == 'metrics_jsonl':
+        cfg.metrics_jsonl = str(tmp_path / 'metrics.jsonl')
+    if name == 'resume_log':
+        cfg.resume_log = str(tmp_path / 'run.txt')
+        log = logging.getLogger('later_resume')
+        log.addHandler(logging.FileHandler(cfg.resume_log))
+        log.setLevel(logging.INFO)
+        ref, _ = runner.sweep(plain, log=log, **F64)
+        made.clear()
+        rows, _ = runner.sweep(cfg, log=log, **F64)
+        assert rows == ref and made == []
+        return
+    rows, _ = runner.sweep(cfg, **F64)
+    assert [r['errored'] for r in rows] == [False] * len(cfg.methods)
+    if name == 'tune_hparams':
+        assert 'tuned_lam' not in rows[0]
+        assert list(rows[1])[0] == 'tuned_lam'
+        assert rows[1]['tuned_lam'] in tuning.INSITE_LAM_GRID
+    elif name in ('load_from_cache', 'force_recache'):
+        again, _ = runner.sweep(cfg, **F64)
+        assert made == ['EQ_4_A'] * (1 if name == 'load_from_cache' else 2)
+        assert [_no_time(r) for r in again] == [_no_time(r) for r in rows]
+        assert len(list((tmp_path / 'cache').glob('*.pkl'))) == 1
+    elif name == 'isolate_runs':
+        assert made == []           # the child made the collection
+        ref, _ = runner.sweep(plain, **F64)
+        assert [_no_time(r) for r in rows] == [_no_time(r) for r in ref]
+    else:
+        recs = [json.loads(line) for line in open(cfg.metrics_jsonl)]
+        assert [r['kind'] for r in recs] == ['params', 'metrics']
+        assert recs[1]['encoder_test_rmse_orig'] == \
+            rows[0]['encoder_test_rmse_orig']
+
+
+def _no_time(row):
+    return {k: v for k, v in row.items() if k != 'seconds_taken'}
+
+
 @pytest.mark.parametrize('change', [c for c, _ in LATER])
-def test_later_slices_raise(change):
-    """Settings and methods of later slices raise, each named with its
-    slice, from the sweep and from a single run; wsindy and the neural
-    baselines are served (2 epochs)."""
+def test_later_slices_raise(change, monkeypatch, tmp_path):
+    """The sweep harness's settings are served, each with its effect
+    (`_check_harness_setting`), wsindy and the neural baselines are served
+    (2 epochs), and a method the JAX package does not have raises, named,
+    from the sweep and from a single run."""
     named = dict((repr(c), n) for c, n in LATER)[repr(change)]
     cfg = RunConfig(methods=('sindy',), datasets=('EQ_4_A',), seed_runs=1,
                     **TINY)
+    if named == 'harness':
+        _check_harness_setting(cfg, change, monkeypatch, tmp_path)
+        return
     for k, v in change.items():
         setattr(cfg, k, v)
     if named is None:
@@ -159,16 +228,29 @@ def test_later_slices_raise(change):
 
 @pytest.mark.parametrize('experiment', [e for e in runner.Experiment
                                         if e != runner.Experiment.MAIN_TABLE])
-def test_other_experiments_raise(experiment):
-    """Every experiment other than the main table is served, and still
-    raises for a setting of a later slice, naming it."""
-    cfg = RunConfig(methods=('sindy', 'rmsn'), datasets=('EQ_4_A',),
-                    seed_runs=1, tune_hparams=True, **TINY)
-    with pytest.raises(NotImplementedError, match='tune_hparams .Slice 7'):
-        runner.sweep(cfg, experiment, device='cpu')
-    with pytest.raises(NotImplementedError, match='tune_hparams .Slice 7'):
-        runner.run_experiment('EQ_4_A', 'rmsn', 0, 2.0, cfg, experiment,
-                              device='cpu')
+def test_other_experiments_raise(experiment, monkeypatch):
+    """``tune_hparams`` is served in every experiment other than the main
+    table: insite's row carries the tuned lam, and a neural method's the
+    hparams of its one-point grid, both ahead of the test metrics, one row
+    each of the experiment's first setting."""
+    monkeypatch.setitem(tuning.NEURAL_HPARAM_GRIDS, 'rmsn',
+                        {'enc_lr': [0.001], 'dec_dropout': [0.1]})
+    cfg = RunConfig(methods=('insite', 'rmsn'), datasets=('EQ_4_A',),
+                    seed_runs=1, tune_hparams=True, tune_trials=1, epochs=1,
+                    domain_confs=(3,), noise_scales=(0.5,),
+                    train_sample_grid=(30,), metrics_jsonl='', **TINY)
+    rows, _ = runner.sweep(cfg, experiment, device='cpu',
+                           dtype=torch.float64)
+    assert [(r['method_name'], r['errored']) for r in rows] == [
+        ('insite', False), ('rmsn', False)]
+    insite, rnn = rows
+    assert list(insite)[0] == 'tuned_lam'
+    assert insite['tuned_lam'] in tuning.INSITE_LAM_GRID
+    assert list(rnn)[0] == 'tuned_hparams'
+    assert rnn['tuned_hparams'] == {'dec_dropout': 0.1, 'enc_lr': 0.001}
+    assert ast.literal_eval(repr(rnn)) == rnn
+    for r in rows:
+        assert np.isfinite(r['encoder_test_rmse_orig'])
 
 
 @pytest.mark.parametrize('experiment', [e for e in runner.Experiment

@@ -127,9 +127,9 @@ def test_empty_support_matches_jax(pristine):
     ('insite_solver', 'bfgs'), ('dataset_name', 'MIMIC'),
     ('rollout_backend', 'xla')])
 def test_later_slices_raise(field, value):
-    """What the estimator does not serve raises at construction; the weak
-    fit, the joint model and the degree-4 library are served (their parity
-    tests: test_torch_wsindy.py, test_torch_joint.py,
+    """What the estimator does not serve raises at construction, saying
+    why; the weak fit, the joint model and the degree-4 library are
+    served (their parity tests: test_torch_wsindy.py, test_torch_joint.py,
     test_torch_degree4.py)."""
     cfg = SINDyConfig(**{field: value})
     if field in ('wsindy', 'joint_model',
@@ -138,7 +138,12 @@ def test_later_slices_raise(field, value):
         assert getattr(model.cfg, field) is True
         assert model._n_arms == (1 if field == 'joint_model' else 2)
         return
-    with pytest.raises(NotImplementedError):
+    reason = {'insite_solver': 'BFGS fine-tune is ported only when a '
+                               'caller needs it',
+              'dataset_name': 'the JAX package serves no SINDy fit on '
+                              'real data',
+              'rollout_backend': 'device picks kernel or plain'}[field]
+    with pytest.raises(NotImplementedError, match=reason):
         SINDyRegressor(cfg, None, **F64)
 
 

@@ -324,8 +324,10 @@ def test_skipped_and_unported_columns(caplog):
     cfg.methods, cfg.datasets = ('ct',), ('EQ_9_X',)
     with pytest.raises(ValueError, match='unknown dataset EQ_9_X'):
         runner.vectorized_sweep(cfg, device='cpu')
+    # isolated, the column fails in its child, and the parent raises
     cfg.isolate_runs = True
-    with pytest.raises(NotImplementedError, match='isolate_runs .Slice 7c'):
+    with pytest.raises(RuntimeError,
+                       match=r'isolated column \(EQ_9_X, ct\) failed'):
         runner.vectorized_sweep(cfg, device='cpu')
 
 
