@@ -211,6 +211,26 @@ Phases, in order; any failure exits non-zero:
             2-seed `run_isolated_column`, and a failing isolated run
             raising, the children loading the library built in phase 2;
             (f) the sink holds 2 records a run.
+14. real    the real-data path at the reference's cohort size: a
+            `RealDatasetCollection` built on the card from an EQ_4_D cohort
+            (1,000 / 100 / 100, seq 60, gamma 2, multilabel) with a
+            fabricated 2-wide vitals stream (a numpy `RandomState`, no data
+            file); ct, crn, rmsn, gnet and edct fitted on it through their
+            normal API at their config widths, `REAL_EPOCHS` epochs: every
+            1-step and n-step RMSE finite, ct's and gnet's predictions
+            changed by zeroing the vitals, gnet's residual bank 1 + 2 wide,
+            crn's encoder keys holding ``vitals``, 0 + 0 launches; the five
+            f32 on the card against f32 on the host on a 200 / 10 / 10
+            vitals collection, as in phases 9-10 (ct's augmentation off:
+            its split draws come from each device's generator); ct's and
+            edct's encoder's attention maps on 256 test rows, [B, heads, T,
+            T], rows summing to 1 within 1e-4; a checkpoint of each of the
+            seven families (sindy-family insite and msm fitted on EQ_4_D
+            1,000 / 100 / 100) saved and loaded into a fresh estimator,
+            whose 1-step and n-step predictions equal the saved one's bit
+            for bit, the reloaded insite model's predict call on the EQ_4_D
+            1-step test set launching 1 + 13 kernels; each step's wall
+            printed.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -224,6 +244,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import types
 from time import perf_counter
 
 import numpy as np
@@ -687,6 +708,19 @@ VECTORIZED_SEED0_RTOL = 0.2
 # this relative tolerance
 TUNING_ROWS = 700
 TUNE_SCORE_RTOL = 1e-3
+# phase 14: the real-data path. The neural baselines fit on a
+# `RealDatasetCollection` of the reference's cohort size (an EQ_4_D cohort,
+# seq 60, gamma 2, multilabel) with a fabricated vitals stream, at the JAX
+# package's config widths, for `REAL_EPOCHS` epochs (the phase has ~90 s)
+REAL_METHODS = ('ct', 'crn', 'rmsn', 'gnet', 'edct')
+REAL_SIZES = {'train': 1000, 'val': 100, 'test': 100}
+REAL_SMALL_SIZES = {'train': 200, 'val': 10, 'test': 10}
+REAL_EPOCHS = 2
+REAL_DIM_VITALS = 2
+# attention maps of ct and edct's encoder on this many test rows, each row
+# a distribution within this
+ATTENTION_ROWS = 256
+ATTENTION_ROW_ATOL = 1e-4
 # repetitions of a plain version in phase 3's call timing (each takes
 # 0.1-0.3 s; the kernels take 20)
 PLAIN_REPS = 5
@@ -1890,29 +1924,32 @@ def neural_networks(model):
     return [model.net]                                      # ct, gnet
 
 
-def check_neural_card_against_host(device, methods):
+def check_neural_card_against_host(device, methods, base=None,
+                                   overrides=None):
     """``methods`` f32 on the card against f32 on the host, on one EQ_4_D
-    collection (200 / 10 / 10), each built by the runner: the same initial
-    weights (one seed builds them on the host, whatever the device;
-    checked bitwise), dropout 0, one batch per epoch in every stage (the
-    shuffle then only reorders a sum; `NEURAL_ONE_BATCH`), 3 epochs; the
-    1-step predictions (crn, edct: the encoder's; rmsn: its encoder's) and
-    the n-step ones (decoders on rows started from each side's own
-    encoder; gnet: the Monte-Carlo rollouts with the residual noise of
-    each side's own holdout fit, drawn by numpy alike) within
-    `NEURAL_CARD_RTOL`."""
+    collection (200 / 10 / 10, or ``base``), each built by the runner: the
+    same initial weights (one seed builds them on the host, whatever the
+    device; checked bitwise), dropout 0, one batch per epoch in every stage
+    (the shuffle then only reorders a sum; `NEURAL_ONE_BATCH`, updated by
+    ``overrides``), 3 epochs; the 1-step predictions (crn, edct: the
+    encoder's; rmsn: its encoder's) and the n-step ones (decoders on rows
+    started from each side's own encoder; gnet: the Monte-Carlo rollouts
+    with the residual noise of each side's own holdout fit, drawn by numpy
+    alike) within `NEURAL_CARD_RTOL`."""
     import copy
 
     import torch
     from insite_tpu_torch.data.collection import make_collection
     from insite_tpu_torch.harness import runner
     from insite_tpu_torch.harness.config import RunConfig
-    base = make_collection('EQ_4_D', {'train': 200, 'val': 10, 'test': 10},
-                           seed=7, coeff=2.0, device=device,
-                           treatment_mode='multilabel')
+    if base is None:
+        base = make_collection('EQ_4_D', {'train': 200, 'val': 10,
+                                          'test': 10}, seed=7, coeff=2.0,
+                               device=device, treatment_mode='multilabel')
     for method in methods:
-        cfg = RunConfig(epochs=3,
-                        model_overrides={method: NEURAL_ONE_BATCH[method]})
+        fields = {**NEURAL_ONE_BATCH[method],
+                  **(overrides or {}).get(method, {})}
+        cfg = RunConfig(epochs=3, model_overrides={method: fields})
         models = {}
         for tag, dev in (('host', torch.device('cpu')), ('card', device)):
             coll = copy.deepcopy(base)
@@ -2542,6 +2579,205 @@ def run_harness(device):
             raise AssertionError(f'{len(recs)} sink records for {runs} runs')
     return tuned, tune_call, walls
 
+# ---------------------------------------------------------------------------
+# phase 14: the real-data path
+
+
+def add_vitals(ds, seed):
+    """A fabricated vitals stream for a processed dataset, as the JAX
+    package's tests make it (`tests/test_vitals.py::_add_vitals`): a lagged
+    function of the outcome plus noise from ``RandomState(seed)``, masked by
+    activity, `REAL_DIM_VITALS` wide; ``next_vitals`` one step shorter."""
+    rng = np.random.RandomState(seed)
+    po = ds.data['prev_outputs']
+    n, T, _ = po.shape
+    base = np.concatenate([0.5 * po, -0.25 * po + 0.1], axis=-1)
+    vit = (base + 0.05 * rng.randn(n, T, REAL_DIM_VITALS)) * \
+        ds.data['active_entries']
+    ds.data['vitals'] = vit
+    ds.data['next_vitals'] = vit[:, 1:]
+    return ds
+
+
+def real_collection(device, num_patients, seed=0):
+    """A `RealDatasetCollection` with a vitals stream: an EQ_4_D cohort
+    (gamma 2, multilabel, seq 60) simulated on ``device`` and processed,
+    its train and val sets and a copy of its val set as test_f, each with
+    fabricated vitals (no data file)."""
+    import copy
+
+    from insite_tpu_torch.data.collection import (PkpdDatasetCollection,
+                                                  RealDatasetCollection)
+    coll = PkpdDatasetCollection(2.0, dict(num_patients), 'EQ_4_D', seed,
+                                 treatment_mode='multilabel', device=device)
+    coll.process_data_encoder()
+    return RealDatasetCollection(
+        add_vitals(coll.train_f, 0), add_vitals(coll.val_f, 1),
+        add_vitals(copy.deepcopy(coll.val_f), 2), projection_horizon=5,
+        treatment_mode='multilabel', seed=seed)
+
+
+def zeroed_vitals(ds):
+    import copy
+    out = copy.deepcopy(ds)
+    out.data['vitals'] = np.zeros_like(out.data['vitals'])
+    return out
+
+
+def check_attention_maps(name, maps, rows, heads, T):
+    """Each map [rows, heads, T, T], every row summing to 1 within
+    `ATTENTION_ROW_ATOL`; logs the largest gap."""
+    if not maps:
+        raise AssertionError(f'{name}: no attention map')
+    worst = 0.0
+    for path, m in maps.items():
+        if m.shape != (rows, heads, T, T):
+            raise AssertionError(f'{name} {path}: map {m.shape}, expected '
+                                 f'{(rows, heads, T, T)}')
+        gap = float(np.max(np.abs(m.sum(-1) - 1.0)))
+        if not gap <= ATTENTION_ROW_ATOL:
+            raise AssertionError(f'{name} {path}: rows sum to 1 within '
+                                 f'{gap}')
+        worst = max(worst, gap)
+    log(f'  {name}: {len(maps)} maps {m.shape}, rows sum to 1 within '
+        f'{worst:.3e} (limit {ATTENTION_ROW_ATOL}): {sorted(maps)}')
+
+
+def run_real_data(device):
+    """Phase 14: ct, crn, rmsn, gnet and edct on a full-width
+    `RealDatasetCollection` with a vitals stream on the card, through
+    their normal API; card against host on a small one; attention maps;
+    a checkpoint round trip of each of the seven families. Returns (the
+    fits' launches, the reloaded insite model's launches on its predict
+    call, the wall of each step)."""
+    import copy
+    import torch
+    from insite_tpu_torch.harness import checkpoint, runner
+    from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch.ops import rollout
+    walls = {}
+
+    def step(name, t0):
+        torch.cuda.synchronize(device)
+        walls[name] = perf_counter() - t0
+        log(f'[real] {name}: {walls[name]:.4f} s')
+
+    t0 = perf_counter()
+    base = real_collection(device, REAL_SIZES)
+    T = base.train_f.data['outputs'].shape[1]
+    log(f'[real] RealDatasetCollection {REAL_SIZES}, seq {T + 1}, vitals '
+        f'{REAL_DIM_VITALS} wide; has_vitals={base.has_vitals}')
+    step('collection', t0)
+    # the attention maps' rows: the first of the exploded factual test
+    # trajectories (vitals and all steps)
+    exploded = copy.deepcopy(base.test_f)
+    exploded.explode_trajectories(base.projection_horizon)
+    maps_rows = types.SimpleNamespace(data={
+        k: v[:ATTENTION_ROWS] for k, v in exploded.data.items()})
+
+    cfg = RunConfig(epochs=REAL_EPOCHS)
+    fitted = {}
+    rollout.reset_launch_counts()
+    for method in REAL_METHODS:
+        t0 = perf_counter()
+        coll = copy.deepcopy(base)
+        model = runner._build_model(method, 'EQ_4_D', coll, cfg,
+                                    device=device)
+        model.fit(coll.train_f, coll.val_f)
+        one = model.get_normalised_masked_rmse(coll.test_cf_one_step)
+        n_step = model.get_normalised_n_step_rmses(
+            coll.test_cf_treatment_seq)
+        rmses = np.array(list(one) + list(n_step), np.float64)
+        log(f'  {method}: 1-step (orig, all) {one}, 2..6-step {n_step}')
+        if not np.isfinite(rmses).all():
+            raise AssertionError(f'{method} on vitals: RMSEs {rmses}')
+        if method in ('ct', 'gnet'):
+            test = coll.test_cf_one_step
+            if np.allclose(model.get_predictions(test),
+                           model.get_predictions(zeroed_vitals(test))):
+                raise AssertionError(f'{method}: zeroing the vitals left '
+                                     'its predictions unchanged')
+        if method == 'gnet' and \
+                model.holdout_resid.shape[-1] != 1 + REAL_DIM_VITALS:
+            raise AssertionError(f'gnet residual bank '
+                                 f'{model.holdout_resid.shape}')
+        if method == 'crn' and 'vitals' not in model.encoder.keys:
+            raise AssertionError(f'crn encoder keys {model.encoder.keys}')
+        if method == 'ct':
+            check_attention_maps('ct', model.get_attention_maps(maps_rows),
+                                 ATTENTION_ROWS, model.cfg.num_heads, T)
+        if method == 'edct':
+            check_attention_maps(
+                'edct encoder', model.encoder.get_attention_maps(maps_rows),
+                ATTENTION_ROWS, model.cfg.num_heads, T)
+        fitted[method] = (model, coll)
+        step(f'{method} fit + RMSEs', t0)
+    launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                'sens': rollout.SENS_LAUNCHES}
+    log(f'[real] kernel launches of the five fits: {launches}')
+    if launches != {'rollout': 0, 'sens': 0}:
+        raise AssertionError(f'the real-data fits launched kernels: '
+                             f'{launches}')
+
+    t0 = perf_counter()
+    log('[real] card f32 against host f32, a RealDatasetCollection (200 / '
+        '10 / 10), 3 epochs, ct augmentation off')
+    check_neural_card_against_host(
+        device, REAL_METHODS, base=real_collection(device, REAL_SMALL_SIZES),
+        overrides={'ct': {'augment_with_masked_vitals': False}})
+    step('card against host', t0)
+
+    t0 = perf_counter()
+    sindy_coll = runner._collection_for('EQ_4_D', 'insite', 0, 2.0,
+                                        RunConfig(), device=device)
+    insite = runner._build_model('insite', 'EQ_4_D', sindy_coll,
+                                 RunConfig(), device=device)
+    insite.fit(sindy_coll.train_f)
+    fitted['insite'] = (insite, sindy_coll)
+    msm_coll = runner._collection_for('EQ_4_D', 'msm', 0, 2.0, RunConfig(),
+                                      device=device)
+    msm = runner._build_model('msm', 'EQ_4_D', msm_coll, RunConfig(),
+                              device=device)
+    msm.fit(msm_coll.train_f)
+    fitted['msm'] = (msm, msm_coll)
+    step('insite and msm fits', t0)
+
+    t0 = perf_counter()
+    reload_launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (model, coll) in fitted.items():
+            method_cfg = cfg if name in REAL_METHODS else RunConfig()
+            fresh = runner._build_model(name, 'EQ_4_D', coll, method_cfg,
+                                        device=device)
+            n_step = (coll.test_cf_treatment_seq_mc if name == 'gnet'
+                      else coll.test_cf_treatment_seq)
+            want = (model.get_predictions(coll.test_cf_one_step),
+                    model.get_autoregressive_predictions(n_step))
+            checkpoint.load_model(fresh, checkpoint.save_model(
+                model, f'{tmp}/{name}'))
+            rollout.reset_launch_counts()
+            got_one = fresh.get_predictions(coll.test_cf_one_step)
+            if name == 'insite':
+                reload_launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                                   'sens': rollout.SENS_LAUNCHES}
+            got = (got_one, fresh.get_autoregressive_predictions(n_step))
+            for what, g, w in zip(('1-step', 'n-step'), got, want):
+                if g.shape != w.shape or not np.array_equal(g, w):
+                    raise AssertionError(f'{name} reloaded: {what} '
+                                         'predictions differ')
+            log(f'  {type(model).__name__} ({name}): saved, reloaded, 1-step '
+                f'{got[0].shape} and n-step {got[1].shape} predictions '
+                'bitwise equal')
+    rows = len(sindy_coll.test_cf_one_step.data['prev_outputs'])
+    log(f'[real] reloaded insite, predict on the EQ_4_D 1-step test set '
+        f'(B={rows}): launches {reload_launches}')
+    if reload_launches != {'rollout': 1, 'sens': GN_ITERS + 1}:
+        raise AssertionError(f'the reloaded insite model launched '
+                             f'{reload_launches}, expected 1 + '
+                             f'{GN_ITERS + 1}')
+    step('checkpoints', t0)
+    return launches, reload_launches, walls
+
 
 def main():
     import torch
@@ -2742,6 +2978,12 @@ def main():
     log(f'[harness] phase 13 wall {perf_counter() - t13:.4f} s; by step '
         f'{json.dumps(harness_walls)}')
 
+    # 14. the real-data path: vitals, attention maps, checkpoints
+    t14 = perf_counter()
+    real_launches, reload_launches, real_walls = run_real_data(device)
+    log(f'[real] phase 14 wall {perf_counter() - t14:.4f} s; by step '
+        f'{json.dumps(real_walls)}')
+
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
@@ -2777,6 +3019,10 @@ def main():
             # the lam tune), and one tuning call alone
             'launches_tuning': tuned_launches[key],
             'launches_tuning_call': tune_call[key],
+            # the five neural fits on a vitals collection, and a reloaded
+            # insite checkpoint's predict call on the EQ_4_D 1-step set
+            'launches_real_data': real_launches[key],
+            'launches_checkpoint_insite_predict': reload_launches[key],
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

@@ -2,7 +2,8 @@
 test_cf_one_step, test_cf_treatment_seq) and the processing entry points of
 the methods (multi-input: the ODE family, MSM and CT; encoder and decoder:
 the sequence-to-sequence baselines), for the EQ_4 family and the tumor
-family (cancer_sim and EQ_5)."""
+family (cancer_sim and EQ_5), and the factual-only collection of
+observational data (`RealDatasetCollection`)."""
 
 from __future__ import annotations
 
@@ -131,6 +132,65 @@ class DatasetCollection:
         if not hasattr(self, 'test_cf_treatment_seq_mc'):
             self.test_cf_treatment_seq_mc = \
                 [self.test_cf_treatment_seq] * mc_samples
+
+
+class RealDatasetCollection(DatasetCollection):
+    """The factual-only collection of observational data (no
+    counterfactual ground truth; an EHR cohort, for example): train_f,
+    val_f and test_f, `SeqDataset`s already processed, with a vitals
+    stream where train_f carries ``vitals`` (``has_vitals``). Both test
+    views are the factual test set: ``test_cf_one_step`` is ``test_f``, and
+    ``test_cf_treatment_seq`` is made from an exploded copy of it by
+    `process_data_multi` or `process_data_decoder`."""
+
+    def __init__(self, train_f: SeqDataset, val_f: SeqDataset,
+                 test_f: SeqDataset, projection_horizon: int = 5,
+                 treatment_mode: str = 'multiclass', seed: int = 0):
+        super().__init__()
+        self.train_f, self.val_f, self.test_f = train_f, val_f, test_f
+        self.has_vitals = 'vitals' in train_f.data
+        self.test_cf_one_step = test_f
+        self.test_cf_treatment_seq = None
+        self.projection_horizon = projection_horizon
+        self.treatment_mode = treatment_mode
+        self.seed = seed
+
+    def _process(self, ds: SeqDataset, include_continuous_treatment=False):
+        if not ds.processed:
+            raise ValueError('RealDatasetCollection takes processed '
+                             'SeqDatasets (the unified keys built)')
+
+    def process_data_multi(self, include_continuous_treatment=False):
+        """CT's and G-Net's processing: the n-step rows are the exploded
+        factual test trajectories, with their rolling origin
+        (``test_f_multi``, also ``test_cf_treatment_seq``)."""
+        self.test_f_multi = deepcopy(self.test_f)
+        self.test_f_multi.explode_trajectories(self.projection_horizon)
+        self.test_f_multi.process_sequential_test(self.projection_horizon)
+        self.test_f_multi.process_sequential_multi(self.projection_horizon)
+        self.test_cf_treatment_seq = self.test_f_multi
+        self.processed_data_multi = True
+
+    def process_data_decoder(self, encoder, save_encoder_r=False):
+        """A decoder's processing (CRN, RMSN, EDCT) on an exploded copy of
+        test_f, which becomes ``test_cf_treatment_seq``: test_f itself
+        stays the raw factual rows of the encoder's 1-step RMSE."""
+        test_seq = deepcopy(self.test_f)
+        test_seq.explode_trajectories(self.projection_horizon)
+        r_train = encoder.get_representations(self.train_f)
+        r_val = encoder.get_representations(self.val_f)
+        r_test = encoder.get_representations(test_seq)
+        out_test = encoder.get_predictions(test_seq)
+        self.train_f.process_sequential(r_train, self.projection_horizon,
+                                        save_encoder_r)
+        self.val_f.process_sequential(r_val, self.projection_horizon,
+                                      save_encoder_r)
+        test_seq.process_sequential_test(self.projection_horizon, r_test,
+                                         save_encoder_r)
+        test_seq.process_autoregressive_test(
+            r_test, out_test, self.projection_horizon, save_encoder_r)
+        self.test_cf_treatment_seq = test_seq
+        self.processed_data_decoder = True
 
 
 class PkpdDatasetCollection(DatasetCollection):

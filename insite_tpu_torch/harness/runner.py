@@ -18,9 +18,11 @@ of the validation cohort) and the three robustness sweeps on the EQ_4
 family, INSIGHT_CONFOUNDING (gamma over ``cfg.domain_confs`` on EQ_4_D),
 INSIGHT_NOISE (the observation-noise scale over ``cfg.noise_scales`` on
 EQ_4_B) and INSIGHT_LESS_SAMPLES (the training cohort over
-``cfg.train_sample_grid`` on EQ_4_D). Collections with a vitals stream
-raise `NotImplementedError` naming the slice of ROADMAP.md that brings
-them; a method the JAX package does not have raises it too.
+``cfg.train_sample_grid`` on EQ_4_D). A method the JAX package does not
+have raises `NotImplementedError`. A collection with a vitals stream (a
+`RealDatasetCollection`, which no entry point builds) gives ct and gnet
+their ``dim_vitals``; crn, rmsn and edct take its width from the
+collection.
 
 Around the runs, as in the JAX package: ``tune_hparams`` tunes on the
 validation cohort before the test metrics (`harness/tuning.py`: insite's
@@ -62,7 +64,6 @@ from insite_tpu_torch.harness.metrics_logger import MetricsLogger
 from insite_tpu_torch.harness.results import (generate_main_results_table,
                                               rows_from_log)
 from insite_tpu_torch.models import crn, ct, edct, gnet, rmsn
-from insite_tpu_torch.models.base import VITALS_NOT_PORTED
 
 logger = logging.getLogger('insite_tpu_torch')
 
@@ -173,15 +174,15 @@ def _apply_model_overrides(mcfg, cfg: RunConfig, method_name: str,
 
 
 def _dims_from_collection(coll, with_vitals=False) -> dict:
-    """The model-config dimensions a processed collection gives. With
-    ``with_vitals`` a vitals stream would add ``dim_vitals``; it is not
-    ported yet and raises."""
+    """The model-config dimensions a processed collection gives; with
+    ``with_vitals``, also ``dim_vitals`` where it has a vitals stream."""
     d = coll.train_f.data
-    if with_vitals and 'vitals' in d:
-        raise NotImplementedError(VITALS_NOT_PORTED)
-    return dict(dim_outcome=d['outputs'].shape[-1],
+    dims = dict(dim_outcome=d['outputs'].shape[-1],
                 dim_treatments=d['current_treatments'].shape[-1],
                 dim_static_features=d['static_features'].shape[-1])
+    if with_vitals and 'vitals' in d:
+        dims['dim_vitals'] = d['vitals'].shape[-1]
+    return dims
 
 
 def _build_model(method_name, dataset_name, coll, cfg: RunConfig,

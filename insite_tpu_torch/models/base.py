@@ -8,8 +8,16 @@ from insite_tpu_torch.eval.metrics import (normalised_masked_rmse,
                                            normalised_n_step_rmses)
 
 
-VITALS_NOT_PORTED = ('the vitals stream of the neural baselines is not '
-                     'ported yet (ROADMAP.md, Slice 6c)')
+def collection_vitals_width(collection) -> int:
+    """The width of a collection's vitals stream (0 without one), read
+    from its training rows, or from the rows they were before a decoder's
+    processing replaced them."""
+    if not getattr(collection, 'has_vitals', False):
+        return 0
+    train_f = collection.train_f
+    data = train_f.data if 'vitals' in train_f.data else \
+        train_f.data_original
+    return data['vitals'].shape[-1]
 
 
 class CausalEstimator:

@@ -2,7 +2,10 @@
 each a variational LSTM with a balanced-representation head, in the meaning
 of `insite_tpu.models.crn`.
 
-The encoder fits one-step-ahead on the factual training rows. The
+The encoder fits one-step-ahead on the factual training rows, and takes a
+collection's vitals stream, where it has one, between the previous
+treatments and outputs (the width from the collection, as the JAX package
+infers it from the data). The
 collection's decoder processing then starts every rolling-origin row from
 the encoder's representation, and the decoder fits on those rows (seed + 1).
 n-step predictions decode step by step, each prediction becoming the next
@@ -19,7 +22,8 @@ import torch
 from torch import nn
 
 from insite_tpu_torch.core.dtypes import resolve_float
-from insite_tpu_torch.models.base import CausalEstimator, VITALS_NOT_PORTED
+from insite_tpu_torch.models.base import (CausalEstimator,
+                                         collection_vitals_width)
 from insite_tpu_torch.models.nn.blocks import (BRTreatmentOutcomeHead,
                                                VariationalLSTM)
 from insite_tpu_torch.models.nn.training import (
@@ -60,20 +64,21 @@ class CRNConfig:
 
 
 class CRNSubNetwork(nn.Module):
-    """One CRN stage: the LSTM over [prev_treatments, prev_outputs,
-    static_features] (the statics repeated along time), started from
-    ``batch['init_state']`` with ``use_init_state``, and the
-    balanced-representation head."""
+    """One CRN stage: the LSTM over [prev_treatments, vitals (with
+    ``dim_vitals``), prev_outputs, static_features] (the statics repeated
+    along time), started from ``batch['init_state']`` with
+    ``use_init_state``, and the balanced-representation head."""
 
     def __init__(self, seq_hidden_units, br_size, fc_hidden_units,
                  dim_treatments, dim_outcome, dim_static_features,
-                 dropout_rate, num_layer, balancing, use_init_state=False, *,
-                 device=None, dtype=None):
+                 dropout_rate, num_layer, balancing, use_init_state=False,
+                 dim_vitals=0, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.use_init_state = use_init_state
+        self.has_vitals = dim_vitals > 0
         self.lstm = VariationalLSTM(
-            dim_treatments + dim_outcome + dim_static_features,
+            dim_treatments + dim_vitals + dim_outcome + dim_static_features,
             seq_hidden_units, num_layer, dropout_rate, **kw)
         self.br_treatment_outcome_head = BRTreatmentOutcomeHead(
             seq_hidden_units, br_size, fc_hidden_units, dim_treatments,
@@ -83,8 +88,10 @@ class CRNSubNetwork(nn.Module):
         # with the representation detached, only the treatment classifier
         # takes gradients: the LSTM needs no graph
         with torch.no_grad() if detach_treatment else nullcontext():
-            x = torch.cat([batch['prev_treatments'], batch['prev_outputs']],
-                          dim=-1)
+            parts = [batch['prev_treatments']]
+            if self.has_vitals:
+                parts.append(batch['vitals'])
+            x = torch.cat(parts + [batch['prev_outputs']], dim=-1)
             statics = batch['static_features'][:, None, :].expand(
                 -1, x.shape[1], -1)
             x = torch.cat([x, statics], dim=-1)
@@ -95,13 +102,15 @@ class CRNSubNetwork(nn.Module):
             h, batch['current_treatments'], alpha, detach_treatment)
 
 
-def encoder_network(cfg: CRNConfig, dtype=None) -> CRNSubNetwork:
-    """The encoder stage's network, on the host."""
+def encoder_network(cfg: CRNConfig, dtype=None,
+                    dim_vitals=0) -> CRNSubNetwork:
+    """The encoder stage's network (over a vitals stream of
+    ``dim_vitals``), on the host."""
     return CRNSubNetwork(cfg.enc_seq_hidden_units, cfg.enc_br_size,
                          cfg.enc_fc_hidden_units, cfg.dim_treatments,
                          cfg.dim_outcome, cfg.dim_static_features,
                          cfg.enc_dropout_rate, cfg.num_layer, cfg.balancing,
-                         False, dtype=dtype)
+                         False, dim_vitals, dtype=dtype)
 
 
 def decoder_network(cfg: CRNConfig, dtype=None) -> CRNSubNetwork:
@@ -127,24 +136,25 @@ class CRN(CausalEstimator):
     Both networks are built when the estimator is, with PyTorch's init
     drawn from ``cfg.seed`` (the encoder) and ``cfg.seed + 1`` (the
     decoder), as their training is (`seeded_net`); `fit` trains whatever
-    parameters they hold then."""
+    parameters they hold then. The encoder takes the collection's vitals
+    stream where it has one; the decoder never does."""
 
     def __init__(self, cfg: CRNConfig, dataset_collection, *, device,
                  dtype=None):
-        if getattr(dataset_collection, 'has_vitals', False):
-            raise NotImplementedError(VITALS_NOT_PORTED)
         self.cfg = cfg
         self.collection = dataset_collection
         self.device = device = torch.device(device)
         self.dtype = dtype = resolve_float(dtype)
         kw = dict(device=device, dtype=dtype)
-        enc_net = seeded_net(cfg.seed, lambda: encoder_network(cfg, dtype),
-                             device)
+        dim_vitals = collection_vitals_width(dataset_collection)
+        vit = ('vitals',) if dim_vitals else ()
+        enc_net = seeded_net(cfg.seed, lambda: encoder_network(
+            cfg, dtype, dim_vitals), device)
         dec_net = seeded_net(cfg.seed + 1,
                              lambda: decoder_network(cfg, dtype), device)
         enc_tc, dec_tc = encoder_decoder_train_configs(cfg)
-        self.encoder = BRStage(enc_net, enc_tc, cfg.seed, ENC_KEYS, ENC_IN,
-                               **kw)
+        self.encoder = BRStage(enc_net, enc_tc, cfg.seed, ENC_KEYS + vit,
+                               ENC_IN + vit, **kw)
         self.decoder = BRStage(dec_net, dec_tc, cfg.seed + 1, DEC_KEYS,
                                DEC_IN, **kw)
         if not dataset_collection.processed_data_encoder:

@@ -4,7 +4,9 @@ and a transformer decoder with causal self-attention and attention, not
 causal, over the encoder's balanced representations, each with a
 balanced-representation head and trained by `fit_br_model`.
 
-The pipeline is CRN's: the encoder fits one-step-ahead (seed), the
+The encoder takes a collection's vitals stream, where it has one, between
+the previous treatments and outputs; the decoder never does. The pipeline
+is CRN's: the encoder fits one-step-ahead (seed), the
 collection's decoder processing keeps the encoder's representations of
 every row (``save_encoder_r``), each rolling-origin row takes those of its
 patient (``original_index``), the decoder fits (seed + 1), and n-step
@@ -21,7 +23,8 @@ import torch
 from torch import nn
 
 from insite_tpu_torch.core.dtypes import resolve_float
-from insite_tpu_torch.models.base import CausalEstimator, VITALS_NOT_PORTED
+from insite_tpu_torch.models.base import (CausalEstimator,
+                                         collection_vitals_width)
 from insite_tpu_torch.models.nn.blocks import (BRTreatmentOutcomeHead,
                                                RelativePositionalEncoding,
                                                TransformerDecoderBlock,
@@ -64,29 +67,36 @@ class EDCTConfig:
     seed: int = 0
 
 
-def _input_features(batch):
-    """[prev_treatments, prev_outputs, statics], the statics repeated along
-    time."""
-    x = torch.cat([batch['prev_treatments'], batch['prev_outputs']], dim=-1)
+def _input_features(batch, has_vitals=False):
+    """[prev_treatments, vitals (with ``has_vitals``), prev_outputs,
+    statics], the statics repeated along time."""
+    parts = [batch['prev_treatments']]
+    if has_vitals:
+        parts.append(batch['vitals'])
+    x = torch.cat(parts + [batch['prev_outputs']], dim=-1)
     statics = batch['static_features'][:, None, :].expand(-1, x.shape[1], -1)
     return torch.cat([x, statics], dim=-1)
 
 
 class _EDCTNetwork(nn.Module):
-    """The parts both networks share: the ``input`` projection to
-    ``d_model``, one relative-position k and one v table for the
+    """The parts both networks share: the ``input`` projection (of the
+    features and ``dim_vitals`` vitals) to ``d_model``, one
+    relative-position k and one v table for the
     self-attention of every block (``self_pe_k``, ``self_pe_v``),
     ``num_layer`` blocks (``block_{i}``) and the balanced-representation
     head of width ``br_size``."""
 
     def __init__(self, cfg: EDCTConfig, d_model, br_size, fc_hidden_units,
-                 dropout_rate, block_cls, *, device=None, dtype=None):
+                 dropout_rate, block_cls, dim_vitals=0, *, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         head_size = d_model // cfg.num_heads
         self.dropout_rate = dropout_rate
-        self.input = nn.Linear(cfg.dim_treatments + cfg.dim_outcome +
-                               cfg.dim_static_features, d_model, **kw)
+        self.has_vitals = dim_vitals > 0
+        self.input = nn.Linear(cfg.dim_treatments + dim_vitals +
+                               cfg.dim_outcome + cfg.dim_static_features,
+                               d_model, **kw)
         self.self_pe_k = RelativePositionalEncoding(
             cfg.max_relative_position, head_size, **kw)
         self.self_pe_v = RelativePositionalEncoding(
@@ -109,7 +119,8 @@ class _EDCTNetwork(nn.Module):
         # with the representation detached, only the treatment classifier
         # takes gradients: the blocks need no graph
         with torch.no_grad() if detach_treatment else nullcontext():
-            x = self._blocks(self.input(_input_features(batch)), batch, gen)
+            x = self._blocks(self.input(_input_features(
+                batch, self.has_vitals)), batch, gen)
             x = dropout(x, self.dropout_rate, gen)
         return self.br_treatment_outcome_head(
             x, batch['current_treatments'], alpha, detach_treatment)
@@ -117,12 +128,14 @@ class _EDCTNetwork(nn.Module):
 
 class EDCTEncoderNetwork(_EDCTNetwork):
     """The encoder: causal self-attention blocks over the factual
-    history."""
+    history (and a vitals stream of ``dim_vitals``)."""
 
-    def __init__(self, cfg: EDCTConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: EDCTConfig, dim_vitals=0, *, device=None,
+                 dtype=None):
         super().__init__(cfg, cfg.enc_seq_hidden_units, cfg.enc_br_size,
                          cfg.enc_fc_hidden_units, cfg.enc_dropout_rate,
-                         TransformerEncoderBlock, device=device, dtype=dtype)
+                         TransformerEncoderBlock, dim_vitals, device=device,
+                         dtype=dtype)
 
     def _blocks(self, x, batch, gen):
         T = x.shape[1]
@@ -159,8 +172,9 @@ class EDCTDecoderNetwork(_EDCTNetwork):
         return x
 
 
-def encoder_network(cfg: EDCTConfig, dtype=None) -> EDCTEncoderNetwork:
-    return EDCTEncoderNetwork(cfg, dtype=dtype)
+def encoder_network(cfg: EDCTConfig, dtype=None,
+                    dim_vitals=0) -> EDCTEncoderNetwork:
+    return EDCTEncoderNetwork(cfg, dim_vitals, dtype=dtype)
 
 
 def decoder_network(cfg: EDCTConfig, dtype=None) -> EDCTDecoderNetwork:
@@ -179,24 +193,25 @@ class EDCT(CausalEstimator):
     """The two-stage EDCT on ``device`` in ``dtype`` (float32 unless
     named). Both networks are built when the estimator is, with PyTorch's
     init drawn from ``cfg.seed`` (the encoder) and ``cfg.seed + 1`` (the
-    decoder), as their training is (`seeded_net`)."""
+    decoder), as their training is (`seeded_net`). The encoder takes the
+    collection's vitals stream where it has one."""
 
     def __init__(self, cfg: EDCTConfig, dataset_collection, *, device,
                  dtype=None):
-        if getattr(dataset_collection, 'has_vitals', False):
-            raise NotImplementedError(VITALS_NOT_PORTED)
         self.cfg = cfg
         self.collection = dataset_collection
         self.device = device = torch.device(device)
         self.dtype = dtype = resolve_float(dtype)
         kw = dict(device=device, dtype=dtype)
-        enc_net = seeded_net(cfg.seed, lambda: encoder_network(cfg, dtype),
-                             device)
+        dim_vitals = collection_vitals_width(dataset_collection)
+        vit = ('vitals',) if dim_vitals else ()
+        enc_net = seeded_net(cfg.seed, lambda: encoder_network(
+            cfg, dtype, dim_vitals), device)
         dec_net = seeded_net(cfg.seed + 1,
                              lambda: decoder_network(cfg, dtype), device)
         enc_tc, dec_tc = encoder_decoder_train_configs(cfg)
-        self.encoder = BRStage(enc_net, enc_tc, cfg.seed, ENC_KEYS, ENC_IN,
-                               **kw)
+        self.encoder = BRStage(enc_net, enc_tc, cfg.seed, ENC_KEYS + vit,
+                               ENC_IN + vit, **kw)
         self.decoder = BRStage(dec_net, dec_tc, cfg.seed + 1, DEC_KEYS,
                                DEC_IN, **kw)
         if not dataset_collection.processed_data_encoder:

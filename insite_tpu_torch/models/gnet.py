@@ -11,6 +11,13 @@ at ``split - 1 + t``, adds the residual of a drawn holdout row at that step
 predictions of passes 1..ph are averaged over the samples. The residual
 rows are drawn from ``np.random.RandomState(seed)`` in the JAX package's
 order, so both packages draw the same rows.
+
+With ``dim_vitals`` > 0 (a real-data collection's vitals stream) the
+features take the vitals after the treatments, the heads predict the
+outcome and then the next vitals, the loss adds the vitals' masked MSE
+against ``next_vitals`` (one step shorter) with ``fit_vitals``, the
+residual bank holds (outcome, next vitals) residuals over lengths - 1, and
+each rollout pass writes its noisy next vitals beside the outcome.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import torch
 from torch import nn
 
 from insite_tpu_torch.core.dtypes import resolve_float
-from insite_tpu_torch.models.base import CausalEstimator, VITALS_NOT_PORTED
+from insite_tpu_torch.models.base import CausalEstimator
 from insite_tpu_torch.models.nn.blocks import (ROutcomeVitalsHead,
                                                VariationalLSTM)
 from insite_tpu_torch.models.nn.training import (TrainConfig, fit_simple,
@@ -37,15 +44,16 @@ CHUNK_ROWS = 1 << 18
 @dataclass
 class GNetConfig:
     """The JAX package's `GNetConfig`: the reference's tuned
-    hyperparameters. The vitals components (``dim_vitals``,
-    ``fit_vitals``) are not ported yet: ``dim_vitals`` above 0 raises."""
+    hyperparameters."""
 
     dim_treatments: int = 1
     dim_static_features: int = 2
     dim_outcome: int = 1
+    # the vitals stream of real-EHR collections: the heads also predict the
+    # next vitals, and rollouts feed their samples back
     dim_vitals: int = 0
     fit_vitals: bool = True
-    comp_sizes: tuple = None         # default (dim_outcome,)
+    comp_sizes: tuple = None         # default (dim_outcome[, dim_vitals])
     seq_hidden_units: int = 24
     r_size: int = 3
     fc_hidden_units: int = 48
@@ -69,8 +77,9 @@ def _comp_sizes(cfg: GNetConfig):
 
 
 class GNetNetwork(nn.Module):
-    """``repr_net``, a variational LSTM over [treatments, prev_outputs,
-    statics], and the sequential heads ``r_outcome_vitals_head``."""
+    """``repr_net``, a variational LSTM over [treatments, vitals,
+    prev_outputs, statics], and the sequential heads
+    ``r_outcome_vitals_head``."""
 
     def __init__(self, cfg: GNetConfig, *, device=None, dtype=None):
         super().__init__()
@@ -88,25 +97,35 @@ class GNetNetwork(nn.Module):
 
 
 def _inputs(data):
-    """The features [current_treatments, prev_outputs, statics], the
-    statics repeated along time."""
+    """The features [current_treatments, vitals (where ``data`` has them),
+    prev_outputs, statics], the statics repeated along time."""
     T = data['prev_outputs'].shape[1]
     statics = np.repeat(np.asarray(data['static_features'])[:, None, :], T,
                         axis=1)
-    return np.concatenate([data['current_treatments'], data['prev_outputs'],
-                           statics], axis=-1)
+    parts = [data['current_treatments']]
+    if 'vitals' in data:
+        parts.append(data['vitals'])
+    return np.concatenate(parts + [data['prev_outputs'], statics], axis=-1)
 
 
 def train_config(cfg: GNetConfig) -> TrainConfig:
     return TrainConfig(cfg.epochs, cfg.batch_size, cfg.learning_rate)
 
 
-def outcome_loss(dim_outcome: int):
+def outcome_loss(dim_outcome: int, dim_vitals: int = 0):
     """The fit's loss, ``loss(net, batch, gen)``: the masked MSE of the
-    outcome head on ``batch['x']``."""
+    outcome head on ``batch['x']``; with ``dim_vitals``, plus the masked
+    MSE of the vitals head's first T - 1 steps against
+    ``batch['next_vitals']``."""
     def loss(net, b, gen):
-        pred = net(b['x'], gen)[..., :dim_outcome]
-        return masked_mean((pred - b['outputs']) ** 2, b['active_entries'])
+        pred = net(b['x'], gen)
+        total = masked_mean((pred[..., :dim_outcome] - b['outputs']) ** 2,
+                            b['active_entries'])
+        if dim_vitals:
+            vp = pred[:, :-1, dim_outcome:dim_outcome + dim_vitals]
+            total = total + masked_mean((vp - b['next_vitals']) ** 2,
+                                        b['active_entries'][:, 1:])
+        return total
     return loss
 
 
@@ -116,10 +135,14 @@ def mc_rollout(net, cfg: GNetConfig, x, split, ridx, resid_bank,
     """The noisy rollout of one chunk of rows, in place on ``x`` (a tensor
     of its own), by ``net(x)``: ``[ph, rows, dim_outcome]``, the clean
     predictions of passes 1..ph. ``ridx [ph + 1, rows]`` picks each
-    pass's residual row of ``resid_bank [H, T, dim_outcome]``, read at the
-    predicted step clipped to the row's length ``resid_len [H]``."""
+    pass's residual row of ``resid_bank [H, T, dim_outcome +
+    dim_vitals]``, read at the predicted step clipped to the row's length
+    ``resid_len [H]``. The noisy outcome goes into ``prev_outputs`` and,
+    with vitals, the noisy next vitals into the vitals features."""
     ph = cfg.projection_horizon
-    po = cfg.dim_treatments
+    dv = cfg.dim_vitals
+    vo = cfg.dim_treatments                # vitals feature offset
+    po = cfg.dim_treatments + dv           # prev_outputs feature offset
     do = cfg.dim_outcome
     rows = torch.arange(len(x), device=x.device)
     T = x.shape[1]
@@ -128,13 +151,16 @@ def mc_rollout(net, cfg: GNetConfig, x, split, ridx, resid_bank,
     outs = []
     for t in range(ph + 1):
         idx = split - 1 + t
-        out_t = net(x)[rows, idx, :do]
+        out_t = net(x)[rows, idx, :do + dv]
         if t < ph:
             r = ridx[t]
-            resid = resid_bank[r, torch.minimum(idx, resid_len[r] - 1)]
-            x[rows, wt[t], po:po + do] = out_t + resid
+            noisy = out_t + resid_bank[r, torch.minimum(idx,
+                                                        resid_len[r] - 1)]
+            x[rows, wt[t], po:po + do] = noisy[:, :do]
+            if dv:
+                x[rows, wt[t], vo:vo + dv] = noisy[:, do:]
         if t > 0:
-            outs.append(out_t)
+            outs.append(out_t[:, :do])
     return torch.stack(outs)
 
 
@@ -147,9 +173,6 @@ class GNet(CausalEstimator):
 
     def __init__(self, cfg: GNetConfig, dataset_collection, *, device,
                  dtype=None):
-        if cfg.dim_vitals > 0 or getattr(dataset_collection, 'has_vitals',
-                                         False):
-            raise NotImplementedError(VITALS_NOT_PORTED)
         self.cfg = cfg
         self.collection = dataset_collection
         self.device = device = torch.device(device)
@@ -169,30 +192,46 @@ class GNet(CausalEstimator):
     def fit(self, train_f=None, val_f=None):
         cfg = self.cfg
         data = self.collection.train_f.data
+        has_vitals = cfg.dim_vitals > 0 and 'next_vitals' in data
         batch = {'x': self._tensor(_inputs(data)),
                  'outputs': self._tensor(data['outputs']),
                  'active_entries': self._tensor(data['active_entries'])}
+        if has_vitals:
+            batch['next_vitals'] = self._tensor(data['next_vitals'])
 
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        fit_simple(self.net, outcome_loss(cfg.dim_outcome), batch,
-                   train_config(cfg), gen)
+        loss = outcome_loss(cfg.dim_outcome, cfg.dim_vitals
+                            if has_vitals and cfg.fit_vitals else 0)
+        fit_simple(self.net, loss, batch, train_config(cfg), gen)
 
         # the holdout rows' residuals: the rollouts' noise (none without a
-        # holdout split)
+        # holdout split); with vitals, of (outcome, next vitals) over the
+        # first T - 1 steps
         holdout = getattr(self.collection, 'train_f_holdout', None)
         if holdout is not None and len(holdout.data['outputs']):
-            self.holdout_resid = (np.asarray(holdout.data['outputs']) -
-                                  self._predict_data(holdout.data))
-            self.holdout_resid_len = \
-                holdout.data['sequence_lengths'].astype(int)
+            hd = holdout.data
+            preds = self._predict_data(hd, vitals=has_vitals)
+            lengths = hd['sequence_lengths'].astype(int)
+            if has_vitals:
+                target = np.concatenate([np.asarray(hd['outputs'])[:, :-1],
+                                         np.asarray(hd['next_vitals'])],
+                                        axis=-1)
+                self.holdout_resid = target - preds[:, :-1]
+                self.holdout_resid_len = lengths - 1
+            else:
+                self.holdout_resid = np.asarray(hd['outputs']) - preds
+                self.holdout_resid_len = lengths
         return self
 
     @torch.no_grad()
-    def _predict_data(self, data) -> np.ndarray:
+    def _predict_data(self, data, vitals=False) -> np.ndarray:
+        """The outcome head's predictions, and with ``vitals`` the vitals
+        head's after them."""
+        width = self.cfg.dim_outcome + (self.cfg.dim_vitals if vitals else 0)
         x = self._tensor(_inputs(data))
-        return torch.cat([self.net(x[s:s + CHUNK_ROWS])[
-            ..., :self.cfg.dim_outcome] for s in range(0, len(x), CHUNK_ROWS)]
-        ).cpu().numpy()
+        return torch.cat([self.net(x[s:s + CHUNK_ROWS])[..., :width]
+                          for s in range(0, len(x), CHUNK_ROWS)]
+                         ).cpu().numpy()
 
     def get_predictions(self, dataset) -> np.ndarray:
         return self._predict_data(dataset.data)
@@ -225,8 +264,9 @@ class GNet(CausalEstimator):
                                         device=self.device)
         else:
             ridx = np.zeros((ph + 1, M * n), np.int64)
-            resid_bank = torch.zeros((1, x.shape[1], cfg.dim_outcome),
-                                     dtype=self.dtype, device=self.device)
+            resid_bank = torch.zeros(
+                (1, x.shape[1], cfg.dim_outcome + cfg.dim_vitals),
+                dtype=self.dtype, device=self.device)
             resid_len = torch.ones(1, dtype=torch.int64, device=self.device)
         ridx = torch.as_tensor(ridx, dtype=torch.int64, device=self.device)
         outs = [mc_rollout(self.net, cfg, x[s:s + CHUNK_ROWS],

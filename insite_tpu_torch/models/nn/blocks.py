@@ -11,8 +11,10 @@ the meaning of `insite_tpu.models.nn.blocks`:
   stacked parameters its step is `lstm_step`;
 - `fixed_sin_cos`, `RelativePositionalEncoding`, `MultiHeadedAttention` with
   relative positions on keys and values, `PositionwiseFeedForward`,
-  `TransformerMultiInputBlock` (CT's two-stream block) and EDCT's
-  `TransformerEncoderBlock` and `TransformerDecoderBlock`.
+  `TransformerMultiInputBlock` (CT's two- or three-stream block) and
+  EDCT's `TransformerEncoderBlock` and `TransformerDecoderBlock`;
+- `first_attention_maps`: each attention module's map of one forward
+  pass, kept only while it runs.
 
 Every `nn.Linear` keeps PyTorch's default init, U(+-1/sqrt(fan_in)) for
 weight and bias, which is the JAX package's `TorchDense`. Every module takes
@@ -319,6 +321,9 @@ class MultiHeadedAttention(nn.Module):
         self.v_proj = nn.Linear(d_model, width, **kw)
         self.final = nn.Linear(width, d_model, **kw) if final_layer else None
         self.layer_norm = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS, **kw)
+        # a list only while `first_attention_maps` runs: the first call's
+        # attention probabilities, before dropout
+        self.recorded = None
 
     def forward(self, query, key, value, mask=None, gen=None, rel_k=None,
                 rel_v=None):
@@ -344,8 +349,10 @@ class MultiHeadedAttention(nn.Module):
             keep = tril if keep is None else tril & keep
         if keep is not None:
             scores = scores.masked_fill(~keep, MASKED_SCORE)
-        p_attn = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
-                         gen)
+        p_attn = torch.softmax(scores, dim=-1)
+        if self.recorded is not None and not self.recorded:
+            self.recorded.append(p_attn)
+        p_attn = dropout(p_attn, self.dropout_rate, gen)
         out = torch.einsum('bhqk,bhkd->bhqd', p_attn, v)
         if rel_v is not None:
             out = out + torch.einsum('bhqv,qvd->bhqd', p_attn, rel_v)
@@ -378,11 +385,19 @@ class TransformerMultiInputBlock(nn.Module):
     attention on each, causal cross attention of each onto the other's
     input, the static stream added, then a feed-forward layer per stream.
     Every attention of the block is masked by the active entries of the
-    keys."""
+    keys.
+
+    With ``has_vitals`` the block also takes a vitals stream ``x_v``, with
+    the JAX package's weight sharing: the vitals self-attention is
+    ``self_attention_o``, t<-v and o<-v are ``cross_attention_to``, v<-t
+    and v<-o are ``cross_attention_ot``; ``ff_v`` is its only parameter of
+    its own. A cross attention between the vitals and another stream is
+    masked by the query's activity times the key's, ``[B, 1, T, T]``."""
 
     def __init__(self, hidden: int, attn_heads: int, head_size: int,
                  feed_forward_hidden: int, dropout_rate: float,
-                 attn_dropout: float, *, device=None, dtype=None):
+                 attn_dropout: float, has_vitals=False, *, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
 
@@ -400,16 +415,34 @@ class TransformerMultiInputBlock(nn.Module):
         self.cross_attention_ot = mha()
         self.ff_t = ff()
         self.ff_o = ff()
+        self.ff_v = ff() if has_vitals else None
 
     def forward(self, x_t, x_o, x_s, active_entries, gen=None, rel_k=None,
-                rel_v=None):
+                rel_v=None, x_v=None, active_vitals=None):
+        """(t, o) streams, or (t, o, v) given ``x_v``; ``active_vitals``
+        (the active entries unless given) masks the vitals keys."""
         mask = active_entries[:, None, None, :, 0]          # [B, 1, 1, T]
         kw = dict(gen=gen, rel_k=rel_k, rel_v=rel_v)
         x_t_ = self.self_attention_t(x_t, x_t, x_t, mask, **kw)
         x_o_ = self.self_attention_o(x_o, x_o, x_o, mask, **kw)
         x_to = self.cross_attention_to(x_t_, x_o, x_o, mask, **kw)
         x_ot = self.cross_attention_ot(x_o_, x_t, x_t, mask, **kw)
-        return (self.ff_t(x_to + x_s, gen), self.ff_o(x_ot + x_s, gen))
+        if x_v is None:
+            return (self.ff_t(x_to + x_s, gen), self.ff_o(x_ot + x_s, gen))
+        ao = active_entries[..., 0]                         # [B, T]
+        av = (active_entries if active_vitals is None
+              else active_vitals)[..., 0]
+        mask_v = av[:, None, None, :]
+        mask_to_v = (ao[:, :, None] * av[:, None, :])[:, None]
+        mask_v_to = (av[:, :, None] * ao[:, None, :])[:, None]
+        x_v_ = self.self_attention_o(x_v, x_v, x_v, mask_v, **kw)
+        x_tv = self.cross_attention_to(x_t_, x_v, x_v, mask_to_v, **kw)
+        x_ov = self.cross_attention_to(x_o_, x_v, x_v, mask_to_v, **kw)
+        x_vt = self.cross_attention_ot(x_v_, x_t, x_t, mask_v_to, **kw)
+        x_vo = self.cross_attention_ot(x_v_, x_o, x_o, mask_v_to, **kw)
+        return (self.ff_t(x_to + x_tv + x_s, gen),
+                self.ff_o(x_ot + x_ov + x_s, gen),
+                self.ff_v(x_vt + x_vo + x_s, gen))
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -463,3 +496,23 @@ class TransformerDecoderBlock(nn.Module):
         x = self.cross_attention(x, encoder_x, encoder_x, cross_mask, gen,
                                  cross_rel_k, cross_rel_v)
         return self.feed_forward(x, gen)
+
+
+def first_attention_maps(net: nn.Module, run) -> dict:
+    """Call ``run()`` with every `MultiHeadedAttention` of ``net`` keeping
+    the attention probabilities of its first call in that run (before
+    dropout, ``[B, heads, Tq, Tk]``); return them by module path, '/'
+    between the names, as the JAX package's 'intermediates' name them. A
+    module called more than once (CT's vitals stream reuses three) keeps
+    its first call's. Nothing is kept outside this call."""
+    modules = {name.replace('.', '/'): m for name, m in net.named_modules()
+               if isinstance(m, MultiHeadedAttention)}
+    for m in modules.values():
+        m.recorded = []
+    try:
+        run()
+        return {name: m.recorded[0] for name, m in modules.items()
+                if m.recorded}
+    finally:
+        for m in modules.values():
+            m.recorded = None

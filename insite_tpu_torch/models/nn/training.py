@@ -38,7 +38,7 @@ import torch
 from torch.func import functional_call
 
 from insite_tpu_torch.models.base import CausalEstimator
-from insite_tpu_torch.models.nn.blocks import bce
+from insite_tpu_torch.models.nn.blocks import bce, first_attention_maps
 
 
 @dataclass
@@ -174,12 +174,15 @@ def treatment_head_mask(net: torch.nn.Module) -> dict:
 
 
 def fit_br_model(net: torch.nn.Module, data: dict, cfg: TrainConfig,
-                 gen: torch.Generator) -> dict:
+                 gen: torch.Generator, augment_fn=None) -> dict:
     """Train ``net``'s parameters in place on ``data`` (tensors with a
     leading row dimension, on the generator's device) and return the EMA of
     every parameter, {name: tensor}, which without ``weights_ema`` stays at
     the initial parameters. ``net(batch, alpha, gen=, detach_treatment=)``
-    returns (treatment logits, outcome prediction, representation)."""
+    returns (treatment logits, outcome prediction, representation). With
+    ``augment_fn``, each batch becomes ``augment_fn(batch, gen)`` before
+    the step, and both optimizers' losses see that one batch (CT's
+    masked-vitals augmentation)."""
     params = dict(net.named_parameters())
     treat = treatment_head_mask(net)
     group0 = [p for k, p in params.items() if not treat[k]]
@@ -208,6 +211,8 @@ def fit_br_model(net: torch.nn.Module, data: dict, cfg: TrainConfig,
         alpha = alphas[epoch]
         for idx in make_batches(gen, n, bs):
             batch = {k: v[idx] for k, v in data.items()}
+            if augment_fn is not None:
+                batch = augment_fn(batch, gen)
 
             p = merge_by_mask(ema, params, treat) if cfg.weights_ema \
                 else params
@@ -439,26 +444,39 @@ def seeded_net(seed: int, build, device) -> torch.nn.Module:
 
 class BRStage(CausalEstimator):
     """A network trained by `fit_br_model` on a dataset's ``keys``, on
-    ``device`` in ``dtype``, with a generator seeded with ``seed``. It
-    predicts from ``input_keys`` with the classifier's trained parameters
-    and, with ``weights_ema``, the EMA of the rest."""
+    ``device`` in ``dtype``, with a generator seeded with ``seed`` (and
+    ``augment_fn`` passed on). It predicts from ``input_keys`` with the
+    classifier's trained parameters and, with ``weights_ema``, the EMA of
+    the rest. Each of ``optional_keys`` joins both where a dataset carries
+    it."""
 
     def __init__(self, net: torch.nn.Module, train_cfg: TrainConfig,
-                 seed: int, keys, input_keys, *, device, dtype):
+                 seed: int, keys, input_keys, *, device, dtype,
+                 optional_keys=(), augment_fn=None):
         self.net = net
         self.train_cfg = train_cfg
         self.seed = seed
         self.keys = keys
         self.input_keys = input_keys
+        self.optional_keys = optional_keys
+        self.augment_fn = augment_fn
         self.device = device
         self.dtype = dtype
         self.treat_mask = treatment_head_mask(net)
         self.ema_params = None
 
+    def batch(self, data: dict, keys) -> dict:
+        """`device_batch` of ``keys`` and of the optional keys ``data``
+        carries."""
+        keys = tuple(keys) + tuple(k for k in self.optional_keys
+                                   if k in data and k not in keys)
+        return device_batch(data, keys, self.device, self.dtype)
+
     def fit_stage(self, data: dict):
-        batch = device_batch(data, self.keys, self.device, self.dtype)
+        batch = self.batch(data, self.keys)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.ema_params = fit_br_model(self.net, batch, self.train_cfg, gen)
+        self.ema_params = fit_br_model(self.net, batch, self.train_cfg, gen,
+                                       self.augment_fn)
         return self
 
     def _predict_params(self) -> dict:
@@ -475,8 +493,7 @@ class BRStage(CausalEstimator):
 
     def predict_all(self, data: dict):
         """(outcome prediction, representation) of ``data``, numpy."""
-        _, outputs, br = self.forward(device_batch(
-            data, self.input_keys, self.device, self.dtype))
+        _, outputs, br = self.forward(self.batch(data, self.input_keys))
         return outputs.cpu().numpy(), br.cpu().numpy()
 
     def get_predictions(self, dataset) -> np.ndarray:
@@ -484,3 +501,12 @@ class BRStage(CausalEstimator):
 
     def get_representations(self, dataset) -> np.ndarray:
         return self.predict_all(dataset.data)[1]
+
+    def get_attention_maps(self, dataset) -> dict:
+        """{module path: [B, heads, Tq, Tk]}, numpy: each attention
+        module's probabilities in a prediction pass over ``dataset``, its
+        first call's where it is called more than once
+        (`first_attention_maps`); {} for a network without attention."""
+        batch = self.batch(dataset.data, self.input_keys)
+        maps = first_attention_maps(self.net, lambda: self.forward(batch))
+        return {k: v.cpu().numpy() for k, v in maps.items()}

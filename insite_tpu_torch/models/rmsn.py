@@ -3,17 +3,21 @@
 linear output, trained one after the other by `fit_simple`.
 
 1. The propensity-treatment network (on the previous treatments) and the
-   propensity-history network (on the previous treatments and outputs and
-   the statics), on the masked BCE of the current treatments.
+   propensity-history network (on the previous treatments, the vitals
+   where the collection has them, the previous outputs and the statics),
+   on the masked BCE of the current treatments.
 2. The stabilized weights of the training rows from their scores
    (``sw_mode``), clipped at their 1 % / 99 % quantiles and normalised, on
    the host in float64.
-3. The encoder, on the SW-weighted one-step MSE, for ``epochs *
-   enc_epoch_mult`` epochs.
+3. The encoder (its inputs led by the vitals where there are any), on the
+   SW-weighted one-step MSE, for ``epochs * enc_epoch_mult`` epochs.
 4. The decoder, on the rolling-origin rows that the collection's decoder
    processing starts from the encoder's representation, through a memory
    adapter, weighted by the cumulative product of the weights over the
-   window.
+   window. It never takes vitals.
+
+The vitals width comes from the collection, as the JAX package infers it
+from the data.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 from torch import nn
 
 from insite_tpu_torch.core.dtypes import resolve_float
-from insite_tpu_torch.models.base import CausalEstimator, VITALS_NOT_PORTED
+from insite_tpu_torch.models.base import (CausalEstimator,
+                                         collection_vitals_width)
 from insite_tpu_torch.models.nn.blocks import VariationalLSTM, bce
 from insite_tpu_torch.models.nn.training import (TrainConfig, fit_simple,
                                                  masked_mean, seeded_net)
@@ -124,14 +129,19 @@ def _propensity_inputs_treat(data):
 
 def _propensity_inputs_hist(data):
     T = data['prev_treatments'].shape[1]
-    return np.concatenate([data['prev_treatments'], data['prev_outputs'],
-                           _statics_expanded(data, T)], axis=-1)
+    parts = [data['prev_treatments']]
+    if 'vitals' in data:
+        parts.append(data['vitals'])
+    return np.concatenate(parts + [data['prev_outputs'],
+                                   _statics_expanded(data, T)], axis=-1)
 
 
 def _encoder_inputs(data):
     T = data['prev_outputs'].shape[1]
-    return np.concatenate([data['prev_outputs'], data['current_treatments'],
-                           _statics_expanded(data, T)], axis=-1)
+    parts = [data['vitals']] if 'vitals' in data else []
+    return np.concatenate(parts + [data['prev_outputs'],
+                                   data['current_treatments'],
+                                   _statics_expanded(data, T)], axis=-1)
 
 
 def _decoder_inputs(data):
@@ -140,10 +150,11 @@ def _decoder_inputs(data):
                            _statics_expanded(data, T)], axis=-1)
 
 
-def network_factories(cfg: RMSNConfig, dtype=None) -> list:
+def network_factories(cfg: RMSNConfig, dtype=None, dim_vitals=0) -> list:
     """Zero-argument factories of the four networks, on the host, in the
-    order they train: propensity-treatment, propensity-history, encoder,
-    decoder (with the memory adapter from the encoder's width)."""
+    order they train: propensity-treatment, propensity-history and encoder
+    (both also over ``dim_vitals`` vitals), decoder (with the memory
+    adapter from the encoder's width)."""
     c = cfg
     n_in = c.dim_treatments + c.dim_outcome + c.dim_static_features
 
@@ -153,9 +164,10 @@ def network_factories(cfg: RMSNConfig, dtype=None) -> list:
 
     return [factory(c.dim_treatments, c.prop_treat_hidden, c.dim_treatments,
                     c.prop_treat_dropout),
-            factory(n_in, c.prop_hist_hidden, c.dim_treatments,
+            factory(n_in + dim_vitals, c.prop_hist_hidden, c.dim_treatments,
                     c.prop_hist_dropout),
-            factory(n_in, c.enc_hidden, c.dim_outcome, c.enc_dropout),
+            factory(n_in + dim_vitals, c.enc_hidden, c.dim_outcome,
+                    c.enc_dropout),
             factory(n_in, c.dec_hidden, c.dim_outcome, c.dec_dropout,
                     memory_size=c.enc_hidden)]
 
@@ -219,18 +231,20 @@ class RMSN(CausalEstimator):
     named). The networks are built when the estimator is, with PyTorch's
     init drawn from ``cfg.seed`` .. ``cfg.seed + 3`` (propensity-treatment,
     propensity-history, encoder, decoder; `seeded_net`), and each trains
-    with a generator seeded like its init."""
+    with a generator seeded like its init. The propensity-history network
+    and the encoder take the collection's vitals stream where it has
+    one."""
 
     def __init__(self, cfg: RMSNConfig, dataset_collection, *, device,
                  dtype=None):
-        if getattr(dataset_collection, 'has_vitals', False):
-            raise NotImplementedError(VITALS_NOT_PORTED)
         self.cfg = c = cfg
         self.collection = dataset_collection
         self.device = device = torch.device(device)
         self.dtype = dtype = resolve_float(dtype)
+        factories = network_factories(
+            c, dtype, collection_vitals_width(dataset_collection))
         nets = [seeded_net(c.seed + i, build, device)
-                for i, build in enumerate(network_factories(c, dtype))]
+                for i, build in enumerate(factories)]
         self.prop_treat = _Net(nets[0], _propensity_inputs_treat, c.seed)
         self.prop_hist = _Net(nets[1], _propensity_inputs_hist, c.seed + 1)
         self.encoder = _Net(nets[2], _encoder_inputs, c.seed + 2)

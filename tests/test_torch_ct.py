@@ -16,7 +16,9 @@ collections made by the JAX package and handed over with
   seeds differ, the global generator is left as it was, and a ct row
   (dropout on, several batches an epoch) run twice in one process is the
   same row.
-- The vitals stream raises, naming its slice.
+- ``dim_vitals`` builds the vitals stream: its input projection, a
+  vitals feed-forward layer a block, the optional batch keys and the
+  masked-vitals augmentation.
 """
 
 import pytest
@@ -27,7 +29,8 @@ from insite_tpu.harness.config import RunConfig as JaxRunConfig
 from insite_tpu.harness.runner import run_experiment as jax_run_experiment
 from insite_tpu_torch.harness import runner
 from insite_tpu_torch.harness.config import RunConfig
-from insite_tpu_torch.models.ct import CausalTransformer, CTConfig
+from insite_tpu_torch.models.ct import (CausalTransformer, CTConfig,
+                                        ct_augment_fn)
 from torch_handover import (RMSE_KEYS, SIZES, assert_rows_close,
                             build_with_initial, hand_over_jax_cohorts,
                             record_initial_params)
@@ -88,5 +91,15 @@ def test_ct_row_is_reproducible_in_one_process():
 
 
 def test_vitals_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='Slice 6c'):
-        CausalTransformer(CTConfig(dim_vitals=3), None, device='cpu')
+    """The vitals stream is ported: ``dim_vitals`` builds it."""
+    model = CausalTransformer(CTConfig(dim_vitals=3), None, device='cpu')
+    assert model.net.vitals_input.in_features == 3
+    assert model.net.block_0.ff_v is not None
+    assert model.optional_keys == ('vitals', 'future_past_split')
+    assert model.augment_fn is ct_augment_fn
+    off = CausalTransformer(CTConfig(dim_vitals=3,
+                                     augment_with_masked_vitals=False),
+                            None, device='cpu')
+    assert off.augment_fn is None
+    plain = CausalTransformer(CTConfig(), None, device='cpu')
+    assert plain.net.vitals_input is None and plain.optional_keys == ()

@@ -14,11 +14,13 @@ by the JAX package and handed over with `convert.collection_from_numpy`.
 - The initial weights come from the seed alone: the encoder's from the
   seed, the decoder's from seed + 1; a row run twice in one process is
   the same row.
-- A collection with a vitals stream raises, naming its slice.
+- A collection with a vitals stream widens the encoder's input by its
+  width, taken from the collection; the decoder never takes it.
 """
 
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,6 +105,18 @@ def test_edct_row_is_reproducible_in_one_process():
         [{k: rows[0][k] for k in RMSE_KEYS}] * 2
 
 
+def _vitals_collection(**kw):
+    """A processed collection whose training rows carry a 3-wide vitals
+    stream."""
+    return SimpleNamespace(has_vitals=True, train_f=SimpleNamespace(
+        data={'vitals': np.zeros((4, 6, 3))}), **kw)
+
+
 def test_vitals_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='Slice 6c'):
-        EDCT(EDCTConfig(), SimpleNamespace(has_vitals=True), device='cpu')
+    """The vitals stream is ported: the encoder takes it."""
+    model = EDCT(EDCTConfig(), _vitals_collection(
+        processed_data_encoder=True), device='cpu')
+    assert model.encoder.net.input.in_features == 2 + 3 + 1 + 2
+    assert 'vitals' in model.encoder.keys
+    assert model.decoder.net.input.in_features == 2 + 1 + 2
+    assert 'vitals' not in model.decoder.keys

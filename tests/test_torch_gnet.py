@@ -14,7 +14,7 @@ made by the JAX package and handed over with
   the dataset.
 - The initial weights come from the seed alone; a row run twice in one
   process is the same row.
-- A collection with a vitals stream raises, naming its slice.
+- ``dim_vitals`` widens the features and adds the vitals head.
 - `python -m insite_tpu_torch.run --device cpu --methods rmsn gnet edct` at
   a tiny size: the three rows in a log that the port's and the JAX
   package's readers read alike.
@@ -130,10 +130,19 @@ def test_gnet_row_is_reproducible_in_one_process(monkeypatch):
 
 
 def test_vitals_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='Slice 6c'):
-        GNet(GNetConfig(), SimpleNamespace(has_vitals=True), device='cpu')
-    with pytest.raises(NotImplementedError, match='Slice 6c'):
-        GNet(GNetConfig(dim_vitals=2), SimpleNamespace(), device='cpu')
+    """The vitals stream is ported: the features take it after the
+    treatments, and the heads predict the outcome, then the vitals."""
+    model = GNet(GNetConfig(dim_vitals=2), SimpleNamespace(
+        processed_data_multi=True, split_train_f_holdout=lambda r: None,
+        explode_cf_treatment_seq=lambda m: None), device='cpu')
+    assert model.net.repr_net.weight_ih_l0.shape[1] == 1 + 2 + 1 + 2
+    assert [o.out_features for o in
+            model.net.r_outcome_vitals_head.out] == [1, 2]
+    data = {'current_treatments': np.zeros((2, 4, 1)),
+            'vitals': np.ones((2, 4, 2)),
+            'prev_outputs': np.full((2, 4, 1), 2.0),
+            'static_features': np.full((2, 2), 3.0)}
+    assert port_gnet._inputs(data)[0, 0].tolist() == [0, 1, 1, 2, 3, 3]
 
 
 def test_cli_serves_rmsn_gnet_and_edct(tmp_path):

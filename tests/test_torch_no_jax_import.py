@@ -1,6 +1,6 @@
 """The port stands alone: no module of insite_tpu_torch imports jax, flax,
 optax or the JAX package (importing any insite_tpu module imports jax),
-nor pandas or PyYAML, which the card machine does not have. The one
+nor pandas, msgpack or PyYAML, which the card machine does not have. The one
 exception is `yaml`, imported inside the body of `RunConfig.from_yaml`
 alone, so only loading a YAML config needs PyYAML."""
 
@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 
 PACKAGE = Path(__file__).resolve().parent.parent / 'insite_tpu_torch'
-FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'insite_tpu', 'pandas', 'yaml'}
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'insite_tpu', 'pandas',
+             'msgpack', 'yaml'}
 FILES = sorted(PACKAGE.rglob('*.py'))
 
 
@@ -100,7 +101,15 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_every_neural_model_is_checked():
-    """The neural models' modules are among the files checked above."""
+    """The neural models' modules and the checkpoints' are among the files
+    checked above."""
     names = {str(p.relative_to(PACKAGE)) for p in FILES}
     assert {f'models/{m}.py' for m in ('ct', 'crn', 'rmsn', 'gnet',
                                         'edct')} <= names
+    assert 'harness/checkpoint.py' in names
+
+
+def test_vitals_refusal_is_gone():
+    """The vitals stream is ported: no module names its old refusal."""
+    for path in FILES + [PACKAGE.parent / 'chip_smoke.py']:
+        assert 'VITALS_NOT_PORTED' not in path.read_text(), path

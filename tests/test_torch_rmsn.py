@@ -16,7 +16,9 @@ by the JAX package and handed over with `convert.collection_from_numpy`.
 - The initial weights come from the seed alone: the four networks' from
   seed .. seed + 3, equal at one seed whatever drew from PyTorch's global
   generator in between; a row run twice in one process is the same row.
-- A collection with a vitals stream raises, naming its slice.
+- A collection with a vitals stream widens the propensity-history
+  network's and the encoder's input by its width, taken from the
+  collection.
 """
 
 from types import SimpleNamespace
@@ -133,6 +135,27 @@ def test_rmsn_row_is_reproducible_in_one_process():
         [{k: rows[0][k] for k in RMSE_KEYS}] * 2
 
 
+def _vitals_collection(**kw):
+    """A processed collection whose training rows carry a 3-wide vitals
+    stream."""
+    return SimpleNamespace(has_vitals=True, train_f=SimpleNamespace(
+        data={'vitals': np.zeros((4, 6, 3))}), **kw)
+
+
 def test_vitals_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='Slice 6c'):
-        RMSN(RMSNConfig(), SimpleNamespace(has_vitals=True), device='cpu')
+    """The vitals stream is ported: the propensity-history network and
+    the encoder take it."""
+    model = RMSN(RMSNConfig(), _vitals_collection(
+        processed_data_encoder=True), device='cpu')
+    widths = [getattr(model, k).net.lstm.weight_ih_l0.shape[1]
+              for k in ('prop_treat', 'prop_hist', 'encoder', 'decoder')]
+    assert widths == [1, 1 + 1 + 2 + 3, 1 + 1 + 2 + 3, 1 + 1 + 2]
+    data = {'prev_treatments': np.zeros((2, 4, 1)),
+            'current_treatments': np.ones((2, 4, 1)),
+            'prev_outputs': np.full((2, 4, 1), 2.0),
+            'static_features': np.full((2, 2), 3.0),
+            'vitals': np.full((2, 4, 3), 4.0)}
+    assert port_rmsn._propensity_inputs_hist(data)[0, 0].tolist() == \
+        [0, 4, 4, 4, 2, 3, 3]
+    assert port_rmsn._encoder_inputs(data)[0, 0].tolist() == \
+        [4, 4, 4, 2, 1, 3, 3]

@@ -488,11 +488,27 @@ def test_cli_insight_sweep_with_epochs(tmp_path):
 
 @pytest.mark.parametrize('method', ['ct', 'crn', 'rmsn', 'gnet', 'edct'])
 def test_neural_vitals_raise(method):
-    """A collection with a vitals stream raises for every neural method,
-    naming the slice that brings it."""
-    coll = runner._collection_for('EQ_4_D', method, 0, 2.0, RunConfig(**TINY),
+    """A collection with a vitals stream no longer raises: every neural
+    method builds over it, ct and gnet with ``dim_vitals`` from
+    `_dims_from_collection`, crn, rmsn and edct with the width the
+    collection gives."""
+    cfg = RunConfig(**TINY)
+    coll = runner._collection_for('EQ_4_D', method, 0, 2.0, cfg,
                                   device='cpu')
+    if method in ('crn', 'rmsn', 'edct'):
+        coll.process_data_encoder()
+    else:
+        coll.process_data_multi()
+    rows, steps = coll.train_f.data['outputs'].shape[:2]
+    coll.train_f.data['vitals'] = np.zeros((rows, steps, 3))
     coll.has_vitals = True
-    with pytest.raises(NotImplementedError, match='Slice 6c'):
-        runner._build_model(method, 'EQ_4_D', coll, RunConfig(**TINY),
-                            device='cpu')
+    assert runner._dims_from_collection(coll, with_vitals=True)[
+        'dim_vitals'] == 3
+    assert 'dim_vitals' not in runner._dims_from_collection(coll)
+    model = runner._build_model(method, 'EQ_4_D', coll, cfg, device='cpu')
+    first = {'ct': lambda m: m.net.vitals_input.in_features,
+             'gnet': lambda m: m.net.repr_net.weight_ih_l0.shape[1] - 4,
+             'crn': lambda m: m.encoder.net.lstm.weight_ih_l0.shape[1] - 4,
+             'edct': lambda m: m.encoder.net.input.in_features - 4,
+             'rmsn': lambda m: m.encoder.net.lstm.weight_ih_l0.shape[1] - 4}
+    assert first[method](model) == 3

@@ -1,7 +1,9 @@
 """Shared by the whole-row and whole-column parity tests of the neural
 baselines: the port's runner (or its vectorized columns) takes its cohorts
 from the JAX package, and a JAX fit's initial parameters are recorded to
-be loaded into the port's networks."""
+be loaded into the port's networks. Also the vitals collections of the
+real-data tests: a JAX `RealDatasetCollection` with a fabricated vitals
+stream and the port's copy of it."""
 
 import copy
 
@@ -11,9 +13,12 @@ import numpy as np
 
 import insite_tpu.harness.vectorized_neural as jax_vn
 import insite_tpu.models.ct as jax_ct
+from insite_tpu.data import PkpdDatasetCollection as JaxPkpdCollection
+from insite_tpu.data.collection import RealDatasetCollection as JaxReal
 from insite_tpu.data.collection import make_collection as jax_make_collection
 from insite_tpu_torch import convert
-from insite_tpu_torch.data.collection import SUBSETS
+from insite_tpu_torch.data.collection import SUBSETS, RealDatasetCollection
+from insite_tpu_torch.data.dataset import SeqDataset
 from insite_tpu_torch.harness import runner
 from insite_tpu_torch.harness import vectorized_neural as port_vn
 
@@ -187,3 +192,60 @@ def assert_columns_close(ours, ref, what, rtol=1e-4):
     for k in ref:
         np.testing.assert_allclose(ours[k], ref[k], rtol=rtol, err_msg=k)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# vitals collections
+
+DIM_VITALS = 2
+
+
+def add_vitals(ds, seed):
+    """A plausible scaled vitals stream for a processed dataset, as the JAX
+    package's tests fabricate it (`tests/test_vitals.py::_add_vitals`): a
+    lagged function of the outcome plus noise from ``RandomState(seed)``,
+    masked by activity; ``next_vitals`` one step shorter."""
+    rng = np.random.RandomState(seed)
+    po = ds.data['prev_outputs']                       # [n, T, 1]
+    n, T, _ = po.shape
+    base = np.concatenate([0.5 * po, -0.25 * po + 0.1], axis=-1)
+    vit = (base + 0.05 * rng.randn(n, T, DIM_VITALS)) * \
+        ds.data['active_entries']
+    ds.data['vitals'] = vit
+    ds.data['next_vitals'] = vit[:, 1:]
+    return ds
+
+
+def jax_vitals_collection(num_patients, max_seq_length, seed=0):
+    """The JAX package's `RealDatasetCollection` over an EQ_4_D cohort
+    (multilabel, gamma 2): its processed train and val sets with vitals,
+    and a copy of the val set with other vitals as test_f."""
+    coll = JaxPkpdCollection(conf_coeff=2.0, num_patients=num_patients,
+                             equation_str='EQ_4_D', seed=seed,
+                             max_seq_length=max_seq_length,
+                             treatment_mode='multilabel')
+    coll.process_data_encoder()
+    train_f = add_vitals(coll.train_f, 0)
+    val_f = add_vitals(coll.val_f, 1)
+    test_f = add_vitals(copy.deepcopy(coll.val_f), 2)
+    return JaxReal(train_f, val_f, test_f, projection_horizon=5,
+                   treatment_mode='multilabel', seed=seed)
+
+
+def port_dataset(ds) -> SeqDataset:
+    """The port's copy of a processed JAX `SeqDataset`."""
+    out = SeqDataset({k: np.array(v) for k, v in ds.data.items()},
+                     ds.subset_name, ds.norm_const)
+    out.processed = ds.processed
+    out.scaling_params = copy.deepcopy(ds.scaling_params)
+    return out
+
+
+def port_real_collection(ref) -> RealDatasetCollection:
+    """The port's `RealDatasetCollection` over copies of the unprocessed-
+    by-method datasets of the JAX collection ``ref``."""
+    return RealDatasetCollection(
+        port_dataset(ref.train_f), port_dataset(ref.val_f),
+        port_dataset(ref.test_f),
+        projection_horizon=ref.projection_horizon,
+        treatment_mode=ref.treatment_mode, seed=ref.seed)
