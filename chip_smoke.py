@@ -231,6 +231,42 @@ Phases, in order; any failure exits non-zero:
             for bit, the reloaded insite model's predict call on the EQ_4_D
             1-step test set launching 1 + 13 kernels; each step's wall
             printed.
+15. slice8  (a) an EQ_4_D insite run through `run_experiment` with
+            ``model_overrides`` {insite_solver: 'bfgs', bfgs_maxiter: 100}
+            on phase 5's cohort (1,000 / 100 / 100, seed 0), in f32 and in
+            f64: finite RMSEs, phase 5's Gauss-Newton 1-step RMSE at most
+            1.05 x BFGS's (the JAX package's rule), BFGS below phase 5's
+            sindy at 1 step; launches asserted exactly: one sensitivity
+            launch per batched BFGS evaluation and one rollout per
+            fine-tune; for each fine-tune the share of rows ending in each
+            status, iterations, evaluations, launches and wall; (b) the BFGS
+            fine-tune f64 on the card against f64 on the host (EQ_4_D,
+            200 / 10 / 10, its 1-step test set, bfgs_maxiter 20):
+            coefficients within rtol 1e-6 on the rows that end with the
+            same status and iteration count, every other row ending with
+            the zoom failed (status 3, the edge of the precision) on one
+            side or converged on both (then within 2 gtol K / (2 lam) of
+            each other), at most 10 % of the rows with the zoom failed on
+            either, and the rows the card changes when the global model
+            moves by 1e-13 printed; (c) the lam tune under BFGS (7 x 100
+            stacked rows, one fine-tune), card f64 against host f64, its
+            rows held as in (b), scores and best lams printed; the card in
+            f32 printed beside them (in f32 most rows end with the zoom
+            failed and keep the masked global model, as in the JAX
+            package); (d) rollout_backend='xla' set by
+            ``model_overrides``: an EQ_4_D insite model fitted and
+            predicting its 1-step test set with 0 + 0 launches, within
+            1e-3 of the largest prediction of the same model on the
+            kernels, walls printed; (e) the
+            legacy eq_1..eq_8 `load_dataset` at 1,000 / 100 / 100 on the
+            card (shapes, finite), and each equation f64 on the card
+            against the host on the same draws (rtol 1e-10, actions
+            equal); (f) `sr3_l1` on the weak system of one EQ_4_D arm,
+            card against host in f64 (rtol 1e-8, the same support); (g)
+            `utils.profiling.trace` around one warm north star in a
+            process of its own, run beside (b), (c), (e) and (f): the
+            Chrome trace names the sensitivity kernel 13 times and the
+            rollout kernel once. (d) runs last, alone.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -721,6 +757,28 @@ REAL_DIM_VITALS = 2
 # a distribution within this
 ATTENTION_ROWS = 256
 ATTENTION_ROW_ATOL = 1e-4
+# phase 15: the BFGS fine-tune as a user's --config sets it (and the JAX
+# package's tests and bench.py), and the gates of its checks
+BFGS_OVERRIDES = {'insite_solver': 'bfgs', 'bfgs_maxiter': 100}
+# the JAX package's rule (tests/test_e2e_eq4.py): Gauss-Newton's 1-step
+# RMSE at most this times BFGS's
+GN_OVER_BFGS = 1.05
+BFGS_SMALL_MAXITER = 20
+BFGS_CARD_HOST_RTOL = 1e-6
+# BFGS's convergence test: the largest gradient entry below this (JAX's)
+BFGS_GTOL = 1e-5
+# in f64 a row whose line search ends with the zoom failed (status 3) sits
+# at the edge of the precision: which rows end so depends on the last bits
+# of the gradient, so the card and the host may differ there (and so do
+# the JAX package and the port on the CPU), as may the iteration count at
+# which a row converges (`check_bfgs_rows`); rows that differ otherwise
+# fail, and so does a share of failed zooms above this
+BFGS_MAX_ZOOM_FAILED = 0.10
+XLA_RTOL = 1e-3
+LEGACY_SIZES = dict(train_samples=1000, val_samples=100, test_samples=100)
+LEGACY_RTOL = 1e-10
+SR3_THRESHOLD = 0.05
+SR3_RTOL = 1e-8
 # repetitions of a plain version in phase 3's call timing (each takes
 # 0.1-0.3 s; the kernels take 20)
 PLAIN_REPS = 5
@@ -2779,6 +2837,508 @@ def run_real_data(device):
     return launches, reload_launches, walls
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the BFGS and 'xla' fine-tunes, the legacy simulators, the weak
+# fit's SR3 solve, a trace
+
+
+@contextlib.contextmanager
+def recording_bfgs(records):
+    """Inside the block, every BFGS fine-tune (`insite_finetune_predict`)
+    appends {rows, status, k, n_evals, launches, wall, coefs} to
+    ``records``; its launches and wall are taken between device
+    synchronisations."""
+    import torch
+    from insite_tpu_torch.models import sindy
+    from insite_tpu_torch.ops import rollout
+
+    def counts():
+        return {'rollout': rollout.ROLLOUT_LAUNCHES,
+                'sens': rollout.SENS_LAUNCHES}
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            prev = args[2]
+            if prev.is_cuda:
+                torch.cuda.synchronize(prev.device)
+            before, t0 = counts(), perf_counter()
+            preds, coefs, res = fn(*args, **kwargs)
+            if prev.is_cuda:
+                torch.cuda.synchronize(prev.device)
+            after = counts()
+            records.append({
+                'rows': prev.shape[0], 'status': res.status.cpu().numpy(),
+                'k': res.k.cpu().numpy(), 'n_evals': res.n_evals,
+                'launches': {k: after[k] - before[k] for k in after},
+                'wall': perf_counter() - t0, 'coefs': coefs.cpu().numpy()})
+            return preds, coefs, res
+        return call
+
+    with patched(sindy, 'insite_finetune_predict', wrap):
+        yield
+
+
+def log_bfgs(tag, rec):
+    """One BFGS fine-tune: rows ending in each status, iterations,
+    evaluations, launches and wall."""
+    status, k = rec['status'], rec['k']
+    shares = {int(s): f'{100 * np.mean(status == s):.2f} %'
+              for s in (0, 1, 3, 5)}
+    other = sorted(set(status.tolist()) - {0, 1, 3, 5})
+    log(f'  {tag}: B={rec["rows"]}, status shares {shares}'
+        + (f' (and {other})' if other else '')
+        + f'; iterations mean {k.mean():.2f}, max {k.max()}; '
+        f'{rec["n_evals"]} batched evaluations; launches '
+        f'{rec["launches"]}; wall {rec["wall"]:.4f} s')
+
+
+def check_bfgs_launches(records, launches, what):
+    """A BFGS path launches one sensitivity kernel per batched evaluation
+    and one rollout per fine-tune, and nothing else."""
+    want = {'rollout': len(records),
+            'sens': sum(r['n_evals'] for r in records)}
+    if launches != want:
+        raise AssertionError(f'{what} launched {launches}, expected {want} '
+                             '(one rollout a fine-tune, one sensitivity '
+                             'launch a BFGS evaluation)')
+    for r in records:
+        if r['launches'] != {'rollout': 1, 'sens': r['n_evals']}:
+            raise AssertionError(f'{what}: a fine-tune launched '
+                                 f'{r["launches"]} for {r["n_evals"]} '
+                                 'evaluations')
+
+
+def run_bfgs_run(device, table_rows):
+    """(a) An EQ_4_D insite run through `run_experiment` with the BFGS
+    fine-tune set by ``model_overrides``, on phase 5's cohort, in f32 (the
+    default) and in f64: finite RMSEs, phase 5's Gauss-Newton 1-step RMSE
+    at most `GN_OVER_BFGS` x BFGS's, BFGS below phase 5's sindy at 1 step;
+    launches asserted against the BFGS's own evaluation count. Returns the
+    launches by dtype."""
+    import torch
+    from insite_tpu_torch.harness import runner
+    from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch.ops import rollout
+    cfg = RunConfig(model_overrides={'insite': dict(BFGS_OVERRIDES)})
+    phase5 = {r['method_name']: r['encoder_test_rmse_orig']
+              for r in table_rows if r['dataset_name'] == 'EQ_4_D'}
+    out = {}
+    for tag, dtype in (('f32', None), ('f64', torch.float64)):
+        records = []
+        torch.cuda.synchronize(device)
+        rollout.reset_launch_counts()
+        t0 = perf_counter()
+        with recording_bfgs(records):
+            row = runner.run_experiment('EQ_4_D', 'insite', 0, 2.0, cfg,
+                                        device=device, dtype=dtype)
+        torch.cuda.synchronize(device)
+        wall = perf_counter() - t0
+        launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                    'sens': rollout.SENS_LAUNCHES}
+        for what, rec in zip(('1-step test set', 'n-step test set'),
+                             records):
+            log_bfgs(f'{tag}, {what}', rec)
+        check_bfgs_launches(records, launches, f'the {tag} BFGS insite run')
+        if len(records) != 2:
+            raise AssertionError(f'{len(records)} BFGS fine-tunes, '
+                                 'expected 2')
+        rmses = np.array([row['encoder_test_rmse_orig'],
+                          row['encoder_test_rmse_all']]
+                         + [row[f'decoder_test_rmse_{k}-step']
+                            for k in range(2, 7)], np.float64)
+        bfgs = row['encoder_test_rmse_orig']
+        log(f'  EQ_4_D insite BFGS {tag} (bfgs_maxiter '
+            f'{BFGS_OVERRIDES["bfgs_maxiter"]}): 1-step {bfgs:.6f} %, '
+            f'6-step {row["decoder_test_rmse_6-step"]:.6f} %; phase 5 '
+            f'Gauss-Newton {phase5["insite"]:.6f} %, sindy '
+            f'{phase5["sindy"]:.6f} %; run wall {wall:.4f} s; launches '
+            f'{launches}')
+        if not np.isfinite(rmses).all():
+            raise AssertionError(f'BFGS {tag} RMSEs {rmses}')
+        if not phase5['insite'] <= GN_OVER_BFGS * bfgs:
+            raise AssertionError(f'Gauss-Newton {phase5["insite"]} % above '
+                                 f'{GN_OVER_BFGS} x BFGS {tag} {bfgs} %')
+        if not bfgs < phase5['sindy']:
+            raise AssertionError(f'BFGS {tag} {bfgs} % not below sindy '
+                                 f'{phase5["sindy"]} %')
+        out[tag] = launches
+    return out
+
+
+@contextlib.contextmanager
+def one_host_thread():
+    """PyTorch on one host thread inside the block: the plain versions are
+    thousands of small ops, which extra threads only slow (1.6x at 1,180
+    rows on an 8-core host)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def check_bfgs_rows(card, host, lam, K, what):
+    """Hold two BFGS fine-tunes of the same rows (`recording_bfgs`
+    records, f64) row by row: coefficients within `BFGS_CARD_HOST_RTOL`
+    where both end with the same status and iteration count; every other
+    row ends with the zoom failed (status 3) on one side, or converged on
+    both, and then, where its penalty ``lam`` (a float or one per row) is
+    positive, within 2 gtol / (2 lam / K) of each other, the distance to
+    the minimum that |grad| < gtol allows at the penalty's curvature; at
+    most `BFGS_MAX_ZOOM_FAILED` of the rows end with the zoom failed on
+    either side. Returns the rows that differ."""
+    s_k, s_h = card['status'], host['status']
+    same = (s_k == s_h) & (card['k'] == host['k'])
+    c_k, c_h = card['coefs'].reshape(len(same), -1), \
+        host['coefs'].reshape(len(same), -1)
+    gap = float((np.abs(c_k - c_h) / np.maximum(np.abs(c_h), 1e-12))[same]
+                .max(initial=0.0))
+    pairs = {}
+    for a, b, ka, kb in zip(s_k[~same], s_h[~same], card['k'][~same],
+                            host['k'][~same]):
+        key = f'{a}/{b}' + ('' if a != b else f' k {ka}/{kb}')
+        pairs[key] = pairs.get(key, 0) + 1
+    differ = int((~same).sum())
+    log(f'  {what} ({len(same)} rows): {differ} end with another status or '
+        f'iteration count (card/host status: {pairs}); largest relative '
+        f'coefficient gap on the others {gap:.3e}')
+    np.testing.assert_allclose(c_k[same], c_h[same], rtol=BFGS_CARD_HOST_RTOL,
+                               atol=1e-12)
+    edge = (s_k == 3) | (s_h == 3)
+    both_converged = ~same & (s_k == 0) & (s_h == 0)
+    if (~same & ~edge & ~both_converged).any():
+        raise AssertionError(f'{what}: rows that differ otherwise: {pairs}')
+    lam = np.broadcast_to(np.asarray(lam, np.float64), same.shape)
+    held = both_converged & (lam > 0)
+    bound = 2 * BFGS_GTOL / (2 * lam[held] / K)
+    dist = np.abs(c_k[held] - c_h[held]).max(axis=1, initial=0.0)
+    if (dist > bound).any():
+        raise AssertionError(f'{what}: converged rows {dist} apart, bound '
+                             f'{bound}')
+    for tag, s in (('card', s_k), ('host', s_h)):
+        if np.mean(s == 3) > BFGS_MAX_ZOOM_FAILED:
+            raise AssertionError(f'{what}, {tag}: {np.mean(s == 3):.2%} of '
+                                 'the rows end with the zoom failed')
+    return differ
+
+
+def check_bfgs_card_against_host(device):
+    """(b) The BFGS fine-tune in f64 on the card against f64 on the host,
+    on one EQ_4_D collection (200 / 10 / 10) handed to both, its 1-step
+    test set at ``bfgs_maxiter`` `BFGS_SMALL_MAXITER`, held row by row by
+    `check_bfgs_rows`. Also prints how many rows change their status or
+    iteration count on the card alone when the global model moves by one
+    part in 1e13, a change of the size of rounding."""
+    import torch
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.harness.config import sindy_params_for
+    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    coll = make_collection('EQ_4_D', {'train': 200, 'val': 10, 'test': 10},
+                           seed=7, coeff=2.0, device=device)
+    cfg = SINDyConfig(dataset_name='EQ_4_D',
+                      sindy_threshold=sindy_params_for('EQ_4_D')[0],
+                      insite=True, insite_solver='bfgs',
+                      bfgs_maxiter=BFGS_SMALL_MAXITER)
+    out = {}
+    for tag, dev in (('card', device), ('host', 'cpu')):
+        m = SINDyRegressor(cfg, coll, device=dev,
+                           dtype=torch.float64).fit(coll.train_f)
+        records = []
+        with recording_bfgs(records), one_host_thread():
+            m.get_fine_tuned_coefficients(coll.test_cf_one_step)
+            if tag == 'card':
+                m.coefs = m.coefs * (1 + 1e-13)
+                m.get_fine_tuned_coefficients(coll.test_cf_one_step)
+        out[tag] = (m.coefs, records)
+        log_bfgs(f'{tag} f64', records[0])
+    (g_k, (r_k, r_moved)), (g_h, (r_h,)) = out['card'], out['host']
+    if not ((np.abs(g_k) > 1e-3) == (np.abs(g_h) > 1e-3)).all():
+        raise AssertionError(f'support differs: {g_k} vs {g_h}')
+    moved = (r_moved['status'] != r_k['status']) | (r_moved['k'] != r_k['k'])
+    log(f'  card f64, the global model moved by 1e-13: {int(moved.sum())} '
+        f'rows change their status or iteration count')
+    check_bfgs_rows(r_k, r_h, cfg.lam, g_k.size,
+                    'BFGS card f64 vs host f64')
+
+
+def check_bfgs_tune_card_against_host(device):
+    """(c) `tune_insite_lam` under BFGS (EQ_4_D, 200 / 100 / 10, 7 x 100
+    stacked rows, one BFGS fine-tune): f64 on the card against f64 on the
+    host, its rows held by `check_bfgs_rows`, each with its lam; the
+    scores and best lams printed (a row that ends with the zoom failed on
+    one side keeps the global model there, and one such row moves a score
+    by up to ~25 %); then the card in f32, printed beside them (in f32 most
+    rows end with the zoom failed, as in the JAX package). Returns the
+    card calls' launches by dtype (asserted)."""
+    import torch
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.harness.config import sindy_params_for
+    from insite_tpu_torch.harness.tuning import (INSITE_LAM_GRID,
+                                                 tune_insite_lam)
+    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    from insite_tpu_torch.ops import rollout
+    coll = make_collection('EQ_4_D', {'train': 200, 'val': 100, 'test': 10},
+                           seed=7, coeff=2.0, device=device)
+    cfg = SINDyConfig(dataset_name='EQ_4_D',
+                      sindy_threshold=sindy_params_for('EQ_4_D')[0],
+                      insite=True, insite_solver='bfgs',
+                      bfgs_maxiter=BFGS_SMALL_MAXITER)
+    out = {}
+    for tag, dev, dtype in (('card f64', device, torch.float64),
+                            ('host f64', 'cpu', torch.float64),
+                            ('card f32', device, None)):
+        m = SINDyRegressor(cfg, coll, device=dev, dtype=dtype).fit(
+            coll.train_f)
+        records = []
+        rollout.reset_launch_counts()
+        t0 = perf_counter()
+        with recording_bfgs(records), one_host_thread():
+            best, scores = tune_insite_lam(m, coll.val_f)
+        secs = perf_counter() - t0
+        launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                    'sens': rollout.SENS_LAUNCHES}
+        log_bfgs(f'lam tune, {tag}', records[0])
+        log(f'  lam tune, {tag}: best {best}, {secs:.4f} s, scores {scores}')
+        if len(records) != 1 or records[0]['rows'] != TUNING_ROWS:
+            raise AssertionError(f'the {tag} lam tune is not one fine-tune '
+                                 f'of {TUNING_ROWS} rows')
+        if dev != 'cpu':
+            check_bfgs_launches(records, launches, f'the {tag} lam tune')
+        out[tag] = (best, scores, launches, records[0], m.coefs.size)
+    (best_k, s_k, _, r_k, K), (best_h, s_h, _, r_h, _) = \
+        out['card f64'], out['host f64']
+    gap = max(abs(s_k[lam] / s_h[lam] - 1) for lam in s_h)
+    gap32 = max(abs(out['card f32'][1][lam] / s_h[lam] - 1) for lam in s_h)
+    log(f'  BFGS lam tune card f64 vs host f64: best {best_k} vs {best_h}; '
+        f'largest relative score gap {gap:.3e} (card f32 vs host f64 '
+        f'{gap32:.3e}, best {out["card f32"][0]})')
+    check_bfgs_rows(r_k, r_h, np.repeat(INSITE_LAM_GRID,
+                                        TUNING_ROWS // len(INSITE_LAM_GRID)),
+                    K, 'BFGS lam tune card f64 vs host f64')
+    return {tag: out[tag][2] for tag in ('card f64', 'card f32')}
+
+
+def run_xla_route(device):
+    """(d) The 'xla' route: an EQ_4_D insite model built by the runner with
+    ``rollout_backend='xla'`` from ``model_overrides`` (1,000 / 100 / 100,
+    seed 0), fitted and predicting the 1-step test set with 0 + 0 launches
+    (eager autodiff: ~16 s for its 11,800 rows; the n-step set would take
+    ~25 s more); then the same fitted model on 'auto' (the kernels): the
+    predictions within `XLA_RTOL` of the largest prediction. Returns the
+    'xla' launches."""
+    import torch
+    from insite_tpu_torch.harness import runner
+    from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch.ops import rollout
+    cfg = RunConfig(model_overrides={'insite': {'rollout_backend': 'xla'}})
+    coll = runner._collection_for('EQ_4_D', 'insite', 0, 2.0, cfg,
+                                  device=device)
+    model = runner._build_model('insite', 'EQ_4_D', coll, cfg, device=device)
+    ds = coll.test_cf_one_step
+    torch.cuda.synchronize(device)
+    rollout.reset_launch_counts()
+    t0 = perf_counter()
+    model.fit(coll.train_f)
+    t1 = perf_counter()
+    xla = model.get_predictions(ds)
+    wall = perf_counter() - t1
+    launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                'sens': rollout.SENS_LAUNCHES}
+    log(f'  xla route: fit {t1 - t0:.4f} s, 1-step set ({len(xla)} rows) '
+        f'{wall:.4f} s; launches {launches}')
+    if launches != {'rollout': 0, 'sens': 0}:
+        raise AssertionError(f"the 'xla' route launched {launches}")
+    model.cfg.rollout_backend = 'auto'
+    t1 = perf_counter()
+    auto = model.get_predictions(ds)
+    gap = float(np.abs(xla - auto).max())
+    scale = float(np.abs(auto).max())
+    log(f'  auto route, the same model and set: {perf_counter() - t1:.4f} '
+        f's; xla against auto: largest gap {gap:.3e} of the largest '
+        f'prediction {scale:.3f} (scaled outputs), {gap / scale:.3e}')
+    if not gap <= XLA_RTOL * scale:
+        raise AssertionError(f"'xla' and 'auto' predictions differ by "
+                             f'{gap:.3e}')
+    return launches
+
+
+def run_legacy(device):
+    """(e) `load_dataset` of eq_1..eq_8 at 1,000 / 100 / 100 on the card
+    (f32): shapes and finite values; then each equation's training split
+    in f64 on the card against f64 on the host from the same draws, rtol
+    `LEGACY_RTOL`."""
+    import torch
+    from insite_tpu_torch.sim import legacy
+    for name, (family, variant) in legacy.EQUATIONS.items():
+        train, val, test, meta = legacy.load_dataset(name, 0, device=device,
+                                                     **LEGACY_SIZES)
+        D, A = legacy.DIMS[family]
+        for split, n in ((train, 1000), (val, 100), (test, 100)):
+            if split['x'].shape != (n, 60, D) or \
+                    split['a'].shape != (n, 60, A) or \
+                    not np.isfinite(split['x']).all():
+                raise AssertionError(f'{name}: x {split["x"].shape}, a '
+                                     f'{split["a"].shape}')
+        gen = torch.Generator().manual_seed(11)
+        draws = legacy.draw(family, 1000, 60, gen, device='cpu',
+                            dtype=torch.float64)
+        host = legacy.simulate(family, draws, 1.0, **variant)
+        card = legacy.simulate(family, {k: v.to(device)
+                                        for k, v in draws.items()}, 1.0,
+                               **variant)
+        x_h, x_k = host[0].numpy(), card[0].cpu().numpy()
+        gap = float((np.abs(x_k - x_h) / np.maximum(np.abs(x_h),
+                                                     1e-300)).max())
+        log(f'  {name}: train {train["x"].shape}, a share '
+            f'{train["a"].mean():.3f}; f64 card vs host largest relative '
+            f'gap {gap:.3e}, actions equal '
+            f'{np.array_equal(card[1].cpu().numpy(), host[1].numpy())}')
+        np.testing.assert_array_equal(card[1].cpu().numpy(), host[1].numpy())
+        np.testing.assert_allclose(x_k, x_h, rtol=LEGACY_RTOL, atol=0)
+
+
+def check_sr3(device):
+    """(f) `sr3_l1` on the weak system of one EQ_4_D arm (1,000 training
+    patients, the estimator's windows): the card against the host in
+    f64, rtol `SR3_RTOL`, the same support."""
+    import torch
+    from insite_tpu_torch.data.collection import make_collection
+    from insite_tpu_torch.discovery.library import PolynomialLibrary
+    from insite_tpu_torch.discovery.wsindy import sr3_l1, weak_system
+    from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    coll = make_collection('EQ_4_D', {'train': 1000, 'val': 10, 'test': 10},
+                           seed=0, coeff=2.0, device=device)
+    m = SINDyRegressor(SINDyConfig(dataset_name='EQ_4_D', wsindy=True), coll,
+                       device=device)
+    prev, statics, arms, lengths = m._unscaled_arrays(coll.train_f)
+    unscaled = np.squeeze(coll.train_f.data['unscaled_outputs'], -1)
+    volumes = np.concatenate([prev[:, :1], unscaled], axis=1)
+    t = functools.partial(torch.as_tensor, device=device)
+    A, b, w = weak_system(t(volumes, dtype=torch.float64),
+                          t(statics, dtype=torch.float64),
+                          t(np.maximum(lengths - 1, 2)),
+                          PolynomialLibrary(n_inputs=1 + statics.shape[-1]),
+                          m.dt, trajectory_mask=t(arms[:, 0] == 1))
+    t0 = perf_counter()
+    card = sr3_l1(A, b, w, SR3_THRESHOLD).cpu().numpy()
+    t_card = perf_counter() - t0
+    t0 = perf_counter()
+    host = sr3_l1(A.cpu(), b.cpu(), w.cpu(), SR3_THRESHOLD).numpy()
+    t_host = perf_counter() - t0
+    gap = float((np.abs(card - host) / np.maximum(np.abs(host),
+                                                   1e-300)).max())
+    log(f'  sr3_l1, arm 1 weak system {tuple(A.shape)}, threshold '
+        f'{SR3_THRESHOLD}: card {t_card:.4f} s, host {t_host:.4f} s; '
+        f'coefficients {card}; largest relative gap {gap:.3e}')
+    np.testing.assert_array_equal(card != 0, host != 0)
+    if not (card != 0).any():
+        raise AssertionError('sr3_l1 kept no coefficient')
+    np.testing.assert_allclose(card, host, rtol=SR3_RTOL, atol=0)
+
+
+TRACE_CODE = '''
+import json, sys
+from pathlib import Path
+from insite_tpu_torch.harness.northstar import fused_northstar
+from insite_tpu_torch.utils import profiling
+kw = dict(seed=0, equation_name='EQ_4_D', projection_horizon=1,
+          gn_iters={gn_iters}, device='cuda')
+fused_northstar({n}, **kw)
+with profiling.trace(sys.argv[1]):
+    fused_northstar({n}, **kw)
+events = json.loads((Path(sys.argv[1]) / profiling.TRACE_FILE).read_text())
+names = [e['name'] for e in events['traceEvents']
+         if e.get('cat') == 'kernel']
+print(json.dumps({{'sens': sum('rollout_sens_kernel<' in s for s in names),
+                  'rollout': sum('rollout_kernel<' in s for s in names),
+                  'kernels': len(names)}}))
+'''
+
+
+def start_trace(tmp):
+    """(g), started: `utils.profiling.trace` around one warm 10,000-patient
+    north star, in a process of its own (a later profiler session in this
+    one would see no kernel events), writing into ``tmp``. It runs beside
+    the host-bound checks that follow it; `finish_trace` waits for it."""
+    from pathlib import Path
+    code = TRACE_CODE.format(n=N_PATIENTS, gn_iters=GN_ITERS)
+    return subprocess.Popen([sys.executable, '-c', code, tmp],
+                            cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_trace(child, tmp, t0):
+    """(g), checked: the child ended cleanly and its Chrome trace names
+    the sensitivity kernel `GN_ITERS` + 1 times and the rollout kernel
+    once."""
+    from pathlib import Path
+    out, err = child.communicate(timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f'the trace child failed:\n{err[-4000:]}')
+    counts = json.loads(out.strip().splitlines()[-1])
+    size = (Path(tmp) / 'trace.json').stat().st_size
+    log(f'  trace of a warm north star: {counts}, {size} bytes, '
+        f'{perf_counter() - t0:.4f} s from the child\'s start (beside '
+        f'(b), (c), (e) and (f))')
+    if (counts['sens'], counts['rollout']) != (GN_ITERS + 1, 1):
+        raise AssertionError(f'the trace names {counts}')
+
+
+def run_slice8(device, table_rows):
+    """Phase 15. Returns (the BFGS launches: the runs' and the lam tunes',
+    the 'xla' route's launches, the wall of each step)."""
+    import torch
+    walls = {}
+
+    def step(name, t0):
+        torch.cuda.synchronize(device)
+        walls[name] = perf_counter() - t0
+        log(f'[slice8] {name}: {walls[name]:.4f} s')
+
+    t0 = perf_counter()
+    log('[slice8] (a) EQ_4_D insite with the BFGS fine-tune, 1000/100/100')
+    bfgs = {'run': run_bfgs_run(device, table_rows)}
+    step('(a) BFGS insite run', t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t_trace = perf_counter()
+        log('[slice8] (g) started: profiling.trace around a warm north '
+            'star, in a child process')
+        child = start_trace(tmp)
+        try:
+            t0 = perf_counter()
+            log('[slice8] (b) BFGS card f64 vs host f64, 200 / 10 / 10')
+            check_bfgs_card_against_host(device)
+            step('(b) BFGS card vs host', t0)
+            t0 = perf_counter()
+            log('[slice8] (c) the lam tune under BFGS, card f64 vs host '
+                'f64, card f32')
+            bfgs['tune'] = check_bfgs_tune_card_against_host(device)
+            step('(c) BFGS lam tune', t0)
+            t0 = perf_counter()
+            log('[slice8] (e) legacy eq_1..eq_8, 1000/100/100')
+            run_legacy(device)
+            step('(e) legacy simulators', t0)
+            t0 = perf_counter()
+            log('[slice8] (f) sr3_l1 card vs host')
+            check_sr3(device)
+            step('(f) sr3_l1', t0)
+            t0 = perf_counter()
+            finish_trace(child, tmp, t_trace)
+            step('(g) trace, waiting for the child', t0)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    t0 = perf_counter()
+    log("[slice8] (d) the 'xla' route, EQ_4_D insite, 1000/100/100")
+    xla = run_xla_route(device)
+    step("(d) 'xla' route", t0)
+    return bfgs, xla, walls
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2984,6 +3544,13 @@ def main():
     log(f'[real] phase 14 wall {perf_counter() - t14:.4f} s; by step '
         f'{json.dumps(real_walls)}')
 
+    # 15. the BFGS and 'xla' fine-tunes, the legacy simulators, SR3, a trace
+    t15 = perf_counter()
+    bfgs_launches, xla_launches, slice8_walls = run_slice8(device,
+                                                           table_rows)
+    log(f'[slice8] phase 15 wall {perf_counter() - t15:.4f} s; by step '
+        f'{json.dumps(slice8_walls)}')
+
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
@@ -3023,6 +3590,13 @@ def main():
             # insite checkpoint's predict call on the EQ_4_D 1-step set
             'launches_real_data': real_launches[key],
             'launches_checkpoint_insite_predict': reload_launches[key],
+            # the BFGS insite runs in f32 and f64 (one sensitivity launch
+            # a BFGS evaluation) and the lam tunes under BFGS; the 'xla'
+            # route
+            'launches_bfgs': {f'{part} {tag}': n[key]
+                              for part, by_tag in bfgs_launches.items()
+                              for tag, n in by_tag.items()},
+            'launches_xla': xla_launches[key],
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

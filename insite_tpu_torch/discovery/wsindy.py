@@ -12,8 +12,10 @@ sparse solve and the candidate selection run on the host in float64.
 The per-seed path of `insite_tpu.discovery.wsindy`: `_test_functions`,
 `_hat_weights`, `weak_system`, `weak_system_segments`, `weak_stlsq_host`
 (one pair of `weak_candidates_host`, the solve over a grid) and
-`weak_select_host`; and `weak_sindy_fit_select`, the threshold-grid fit
-of the vectorized seed columns, on the same host pieces. The window starts
+`weak_select_host`; `weak_sindy_fit_select`, the threshold-grid fit
+of the vectorized seed columns, on the same host pieces; and
+`weak_sindy_fit`, one threshold by that host STLSQ or by `sr3_l1`, the
+SR3 relax-and-split solve on the device. The window starts
 come from numpy's `RandomState`, so a seed gives the JAX package's
 windows.
 """
@@ -273,3 +275,61 @@ def weak_sindy_fit_select(volumes, statics, lengths, library, dt,
     return weak_select_host(cands, flat_theta.cpu().numpy(),
                             flat_y.cpu().numpy(), sample_w.cpu().numpy(),
                             select_tol=select_tol)[0]
+
+
+def weak_sindy_fit(volumes, statics, lengths, library, dt,
+                   threshold: float, n_windows: int = 100,
+                   window_len: int = 30, sr3_iters: int = 1000,
+                   trajectory_mask=None, seed: int = 0,
+                   solver: str = 'stlsq'):
+    """`insite_tpu.discovery.wsindy.weak_sindy_fit`: the weak system of
+    one arm (float64 on the tensors' device) solved at one threshold, by
+    the host STLSQ of `weak_candidates_host` (ridge 0.5, the refit ridge
+    1e-8 of the mean diagonal, as the JAX `weak_stlsq`) or, with
+    ``solver='sr3'``, by `sr3_l1` on the device. Returns numpy
+    coefficients [F], float64."""
+    if solver not in ('stlsq', 'sr3'):
+        raise ValueError(f"solver={solver!r}; expected 'stlsq' or 'sr3'")
+    A, b, w = weak_system(volumes.double(), statics.double(), lengths,
+                          library, dt, n_windows=n_windows,
+                          window_len=window_len,
+                          trajectory_mask=trajectory_mask, seed=seed)
+    if solver == 'sr3':
+        return sr3_l1(A, b, w, threshold, max_iter=sr3_iters).cpu().numpy()
+    return weak_candidates_host(A.cpu().numpy(), b.cpu().numpy(),
+                                w.cpu().numpy(), [threshold], [0.5],
+                                refit_ridge=1e-8)[0]
+
+
+def sr3_l1(A, b, sample_weight, threshold: float, nu: float = 1.0,
+           max_iter: int = 1000):
+    """SR3 with l1 relax-and-split (pysindy ``SR3(thresholder='l1',
+    normalize_columns=True)``): minimise
+        0.5 ||b - A w||^2 + threshold |u|_1 + (0.5 / nu) ||w - u||^2
+    over the weighted rows with unit-norm columns, ``max_iter`` steps of
+    (w: one solve with the Cholesky factor of G + I / nu, taken once;
+    u: soft thresholding of w), then an unbiased refit on u's support and
+    the columns' scale undone. In float64 on the device of ``A``, whatever
+    its dtype, as the weak systems are (`models/sindy.py::
+    _weak_precision`). A [N, F], b [N], sample_weight [N] -> [F]."""
+    A, b, wgt = A.double(), b.double(), sample_weight.double()
+    Aw = A * wgt[:, None]
+    norms = torch.sqrt((Aw * Aw).sum(0))
+    norms = torch.where(norms > 0, norms, 1.0)
+    An = Aw / norms[None, :]
+    bw = b * wgt
+    G = An.T @ An
+    rhs0 = An.T @ bw
+    F = A.shape[1]
+    eye = torch.eye(F, dtype=A.dtype, device=A.device)
+    chol = torch.linalg.cholesky(G + (1.0 / nu) * eye)
+    u = torch.cholesky_solve(
+        rhs0[:, None], torch.linalg.cholesky(G + 1e-10 * eye))[:, 0]
+    for _ in range(max_iter):
+        w = torch.cholesky_solve((rhs0 + u / nu)[:, None], chol)[:, 0]
+        u = torch.sign(w) * torch.clamp(w.abs() - threshold * nu, min=0.0)
+    support = u.abs() > 1e-12
+    m = support.to(A.dtype)
+    Gm = G * torch.outer(m, m) + torch.diag(1.0 - m) + 1e-12 * eye
+    coef = torch.linalg.solve(Gm, rhs0 * m)
+    return torch.where(support, coef, 0.0) / norms

@@ -11,7 +11,12 @@ batch stride of 0). INSITE then fine-tunes the active coefficients per
 patient: a damped Gauss-Newton (Levenberg-Marquardt) loop over the whole
 cohort at once, whose residual Jacobian comes from the
 rollout-with-sensitivities kernel, one launch per iteration, followed by
-one launch of the rollout kernel for the predictions.
+one launch of the rollout kernel for the predictions; or, with
+``insite_solver='bfgs'``, a lock-step batched BFGS whose every objective
+and gradient evaluation is one launch of the same sensitivity kernel.
+``rollout_backend='xla'`` runs no kernel: the Levenberg-Marquardt Jacobian
+then comes from forward-mode autodiff through the plain rollout, and every
+rollout is the plain version.
 
 Two ablations: ``cfg.ablation_more_complex_basis_functions`` takes the
 full degree-4 library (its fine-tune goes through in chunks of 2048 rows),
@@ -19,8 +24,8 @@ and ``cfg.joint_model`` fits one ODE whose library also reads the binary
 treatment inputs; its rollouts and sensitivities run on the same kernels,
 folded onto a per-arm model by `ops/joint_fold.py`.
 
-CPU tensors take each kernel's plain PyTorch version and CUDA tensors the
-kernel; nothing falls back from one to the other.
+Otherwise CPU tensors take each kernel's plain PyTorch version and CUDA
+tensors the kernel; nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -42,17 +47,21 @@ from insite_tpu_torch.discovery.wsindy import (weak_candidates_host,
                                                weak_select_host, weak_system,
                                                weak_system_segments)
 from insite_tpu_torch.models.base import CausalEstimator
+from insite_tpu_torch.ops.bfgs import minimize_bfgs
 from insite_tpu_torch.ops.joint_fold import JointFold, combination_index
-from insite_tpu_torch.ops.rollout import batched_rollout, rollout_with_sens
+from insite_tpu_torch.ops.rollout import (batched_rollout,
+                                          batched_rollout_plain,
+                                          rollout_with_sens,
+                                          rollout_with_sens_plain)
 from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
 
 
 @dataclass
 class SINDyConfig:
     """Hyperparameters; the fields and defaults of
-    `insite_tpu.models.sindy.SINDyConfig`. The BFGS solver raises
-    `NotImplementedError` in `SINDyRegressor`, as does a dataset that is
-    none of EQ_4_*, CANCER_SIM and EQ_5_*."""
+    `insite_tpu.models.sindy.SINDyConfig`. A dataset that is none of
+    EQ_4_*, CANCER_SIM and EQ_5_* raises `NotImplementedError` in
+    `SINDyRegressor`."""
 
     dataset_name: str = 'EQ_4_A'
     sindy_threshold: float = 0.1
@@ -80,14 +89,18 @@ class SINDyConfig:
     projection_horizon: int = 5
     treatment_mode: str = 'multiclass'
     max_stlsq_iter: int = 100
+    # changes nothing: the JAX package hands it to `minimize` as ``tol``,
+    # which its BFGS ignores (gtol stays 1e-5)
     bfgs_tol: float = 1e-12
+    # BFGS iterations a row (None: 200 * A * F)
     bfgs_maxiter: Optional[int] = None
-    # 'gauss_newton': the Levenberg-Marquardt fine-tune (the only solver
-    # ported; 'bfgs' raises)
+    # 'gauss_newton' (Levenberg-Marquardt) or 'bfgs'
     insite_solver: str = 'gauss_newton'
     gn_iters: int = 12
-    # the device of the tensors picks kernel or plain version; 'auto' is
-    # the only value
+    # 'auto': the device of the tensors picks kernel or plain version;
+    # 'pallas': the kernels, and CUDA tensors are required; 'xla': the
+    # plain versions on any device, the Levenberg-Marquardt Jacobian from
+    # jvp through the plain rollout
     rollout_backend: str = 'auto'
     # rows per fine-tune call (None: the whole set in one call, or 2048
     # with the degree-4 library); the last chunk is padded by repeating its
@@ -117,20 +130,33 @@ def resolve_y_clip(y_clip, dataset_name: str):
     return (0.0, float(TUMOUR_DEATH_THRESHOLD))
 
 
+INSITE_SOLVERS = ('gauss_newton', 'bfgs')
+ROLLOUT_BACKENDS = ('auto', 'pallas', 'xla')
+
+
 def _unserved(cfg: SINDyConfig) -> list:
-    """The settings of later slices that ``cfg`` asks for."""
+    """The settings ``cfg`` asks for that no package serves."""
     out = []
     if not (_is_eq4(cfg.dataset_name) or _is_tumor(cfg.dataset_name)):
         out.append(f'dataset_name={cfg.dataset_name!r} (not a simulated '
                    'benchmark: the JAX package serves no SINDy fit on real '
                    'data)')
-    if cfg.insite_solver != 'gauss_newton':
-        out.append(f'insite_solver={cfg.insite_solver!r} (the BFGS '
-                   'fine-tune is ported only when a caller needs it)')
-    if cfg.rollout_backend != 'auto':
-        out.append(f'rollout_backend={cfg.rollout_backend!r} (the tensors\' '
-                   'device picks kernel or plain version)')
     return out
+
+
+def _check_solver_settings(cfg: SINDyConfig, device: torch.device) -> None:
+    """Unknown solver or backend names raise, and so do the kernels asked
+    for on tensors they cannot take."""
+    if cfg.insite_solver not in INSITE_SOLVERS:
+        raise ValueError(f'insite_solver={cfg.insite_solver!r}; expected '
+                         f'one of {INSITE_SOLVERS}')
+    if cfg.rollout_backend not in ROLLOUT_BACKENDS:
+        raise ValueError(f'rollout_backend={cfg.rollout_backend!r}; '
+                         f'expected one of {ROLLOUT_BACKENDS}')
+    if cfg.rollout_backend == 'pallas' and device.type != 'cuda':
+        raise ValueError("rollout_backend='pallas' runs the rollout "
+                         'kernels, which need CUDA tensors; the device is '
+                         f'{device}')
 
 
 class SINDyRegressor(CausalEstimator):
@@ -146,6 +172,7 @@ class SINDyRegressor(CausalEstimator):
                 'not ported yet (ROADMAP.md): ' + ', '.join(unserved))
         self.cfg = cfg
         self.device = torch.device(device)
+        _check_solver_settings(cfg, self.device)
         self.dtype = resolve_float(dtype)
         self.dt = STANDARD_DT
         self.global_equation_string = ''
@@ -386,9 +413,14 @@ class SINDyRegressor(CausalEstimator):
         preds = (preds - sp['output_means']) / sp['output_stds']
         return preds.cpu().numpy()[..., None]
 
+    @property
+    def _plain(self) -> bool:
+        """``rollout_backend='xla'``: the plain versions, no kernel."""
+        return self.cfg.rollout_backend == 'xla'
+
     def _global_rollout(self, dataset) -> np.ndarray:
         prev, statics, arms, lengths = self._rollout_args(dataset)
-        roll, _ = _rollouts(self.library, self._fold)
+        roll, _ = _rollouts(self.library, self._fold, self._plain)
         preds = roll(self._tensor(self.coefs)[None], prev[:, 0], statics,
                      arms, self.dt, y_clip=self._y_clip())
         return self._scaled_numpy(preds, lengths, dataset)
@@ -407,6 +439,11 @@ class SINDyRegressor(CausalEstimator):
         stacked G times on the batch axis, copy g fine-tuned with
         ``lam_grid[g]``, all in one fine-tune: preds [G * N, T]. Otherwise
         every row takes ``cfg.lam``.
+
+        ``cfg.insite_solver`` picks Levenberg-Marquardt or BFGS and
+        ``cfg.rollout_backend`` kernels or plain versions, as the JAX
+        package's `_fine_tune` dispatches (its fallback from a failed
+        Pallas kernel to XLA is not ported: a kernel failure raises).
 
         With ``cfg.finetune_chunk`` (2048 by default with the degree-4
         library, whose Jacobian is [rows, T, up to A * 35]) the rows go
@@ -432,12 +469,20 @@ class SINDyRegressor(CausalEstimator):
                 return _empty_support_predict(
                     self.library, coefs, prev_c, statics_c, arms_c,
                     lengths_c, self.dt, projection_horizon, self._y_clip(),
-                    fold=self._fold)
-            return insite_gn_finetune_predict(
-                self.library, coefs, prev_c, statics_c, arms_c, lengths_c,
-                self.dt, lam=lam_c, projection_horizon=projection_horizon,
-                gn_iters=cfg.gn_iters, y_clip=self._y_clip(),
-                active_idx=active_idx, fold=self._fold)
+                    fold=self._fold, plain=self._plain)
+            args = (self.library, coefs, prev_c, statics_c, arms_c,
+                    lengths_c, self.dt)
+            kw = dict(lam=lam_c, projection_horizon=projection_horizon,
+                      y_clip=self._y_clip(), active_idx=active_idx,
+                      fold=self._fold)
+            if cfg.insite_solver == 'bfgs':
+                preds, coefs_out, _ = insite_finetune_predict(
+                    *args, bfgs_maxiter=cfg.bfgs_maxiter, plain=self._plain,
+                    **kw)
+                return preds, coefs_out
+            gn = (insite_gn_finetune_predict_jvp if self._plain
+                  else insite_gn_finetune_predict)
+            return gn(*args, gn_iters=cfg.gn_iters, **kw)
 
         chunk = cfg.finetune_chunk
         if chunk is None and cfg.ablation_more_complex_basis_functions:
@@ -500,20 +545,26 @@ def _weak_precision(volumes, statics):
     return volumes.double(), statics.double()
 
 
-def _rollouts(library, fold: Optional[JointFold] = None):
+def _rollouts(library, fold: Optional[JointFold] = None,
+              plain: bool = False):
     """(rollout, rollout with sensitivities) of a per-arm model over
     ``library`` or, given ``fold``, of the joint model it folds: both take
     (coefs, y0, statics, arms, dt, ...) as `ops/rollout.py`'s do after the
-    library."""
+    library. ``plain``: the kernels' plain versions, on any device."""
     if fold is not None:
+        if plain:
+            return fold.rollout_plain, fold.rollout_with_sens_plain
         return fold.rollout, fold.rollout_with_sens
+    if plain:
+        return partial(batched_rollout_plain, library), \
+            partial(rollout_with_sens_plain, library)
     return partial(batched_rollout, library), \
         partial(rollout_with_sens, library)
 
 
 def _empty_support_predict(library, global_coefs, prev, statics, arms,
                            lengths, dt, projection_horizon: int,
-                           y_clip=None, fold=None):
+                           y_clip=None, fold=None, plain=False):
     """The fine-tune when no global coefficient exceeds 1e-3: nothing can
     move, so rows longer than the horizon roll out the masked global model
     ``global * (|global| > 1e-3)`` and the others the full global model,
@@ -523,7 +574,7 @@ def _empty_support_predict(library, global_coefs, prev, statics, arms,
     masked = g * (g.abs() > 1e-3)
     skip = (lengths <= projection_horizon)[:, None, None]
     coefs = torch.where(skip, g, masked)
-    roll, _ = _rollouts(library, fold)
+    roll, _ = _rollouts(library, fold, plain)
     preds = roll(coefs, prev[:, 0], statics, arms, dt, y_clip=y_clip)
     return preds, coefs
 
@@ -582,96 +633,114 @@ def _tumor_design(vol_j, statics, arms_idx, lengths, dt, library,
             arm)
 
 
-def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
-                               lengths, dt, lam, projection_horizon: int,
-                               gn_iters: int = 12, y_clip=None,
-                               active_idx=(), fold=None):
-    """INSITE fine-tune: per-patient Levenberg-Marquardt over the active
-    coefficients, then the rollout of each patient's model.
+class _Reduced:
+    """What every INSITE fine-tune shares: the problem in the Kr active
+    coordinates, the one-step prefix each row is fitted on, and the rows
+    that are not fine-tuned.
+
+    global_coefs [A, F], or [B, A, F] a global model per row (the
+    vectorized seed columns: each row its own seed's), with active_idx the
+    union of the rows' supports; prev [B, T] observed y[0..T-1]; lengths
+    [B]. A row fits its first ``lengths - projection_horizon`` one-step
+    errors; a row with ``lengths <= projection_horizon`` (``skip``) is not
+    fine-tuned and rolls out the full unmasked global model. With a global
+    model per row, a row moves only its own support, and a row whose
+    support is empty rolls out its masked global model, as
+    `_empty_support_predict` gives.
+    """
+
+    def __init__(self, global_coefs, prev, lengths, projection_horizon,
+                 active_idx):
+        if len(active_idx) == 0:
+            raise ValueError('the fine-tune needs at least one active '
+                             'coefficient')
+        dev, dtype = prev.device, prev.dtype
+        self.prev = prev
+        self.per_row = global_coefs.ndim == 3
+        g_rows = global_coefs.to(dtype)
+        if not self.per_row:
+            g_rows = g_rows[None]                               # [1|B, A, F]
+        self.g_rows = g_rows
+        self.A, self.F = g_rows.shape[1:]
+        self.K = self.A * self.F
+        self.active_idx = tuple(active_idx)
+        self.act = torch.tensor(active_idx, device=dev)
+        self.Kr = len(active_idx)
+        self.B, self.T = prev.shape
+        self.sparse_flat = (g_rows.abs() > 1e-3).to(dtype).reshape(-1, self.K)
+        self.g_red = g_rows.reshape(-1, self.K)[:, self.act]     # [1|B, Kr]
+        # each row's own support among the union's coordinates
+        self.own = (self.sparse_flat[:, self.act] > 0 if self.per_row
+                    else None)                                  # [B, Kr]
+        ph = projection_horizon
+        self.prefix = (torch.arange(self.T - 1, device=dev)[None, :]
+                       < (lengths - ph)[:, None])               # [B, T-1]
+        self.n_mask = torch.clamp(self.prefix.to(dtype).sum(1), min=1.0)
+        self.skip = lengths <= ph                               # [B]
+
+    def to_full(self, c_red):
+        """[B, Kr] active coordinates -> the masked model [B, A, F]."""
+        c = torch.zeros((self.B, self.K), dtype=c_red.dtype,
+                        device=c_red.device).index_copy(1, self.act, c_red)
+        return (c * self.sparse_flat).reshape(self.B, self.A, self.F)
+
+    def residuals(self, y):
+        """The prefix's one-step errors prev[t+1] - y_t, 0 elsewhere."""
+        return torch.where(self.prefix, self.prev[:, 1:] - y[:, :-1], 0.0)
+
+    def sens_residuals(self, roll_sens, c_red, statics, arms, dt, y_clip):
+        """(residuals r [B, T-1], their Jacobian J = -dy/dc [B, T-1, Kr])
+        from one rollout with sensitivities. With a global model per row,
+        the coordinates of the union outside a row's own support get a
+        zero Jacobian, as in the JAX package's full-K problem, so they stay
+        at the row's global value and are masked out of its model."""
+        y, s = roll_sens(self.to_full(c_red), self.prev[:, 0], statics,
+                         arms, dt, self.active_idx, y_clip=y_clip)
+        J = torch.where(self.prefix[..., None], -s[:, :-1, :], 0.0)
+        if self.per_row:
+            J = torch.where(self.own[:, None, :], J, 0.0)
+        return self.residuals(y), J
+
+    def predict(self, roll, c_red, statics, arms, dt, y_clip):
+        """Every row's model and its rollout: (preds [B, T], coefs [B, A,
+        F]). Skip rows roll out the FULL unmasked global model: to_full
+        drops retained sub-threshold (|coef| <= 1e-3) entries."""
+        coefs = torch.where(self.skip[:, None], self.g_red, c_red)
+        coefs_full = torch.where(self.skip[:, None, None], self.g_rows,
+                                 self.to_full(coefs))
+        preds = roll(coefs_full, self.prev[:, 0], statics, arms, dt,
+                     y_clip=y_clip)
+        return preds, coefs_full
+
+
+def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int):
+    """The LM loop over the active coordinates: returns each row's best
+    coefficients [B, Kr].
 
     Objective (the reference's f_to_min_func):
         prefix_mse(c) / (2.5 * prefix_mse(c_global)) + lam * mean((c - g)^2)
-    over the first ``lengths - projection_horizon`` one-step errors. Each
-    iteration evaluates the pending candidate with one
-    rollout-with-sensitivities call, keeps it only if it lowers the
-    objective (deferred acceptance), and proposes the next step from a
-    batched [B, Kr, Kr] solve. Rows with ``lengths <= projection_horizon``
-    keep, and roll out, the full unmasked global coefficients.
-
-    global_coefs [A, F]; prev [B, T] observed y[0..T-1]; statics [B, S];
-    arms [B, T]; lengths [B]; lam a float, or a [B] tensor, a penalty per
-    row (the lam grid's rows stacked); active_idx: the flat
-    (arm * F + feature) coordinates with |global coef| > 1e-3. Returns
-    (preds [B, T], coefs [B, A, F]).
-
-    global_coefs may also be [B, A, F], a global model per row (the
-    vectorized seed columns: each row its own seed's), with active_idx the
-    union of the rows' supports. Each row then moves only its own
-    support: the kernel's sensitivities of the union coordinates outside
-    it are zeroed, so those stay at the row's global value and are masked
-    out of its model, as in the JAX package's full-K problem, where they
-    have a zero Jacobian. A row whose support is empty rolls out its
-    masked global model, as `_empty_support_predict` gives.
-
-    With ``fold`` (a `JointFold` of ``library``) the
-    model is the joint one: global_coefs [1, F_joint], arms the combination
-    index per step, and the loop works on the joint coordinates while the
-    kernels run the folded per-arm model.
+    ``resid_jac(c_red) -> (r, J)`` evaluates the pending candidate once an
+    iteration, which is kept only if it lowers the objective (deferred
+    acceptance); the next step comes from a batched [B, Kr, Kr] solve.
 
     The float32 contractions below go through cuBLAS in full float32:
     PyTorch leaves TF32 off for matmuls (torch.backends.cuda.matmul.
     allow_tf32 is False) unless a caller turns it on, and callers of this
     function must not.
     """
-    if len(active_idx) == 0:
-        raise ValueError('the fine-tune needs at least one active '
-                         'coefficient')
-    dev, dtype = prev.device, prev.dtype
-    roll, roll_sens = _rollouts(library, fold)
-    per_row = global_coefs.ndim == 3
-    g_rows = global_coefs.to(dtype)
-    if not per_row:
-        g_rows = g_rows[None]                                   # [1|B, A, F]
-    A, F = g_rows.shape[1:]
-    K = A * F
-    act = torch.tensor(active_idx, device=dev)
-    Kr = len(active_idx)
-    B, T = prev.shape
-    sparse_flat = (g_rows.abs() > 1e-3).to(dtype).reshape(-1, K)
-    g_red = g_rows.reshape(-1, K)[:, act]                       # [1|B, Kr]
-    # each row's own support among the union's coordinates
-    own = sparse_flat[:, act] > 0 if per_row else None          # [B, Kr]
-
-    ph = projection_horizon
-    prefix = (torch.arange(T - 1, device=dev)[None, :]
-              < (lengths - ph)[:, None])                        # [B, T-1]
-    n_mask = torch.clamp(prefix.to(dtype).sum(1), min=1.0)      # [B]
-    skip = lengths <= ph                                        # [B]
+    dtype, dev, B, Kr = pb.prev.dtype, pb.prev.device, pb.B, pb.Kr
+    g_red = pb.g_red
     eye = torch.eye(Kr, dtype=dtype, device=dev)
     if torch.is_tensor(lam):
         # per row; lam / K in float64, then rounded once, as for a float
-        reg2 = (lam.to(torch.float64) / K).to(dtype)            # [B]
+        reg2 = (lam.to(torch.float64) / pb.K).to(dtype)         # [B]
         reg2_vec, reg2_mat = reg2[:, None], reg2[:, None, None]
     else:
-        reg2 = reg2_vec = reg2_mat = lam / K                    # reg_scale^2
-
-    def to_full(c_red):                                         # [B, Kr]
-        c = torch.zeros((B, K), dtype=dtype, device=dev)
-        c[:, act] = c_red
-        return (c * sparse_flat).reshape(B, A, F)
-
-    def resid_jac(c_red):
-        y, s = roll_sens(to_full(c_red), prev[:, 0], statics, arms, dt,
-                         active_idx, y_clip=y_clip)
-        r = torch.where(prefix, prev[:, 1:] - y[:, :-1], 0.0)
-        J = torch.where(prefix[..., None], -s[:, :-1, :], 0.0)
-        if per_row:
-            J = torch.where(own[:, None, :], J, 0.0)
-        return r, J
+        reg2 = reg2_vec = reg2_mat = lam / pb.K                 # reg_scale^2
 
     r0, J0 = resid_jac(g_red.expand(B, Kr))
-    mse0 = (r0 ** 2).sum(1) / n_mask
-    ds = 1.0 / torch.sqrt(2.5 * torch.clamp(mse0, min=1e-30) * n_mask)
+    mse0 = (r0 ** 2).sum(1) / pb.n_mask
+    ds = 1.0 / torch.sqrt(2.5 * torch.clamp(mse0, min=1e-30) * pb.n_mask)
 
     def full_obj(r, c):
         return ((r * ds[:, None]) ** 2).sum(1) + \
@@ -703,10 +772,148 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
         J_best = torch.where(better[:, None, None], J_c, J_best)
         mu = torch.clamp(torch.where(better, mu * 0.3, mu * 10.0), 1e-8, 1e8)
         cand = solve_step(r_best, J_best, c_best, mu)
+    return c_best
 
-    coefs = torch.where(skip[:, None], g_red, c_best)
-    # skip rows roll out the FULL unmasked global model: to_full drops
-    # retained sub-threshold (|coef| <= 1e-3) entries
-    coefs_full = torch.where(skip[:, None, None], g_rows, to_full(coefs))
-    preds = roll(coefs_full, prev[:, 0], statics, arms, dt, y_clip=y_clip)
-    return preds, coefs_full
+
+def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
+                               lengths, dt, lam, projection_horizon: int,
+                               gn_iters: int = 12, y_clip=None,
+                               active_idx=(), fold=None):
+    """INSITE fine-tune by Levenberg-Marquardt (`_levenberg_marquardt`)
+    with the residual Jacobian from the rollout-with-sensitivities kernel,
+    one launch an iteration, then one launch of the rollout kernel for
+    every patient's model (the JAX package's
+    `insite_gn_finetune_predict_pallas`). Rows with ``lengths <=
+    projection_horizon`` keep, and roll out, the full unmasked global
+    coefficients.
+
+    global_coefs [A, F], or [B, A, F] a global model per row (see
+    `_Reduced`); prev [B, T] observed y[0..T-1]; statics [B, S]; arms
+    [B, T]; lengths [B]; lam a float, or a [B] tensor, a penalty per row
+    (the lam grid's rows stacked); active_idx: the flat (arm * F +
+    feature) coordinates with |global coef| > 1e-3. Returns (preds [B, T],
+    coefs [B, A, F]).
+
+    With ``fold`` (a `JointFold` of ``library``) the model is the joint
+    one: global_coefs [1, F_joint], arms the combination index per step,
+    and the loop works on the joint coordinates while the kernels run the
+    folded per-arm model.
+    """
+    pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
+                  active_idx)
+    roll, roll_sens = _rollouts(library, fold)
+    c_best = _levenberg_marquardt(
+        pb, lambda c: pb.sens_residuals(roll_sens, c, statics, arms, dt,
+                                        y_clip), lam, gn_iters)
+    return pb.predict(roll, c_best, statics, arms, dt, y_clip)
+
+
+def insite_gn_finetune_predict_jvp(library, global_coefs, prev, statics,
+                                   arms, lengths, dt, lam,
+                                   projection_horizon: int,
+                                   gn_iters: int = 12, y_clip=None,
+                                   active_idx=(), fold=None):
+    """The Levenberg-Marquardt fine-tune of `insite_gn_finetune_predict`
+    with the Jacobian from forward-mode autodiff through the plain
+    rollout (`torch.func.vmap` of `torch.func.jvp` over the Kr coordinate
+    basis: one rollout carries every tangent) and the final rollout by the
+    plain version too: no kernel runs (the JAX package's
+    `insite_gn_finetune_predict`, jvp through `lax.scan`, which its
+    ``rollout_backend='xla'`` selects). Arguments and result as
+    `insite_gn_finetune_predict`."""
+    pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
+                  active_idx)
+    roll, _ = _rollouts(library, fold, plain=True)
+
+    def data_residuals(c_red):
+        y = roll(pb.to_full(c_red), prev[:, 0], statics, arms, dt,
+                 y_clip=y_clip)
+        return pb.residuals(y)
+
+    tangents = torch.eye(pb.Kr, dtype=prev.dtype, device=prev.device)[
+        :, None, :].expand(pb.Kr, pb.B, pb.Kr)
+
+    def resid_jac(c_red):
+        r, Jt = torch.func.vmap(lambda v: torch.func.jvp(
+            data_residuals, (c_red,), (v,)))(tangents)
+        J = Jt.permute(1, 2, 0)                                 # [B, T-1, Kr]
+        if pb.per_row:
+            J = torch.where(pb.own[:, None, :], J, 0.0)
+        return r[0], J
+
+    c_best = _levenberg_marquardt(pb, resid_jac, lam, gn_iters)
+    return pb.predict(roll, c_best, statics, arms, dt, y_clip)
+
+
+def insite_finetune_predict(library, global_coefs, prev, statics, arms,
+                            lengths, dt, lam, projection_horizon: int,
+                            bfgs_maxiter=None, y_clip=None, active_idx=(),
+                            fold=None, plain: bool = False):
+    """INSITE fine-tune by BFGS (the JAX package's
+    `insite_finetune_predict`, ``insite_solver='bfgs'``): every row's
+    problem minimised by one lock-step batched BFGS (`ops/bfgs.py`), each
+    objective-and-gradient evaluation one launch of the
+    rollout-with-sensitivities kernel, then one launch of the rollout
+    kernel for every patient's model.
+
+    Objective (f_to_min_func):
+        f(c) = sum_t r_t^2 / (n_mask * nc) + lam * sum_j (c_j - g_j)^2 / K
+    with r_t = prev[t+1] - y_t(c) on the prefix t < lengths - ph, n_mask
+    its length (at least 1), nc = max(2.5 * mse0, 1e-30) from the global
+    model's prefix mean squared error, and K = A * F; its gradient comes
+    from the sensitivities s = dy/dc,
+        grad f = -2 sum_t r_t s_t / (n_mask * nc) + 2 lam (c - g) / K.
+
+    The JAX package runs BFGS over all K coordinates; this runs it over
+    the Kr active ones, and that is the same problem. The data term sees
+    ``c * sparse_mask``, and the penalty's gradient is 0 at c = g, so at
+    the start the gradient is exactly 0 on the masked coordinates. Then
+    the search direction -H g, the step s and the gradient change y are 0
+    there at every iteration, and the inverse-Hessian update keeps H's
+    identity block on them and zeros between them and the active block:
+    the masked coordinates never move and never enter the active ones'
+    arithmetic. The iteration limit stays JAX's: ``bfgs_maxiter``, or
+    200 * K of the full K when None. JAX's `minimize` ignores its ``tol``
+    (gtol stays 1e-5 on the largest gradient entry), so no tolerance is
+    taken here: `SINDyConfig.bfgs_tol` changes nothing, as in the JAX
+    package.
+
+    A row whose line search ends with its zoom failed (status 3) takes the
+    masked global model; rows with ``lengths <= projection_horizon`` take
+    the full unmasked global model. In float32 the objective's last digits
+    stall most rows' line searches before the gradient reaches 1e-5, so
+    most rows end with status 3, in the JAX package too (an EQ_4_D test
+    set on the H100: 97.7 %; 0.5 % in float64). ``plain``: the plain versions of both
+    kernels (``rollout_backend='xla'``). Arguments otherwise as
+    `insite_gn_finetune_predict` (a [B] ``lam``, per-row globals and
+    ``fold`` included). Returns (preds [B, T], coefs [B, A, F], the
+    `BFGSResult` of the reduced problem)."""
+    pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
+                  active_idx)
+    roll, roll_sens = _rollouts(library, fold, plain)
+    if torch.is_tensor(lam):
+        lam = lam.to(prev.dtype)
+        lam_col = lam[:, None]
+    else:
+        lam_col = lam
+    nc = None
+
+    def fun_and_grad(c_red):
+        nonlocal nc
+        r, J = pb.sens_residuals(roll_sens, c_red, statics, arms, dt, y_clip)
+        mse = (r * r).sum(1) / pb.n_mask
+        if nc is None:
+            # the first evaluation is at the global model
+            nc = torch.clamp(mse * 2.5, min=1e-30)
+        d = c_red - pb.g_red
+        f = mse / nc + lam * ((d * d).sum(1) / pb.K)
+        g = 2.0 * torch.einsum('bt,btk->bk', r, J) \
+            / (pb.n_mask * nc)[:, None] + lam_col * (2.0 * d / pb.K)
+        return f, g
+
+    maxiter = 200 * pb.K if bfgs_maxiter is None else bfgs_maxiter
+    res = minimize_bfgs(fun_and_grad, pb.g_red.expand(pb.B, pb.Kr),
+                        maxiter=maxiter)
+    c_red = torch.where((res.status == 3)[:, None], pb.g_red, res.x_k)
+    preds, coefs = pb.predict(roll, c_red, statics, arms, dt, y_clip)
+    return preds, coefs, res

@@ -30,7 +30,10 @@ import torch
 
 from insite_tpu_torch.core.constants import STEPS_FOR_DT
 from insite_tpu_torch.discovery.library import PolynomialLibrary
-from insite_tpu_torch.ops.rollout import batched_rollout, rollout_with_sens
+from insite_tpu_torch.ops.rollout import (batched_rollout,
+                                          batched_rollout_plain,
+                                          rollout_with_sens,
+                                          rollout_with_sens_plain)
 
 
 def combination_index(treatments: np.ndarray) -> np.ndarray:
@@ -122,9 +125,27 @@ class JointFold:
                           substeps=STEPS_FOR_DT, y_clip=None):
         """`rollout_with_sens` of the joint model: (preds [B, T],
         d y / d c_joint[active_idx] [B, T, Kr])."""
+        return self._with_sens(rollout_with_sens, coefs, y0, statics, arms,
+                               dt, active_idx, substeps, y_clip)
+
+    def rollout_plain(self, coefs, y0, statics, arms, dt,
+                      substeps=STEPS_FOR_DT, y_clip=None):
+        """`rollout` by the plain version on any device; differentiable in
+        ``coefs`` (the fold is an einsum)."""
+        return batched_rollout_plain(self.library, self.effective(coefs), y0,
+                                     statics, arms, dt, substeps, y_clip)
+
+    def rollout_with_sens_plain(self, coefs, y0, statics, arms, dt,
+                                active_idx, substeps=STEPS_FOR_DT,
+                                y_clip=None):
+        """`rollout_with_sens` by the plain version on any device."""
+        return self._with_sens(rollout_with_sens_plain, coefs, y0, statics,
+                               arms, dt, active_idx, substeps, y_clip)
+
+    def _with_sens(self, sens_fn, coefs, y0, statics, arms, dt, active_idx,
+                   substeps, y_clip):
         active_idx = tuple(active_idx)
         eff_idx, M_act = self.effective_active(active_idx)
-        y, s_eff = rollout_with_sens(self.library, self.effective(coefs), y0,
-                                     statics, arms, dt, eff_idx, substeps,
-                                     y_clip)
+        y, s_eff = sens_fn(self.library, self.effective(coefs), y0, statics,
+                           arms, dt, eff_idx, substeps, y_clip)
         return y, s_eff @ self._on(active_idx, M_act, s_eff)

@@ -1,8 +1,10 @@
 """The port stands alone: no module of insite_tpu_torch imports jax, flax,
 optax or the JAX package (importing any insite_tpu module imports jax),
-nor pandas, msgpack or PyYAML, which the card machine does not have. The one
-exception is `yaml`, imported inside the body of `RunConfig.from_yaml`
-alone, so only loading a YAML config needs PyYAML."""
+nor pandas, msgpack, PyYAML or matplotlib, which the card machine does not
+have. Two exceptions: `yaml`, imported inside the body of
+`RunConfig.from_yaml` alone, so only loading a YAML config needs PyYAML,
+and `matplotlib`, imported inside the functions of `harness/plots.py`
+alone, so only drawing a figure needs it."""
 
 import ast
 from pathlib import Path
@@ -11,12 +13,14 @@ import pytest
 
 PACKAGE = Path(__file__).resolve().parent.parent / 'insite_tpu_torch'
 FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'insite_tpu', 'pandas',
-             'msgpack', 'yaml'}
+             'msgpack', 'yaml', 'matplotlib'}
 FILES = sorted(PACKAGE.rglob('*.py'))
 
 
 # (module, class, function) whose body alone may import yaml
 YAML_IMPORTER = ('harness/config.py', 'RunConfig', 'from_yaml')
+# the module whose function bodies alone may import matplotlib
+MATPLOTLIB_IMPORTER = 'harness/plots.py'
 
 
 def _roots(node):
@@ -44,10 +48,29 @@ def _yaml_importer(tree):
     raise AssertionError(f'{cls_name}.{fn_name} not found')
 
 
+def _function_bodies(tree):
+    """Every node inside a function body of ``tree``."""
+    inside = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            inside |= set(ast.walk(node)) - {node}
+    return inside
+
+
 def _roots_allowed(path, tree):
     """Every imported root of ``path``, with the yaml import of
-    `RunConfig.from_yaml` left out."""
-    if str(path.relative_to(PACKAGE)) != YAML_IMPORTER[0]:
+    `RunConfig.from_yaml` and the matplotlib imports inside the functions
+    of `harness/plots.py` left out."""
+    rel = str(path.relative_to(PACKAGE))
+    if rel == MATPLOTLIB_IMPORTER:
+        inside = _function_bodies(tree)
+        roots = set()
+        for node in ast.walk(tree):
+            roots |= {r for r in _roots(node)
+                      if not (r == 'matplotlib' and node in inside)}
+        return roots
+    if rel != YAML_IMPORTER[0]:
         return set(_imported_roots(tree))
     fn = _yaml_importer(tree)
     inner = set(_imported_roots(fn))
@@ -76,8 +99,8 @@ def test_module_imports_no_jax(path):
 @pytest.mark.parametrize('path', FILES,
                          ids=[str(p.relative_to(PACKAGE)) for p in FILES])
 def test_no_module_level_yaml_import(path):
-    """No module imports yaml where importing the module would run it: at
-    module level, or in a class body."""
+    """No module imports yaml or matplotlib where importing the module
+    would run it: at module level, or in a class body."""
     tree = ast.parse(path.read_text(), filename=str(path))
 
     def outside_functions(node):
@@ -91,7 +114,16 @@ def test_no_module_level_yaml_import(path):
     roots = set()
     for node in outside_functions(tree):
         roots |= set(_roots(node))
-    assert 'yaml' not in roots
+    assert not roots & {'yaml', 'matplotlib'}
+
+
+def test_plots_import_matplotlib_inside_functions():
+    """The figures need matplotlib, imported where a function draws."""
+    tree = ast.parse((PACKAGE / MATPLOTLIB_IMPORTER).read_text())
+    inside = _function_bodies(tree)
+    found = [node for node in ast.walk(tree)
+             if 'matplotlib' in set(_roots(node))]
+    assert found and all(node in inside for node in found)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -19,6 +19,7 @@ from insite_tpu.models.sindy import resolve_y_clip as jax_resolve_y_clip
 from insite_tpu_torch import convert
 from insite_tpu_torch.data.collection import SUBSETS, make_collection
 from insite_tpu_torch.data.dataset import SeqDataset
+from insite_tpu_torch.models import sindy
 from insite_tpu_torch.models.sindy import (SINDyConfig, SINDyRegressor,
                                            resolve_y_clip)
 from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
@@ -126,11 +127,13 @@ def test_empty_support_matches_jax(pristine):
     ('ablation_more_complex_basis_functions', True),
     ('insite_solver', 'bfgs'), ('dataset_name', 'MIMIC'),
     ('rollout_backend', 'xla')])
-def test_later_slices_raise(field, value):
+def test_later_slices_raise(field, value, monkeypatch):
     """What the estimator does not serve raises at construction, saying
     why; the weak fit, the joint model and the degree-4 library are
     served (their parity tests: test_torch_wsindy.py, test_torch_joint.py,
-    test_torch_degree4.py)."""
+    test_torch_degree4.py), and so are the BFGS fine-tune and the 'xla'
+    route, whose fine-tunes go to their own functions (their parity tests:
+    test_torch_bfgs.py)."""
     cfg = SINDyConfig(**{field: value})
     if field in ('wsindy', 'joint_model',
                  'ablation_more_complex_basis_functions'):
@@ -138,12 +141,29 @@ def test_later_slices_raise(field, value):
         assert getattr(model.cfg, field) is True
         assert model._n_arms == (1 if field == 'joint_model' else 2)
         return
-    reason = {'insite_solver': 'BFGS fine-tune is ported only when a '
-                               'caller needs it',
-              'dataset_name': 'the JAX package serves no SINDy fit on '
-                              'real data',
-              'rollout_backend': 'device picks kernel or plain'}[field]
-    with pytest.raises(NotImplementedError, match=reason):
+    if field in ('insite_solver', 'rollout_backend'):
+        route = {'insite_solver': 'insite_finetune_predict',
+                 'rollout_backend': 'insite_gn_finetune_predict_jvp'}[field]
+        coll = make_collection('EQ_4_D', {'train': 20, 'val': 2, 'test': 2},
+                               seed=0, coeff=2.0, **F64)
+        model = SINDyRegressor(dataclasses.replace(cfg, dataset_name='EQ_4_D',
+                                                   insite=True),
+                               coll, **F64).fit(coll.train_f)
+        assert getattr(model.cfg, field) == value
+
+        class Taken(Exception):
+            pass
+
+        def take(*args, **kwargs):
+            raise Taken(route)
+
+        monkeypatch.setattr(sindy, route, take)
+        with pytest.raises(Taken, match=route):
+            model._fine_tune(coll.test_cf_one_step, 1)
+        return
+    with pytest.raises(NotImplementedError,
+                       match='the JAX package serves no SINDy fit on real '
+                             'data'):
         SINDyRegressor(cfg, None, **F64)
 
 
