@@ -267,6 +267,24 @@ Phases, in order; any failure exits non-zero:
             process of its own, run beside (b), (c), (e) and (f): the
             Chrome trace names the sensitivity kernel 13 times and the
             rollout kernel once. (d) runs last, alone.
+16. entry   the repository's own entry points, ported: (a) the bench
+            (`insite_tpu_torch.bench.main`) in this process at 10,000
+            patients, fused with 2 device-time repeats and standard: the
+            JSON line's keys (`bench.py`'s) and metric name, rmse_orig <
+            0.1 %, the launches of the timed part asserted exactly (fused
+            (1 + 2) x (1 + 13), standard 1 + 13; the untimed warm-up's
+            counted apart); (b) one ``python -m insite_tpu_torch.bench``
+            child, as a user runs it, beside (c)-(e): its last line parses
+            with `bench.py`'s keys; (c) the results CLI (``python -m
+            insite_tpu_torch.process_result_file``) on the logs that phases
+            5, 6 and 11 wrote: its tables equal `generate_main_results_table`
+            of the rows built in this process, each cell's row from the
+            last log that holds it, and its CSV has one line a row; (d) the
+            figure CLI's row functions on those logs, phase 8's
+            INSIGHT_LESS_SAMPLES log and the tracked result JSONs (rows
+            made, group means finite; the figures are drawn by the CPU
+            tests); (e) `entry()`: one rollout launch, against the plain
+            version within `TOL`'s f32 rollout tolerance.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -276,6 +294,7 @@ import contextlib
 import functools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -779,6 +798,12 @@ LEGACY_SIZES = dict(train_samples=1000, val_samples=100, test_samples=100)
 LEGACY_RTOL = 1e-10
 SR3_THRESHOLD = 0.05
 SR3_RTOL = 1e-8
+# phase 16: the bench as `bench.py` runs it by default (10,000 patients,
+# two device-time repeats), its JSON keys and metric name
+BENCH_REPEATS = 2
+BENCH_LINE_KEYS = {'metric', 'value', 'unit', 'vs_baseline'}
+BENCH_METRIC = 'eq4_10k_simulate_discover_finetune_wall_s'
+BENCH_CHILD_TIMEOUT_S = 300
 # repetitions of a plain version in phase 3's call timing (each takes
 # 0.1-0.3 s; the kernels take 20)
 PLAIN_REPS = 5
@@ -1558,13 +1583,15 @@ NETWORKS = {1: ('network',), 2: ('encoder', 'decoder'),
 
 
 def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
-              experiment='MAIN_TABLE', n_rows=None, **settings):
+              experiment='MAIN_TABLE', n_rows=None, keep_log=None,
+              **settings):
     """The port's sweep of ``methods`` over ``datasets`` on the card (one
     seed, 1,000 / 100 / 100, debug mode), with each run's stage times,
     peak memory and Kr (none for msm) printed; ``n_rows`` where the
     experiment enumerates settings of its own dataset and not ``datasets``;
-    ``settings``: further `RunConfig` fields (an INSIGHT grid). Returns
-    (rows, records, launches)."""
+    ``keep_log``: a path the sweep's log is copied to; ``settings``:
+    further `RunConfig` fields (an INSIGHT grid). Returns (rows, records,
+    launches)."""
     import torch
     from insite_tpu_torch.harness.config import RunConfig
     from insite_tpu_torch.harness.logging_utils import (
@@ -1575,8 +1602,8 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
     with tempfile.TemporaryDirectory() as log_dir:
         cfg = RunConfig(methods=methods, datasets=datasets, seed_runs=1,
                         log_dir=log_dir, debug_mode=True, **settings)
-        logger = create_logger_in_process(generate_log_file_path('run',
-                                                                 log_dir))
+        log_path = generate_log_file_path('run', log_dir)
+        logger = create_logger_in_process(log_path)
         with stage_timer(records, device):
             torch.cuda.synchronize(device)
             rollout.reset_launch_counts()
@@ -1590,6 +1617,8 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
         for h in list(logger.handlers):
             logger.removeHandler(h)
             h.close()
+        if keep_log:
+            shutil.copyfile(log_path, keep_log)
     stages = ('collection', 'process', 'fit', 'predict_1_step',
               'predict_n_step')
     # each run's launches: from its start to the next run's, or the end
@@ -1656,10 +1685,12 @@ def expected_launches(rows, records, experiment='MAIN_TABLE'):
     return want
 
 
-def run_main_table(device):
-    """Phase 5: the port's sweep over the EQ_4 main table on the card.
-    Returns its launches and rows."""
-    rows, records, launches = run_sweep(device, DATASETS, 'table')
+def run_main_table(device, keep_log=None):
+    """Phase 5: the port's sweep over the EQ_4 main table on the card,
+    its log copied to ``keep_log`` where given. Returns its launches and
+    rows."""
+    rows, records, launches = run_sweep(device, DATASETS, 'table',
+                                        keep_log=keep_log)
     want = {'rollout': 2 * 2 * len(DATASETS),
             'sens': 2 * (GN_ITERS + 1) * len(DATASETS)}
     if launches != want:
@@ -1668,10 +1699,12 @@ def run_main_table(device):
     return launches, rows
 
 
-def run_tumor_table(device):
+def run_tumor_table(device, keep_log=None):
     """Phase 6: the port's sweep over the tumor main table on the card,
-    held to the JAX package's RMSEs at the same seed."""
-    rows, records, launches = run_sweep(device, TUMOR_DATASETS, 'tumor')
+    held to the JAX package's RMSEs at the same seed; its log copied to
+    ``keep_log`` where given."""
+    rows, records, launches = run_sweep(device, TUMOR_DATASETS, 'tumor',
+                                        keep_log=keep_log)
     want = expected_launches(rows, records)
     if want != {'rollout': 20, 'sens': 130}:
         empty = [r['dataset_name'] for r, rec in zip(rows, records)
@@ -1808,11 +1841,13 @@ def run_msm_table(device):
     return launches
 
 
-def run_insight_sweeps(device):
+def run_insight_sweeps(device, keep_logs=None):
     """Phase 8b: the three robustness sweeps (sindy, insite, msm; seed 0;
     `INSIGHT_SWEEPS`) through the port's sweep on the card. Launches are
     asserted exactly per sweep; every RMSE is held to the two-sided
-    `INSIGHT_BANDS` around the JAX package's (`INSIGHT_REF`). Returns the launches of all three."""
+    `INSIGHT_BANDS` around the JAX package's (`INSIGHT_REF`). Each
+    sweep's log is copied to ``keep_logs/<experiment>.txt`` where a
+    directory is given. Returns the launches of all three."""
     total = {'rollout': 0, 'sens': 0}
     metrics = (RMSE_METRICS[0], RMSE_METRICS[-1])
     for experiment, dataset, key, field, grid in INSIGHT_SWEEPS:
@@ -1820,7 +1855,9 @@ def run_insight_sweeps(device):
             f'{dataset}, {key} over {grid}, seed 0, 1000/100/100')
         rows, records, launches = run_sweep(
             device, (dataset,), experiment, INSIGHT_METHODS, experiment,
-            n_rows=len(grid) * len(INSIGHT_METHODS), **{field: grid})
+            n_rows=len(grid) * len(INSIGHT_METHODS),
+            keep_log=keep_logs and f'{keep_logs}/{experiment}.txt',
+            **{field: grid})
         want = expected_launches(rows, records, experiment)
         full = {'rollout': 4 * len(grid),
                 'sens': 2 * (GN_ITERS + 1) * len(grid)}
@@ -2057,7 +2094,7 @@ def neural_idle_share(path='fit', tag='neural'):
     return float(m.group(1))
 
 
-def run_vectorized(device, table_rows):
+def run_vectorized(device, table_rows, keep_log=None):
     """Phase 11: the port's `vectorized_sweep` (``run.py --vectorized``)
     on the card, `VECTORIZED_SEEDS` seeds, 1,000 / 100 / 100, f32, debug
     mode, one call a column (the confounding call: a column per gamma).
@@ -2067,8 +2104,9 @@ def run_vectorized(device, table_rows):
     `VECTORIZED_BANDS` around `VECTORIZED_REF` at 1 and at 2..6 steps.
     Seed 0 of EQ_4_D sindy and insite is phase 5's cohort: its 1-step RMSE
     within `VECTORIZED_SEED0_RTOL` of phase 5's row. Prints each call's
-    wall time and peak device memory. Returns the launches of all calls
-    and by column, and each column's 10-seed 1-step mean."""
+    wall time and peak device memory; the log is copied to ``keep_log``
+    where given. Returns the launches of all calls and by column, and
+    each column's 10-seed 1-step mean."""
     import torch
     from insite_tpu_torch.harness.config import RunConfig
     from insite_tpu_torch.harness.logging_utils import (
@@ -2080,8 +2118,8 @@ def run_vectorized(device, table_rows):
     phase5 = {r['method_name']: r for r in table_rows
               if r['dataset_name'] == 'EQ_4_D'}
     with tempfile.TemporaryDirectory() as log_dir:
-        logger = create_logger_in_process(
-            generate_log_file_path('vectorized', log_dir))
+        log_path = generate_log_file_path('vectorized', log_dir)
+        logger = create_logger_in_process(log_path)
         for experiment, ds, method, keys in VECTORIZED_CALLS:
             settings = {}
             if experiment == 'INSIGHT_CONFOUNDING':
@@ -2152,6 +2190,8 @@ def run_vectorized(device, table_rows):
         for h in list(logger.handlers):
             logger.removeHandler(h)
             h.close()
+        if keep_log:
+            shutil.copyfile(log_path, keep_log)
     log(f'[vectorized] kernel launches of all columns: {total}')
     return total, by_column, one_step_means
 
@@ -3339,6 +3379,239 @@ def run_slice8(device, table_rows):
     return bfgs, xla, walls
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the repository's own entry points
+
+def bench_in_process(device, mode):
+    """(a): `insite_tpu_torch.bench.main` in ``mode`` at the bench's size
+    (`N_PATIENTS`, `BENCH_REPEATS` device-time repeats), its JSON line
+    sent to stderr with its stage lines. Checks the line's keys and
+    metric name and the north-star gate; asserts the launches of the
+    timed part exactly: fused (1 + `BENCH_REPEATS`) x (1 rollout +
+    `GN_ITERS` + 1 sensitivity), standard one fine-tune's 1 + (`GN_ITERS`
+    + 1) (the fit launches nothing); the untimed warm-up's (a small
+    cohort: one fine-tune, no sensitivity launch where its fit keeps no
+    coefficient) are counted apart. Returns (the record, the timed
+    launches, the warm-up's, the wall)."""
+    import torch
+    from insite_tpu_torch import bench
+    from insite_tpu_torch.ops import rollout
+    env = {'BENCH_MODE': mode, 'BENCH_PATIENTS': str(N_PATIENTS),
+           'BENCH_DEVICE_REPEATS': str(BENCH_REPEATS)}
+    warm = {}
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            warm.update(rollout=rollout.ROLLOUT_LAUNCHES,
+                        sens=rollout.SENS_LAUNCHES)
+            return out
+        return call
+
+    torch.cuda.synchronize(device)
+    rollout.reset_launch_counts()
+    t0 = perf_counter()
+    with patched(bench, '_warmup', wrap), \
+            contextlib.redirect_stdout(sys.stderr):
+        rec = bench.main(env)
+    torch.cuda.synchronize(device)
+    wall = perf_counter() - t0
+    timed = {'rollout': rollout.ROLLOUT_LAUNCHES - warm['rollout'],
+             'sens': rollout.SENS_LAUNCHES - warm['sens']}
+    runs = 1 + BENCH_REPEATS if mode == 'fused' else 1
+    want = {'rollout': runs, 'sens': runs * (GN_ITERS + 1)}
+    line = rec['line']
+    log(f'[entry] bench {mode}: {json.dumps(line)}; stages '
+        f'{json.dumps(rec["stages"])}; rmse_orig {rec["rmse_orig"]:.6f} %, '
+        f'rmse_all {rec["rmse_all"]:.6f} %; launches timed {timed}, '
+        f'warm-up {warm}; wall with the warm-up {wall:.4f} s')
+    log(f'  {rec["global_equation_string"]}')
+    keys = BENCH_LINE_KEYS | ({'device_time_s'} if mode == 'fused'
+                              else set())
+    if set(line) != keys or line['metric'] != BENCH_METRIC:
+        raise AssertionError(f'bench {mode} line {line}')
+    if timed != want:
+        raise AssertionError(f'bench {mode}: expected {want} launches in '
+                             f'the timed part, got {timed}')
+    if warm['rollout'] != 1 or warm['sens'] not in (0, GN_ITERS + 1):
+        raise AssertionError(f'bench {mode} warm-up launched {warm}')
+    if not rec['rmse_orig'] < 0.1:
+        raise AssertionError(f'bench {mode}: rmse_orig {rec["rmse_orig"]}'
+                             ' % >= 0.1 %')
+    return rec, timed, warm, wall
+
+
+def start_bench_child():
+    """(b), started: ``python -m insite_tpu_torch.bench`` as a user runs
+    it (fused, 10,000 patients, 2 repeats: no BENCH_ setting passed on)."""
+    import os
+    from pathlib import Path
+    env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+    return subprocess.Popen([sys.executable, '-m', 'insite_tpu_torch.bench'],
+                            cwd=Path(__file__).resolve().parent, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_bench_child(child, t0):
+    """(b), checked: the child ended cleanly and its last line of stdout
+    parses with `bench.py`'s keys. Returns the line."""
+    out, err = child.communicate(timeout=BENCH_CHILD_TIMEOUT_S)
+    if child.returncode != 0:
+        raise AssertionError(f'the bench child failed:\n{err[-4000:]}')
+    line = json.loads(out.strip().splitlines()[-1])
+    log(f'  python -m insite_tpu_torch.bench: {json.dumps(line)}; '
+        f'{perf_counter() - t0:.4f} s from its start')
+    for msg in err.strip().splitlines():
+        log(f'    {msg}')
+    if set(line) != BENCH_LINE_KEYS | {'device_time_s'} or \
+            line['metric'] != BENCH_METRIC:
+        raise AssertionError(f'the bench child printed {line}')
+    return line
+
+
+def check_results_cli(logs, tmp):
+    """(c): the results CLI (``python -m
+    insite_tpu_torch.process_result_file``, in this process) on ``logs``,
+    phases 5, 6 and 11's: its tables equal `generate_main_results_table`
+    of the rows built here (each cell's row from the last log that holds
+    it) and its CSV has one line a row."""
+    import io
+    from insite_tpu_torch import process_result_file
+    from insite_tpu_torch.harness.results import (generate_main_results_table,
+                                                  rows_from_log)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        process_result_file.main(logs + ['--csv', f'{tmp}/rows.csv'])
+    text = out.getvalue()
+    cells = {}
+    for path in logs:
+        for r in rows_from_log(path):
+            cells[tuple(r.get(k) for k in
+                        process_result_file.KEY_COLUMNS)] = r
+    rows = list(cells.values())
+    tables = dict(block.rstrip('\n').split('\n', 1) for block in
+                  text.split('\nLatex Table:: ')[1:])
+    if tables != generate_main_results_table(rows):
+        raise AssertionError(f'the results CLI printed other tables:\n'
+                             f'{text}')
+    with open(f'{tmp}/rows.csv') as f:
+        n_lines = sum(1 for _ in f)
+    log(f'  results CLI on {len(logs)} logs: {text.splitlines()[0]}; '
+        f'{len(tables)} tables equal the in-process ones; CSV '
+        f'{n_lines - 1} rows')
+    if f'parsed {len(rows)} completed runs' not in text or \
+            n_lines != 1 + len(rows):
+        raise AssertionError(f'{len(rows)} rows, CSV of {n_lines} lines')
+    return tables
+
+
+def check_figure_rows(logs, less_samples_log):
+    """(d): the figure CLI's row functions on phases 5, 6 and 11's logs and
+    phase 8's INSIGHT_LESS_SAMPLES log, and on the tracked result JSONs:
+    rows made and their per-group means finite. The figures themselves
+    need matplotlib, which this machine may lack: the CPU tests render
+    them."""
+    import importlib.util
+    from pathlib import Path
+    from insite_tpu_torch import make_figures
+    from insite_tpu_torch.harness.plots import _agg
+    repo_logs = Path(__file__).resolve().parent / 'logs'
+    built = {
+        'n-step': (make_figures.nstep_rows(logs),
+                   ['dataset_name', 'method_name']),
+        'sample efficiency': (
+            make_figures.less_samples_rows([less_samples_log]),
+            ['method_name', 'train_samples']),
+        'confounding': (
+            make_figures.confounding_rows(repo_logs / 'conf10.json')[0],
+            ['method_name', 'domain_conf'])}
+    for name, (rows, group_cols) in built.items():
+        means, _, _ = _agg(rows, group_cols)
+        one_step = [m['encoder_test_rmse_orig'] for m in means.values()]
+        log(f'  {name} rows: {len(rows)}, {len(means)} groups, 1-step means '
+            f'{min(one_step):.6f}..{max(one_step):.6f} %')
+        if not rows or not np.isfinite(one_step).all():
+            raise AssertionError(f'{name} rows: {len(rows)}, means {means}')
+    recover = make_figures.recover_data(repo_logs / 'recover_dist.json')
+    log(f'  recovered-distribution arms: {sorted(recover)}')
+    has_mpl = importlib.util.find_spec('matplotlib') is not None
+    log(f'  matplotlib {"present" if has_mpl else "absent"} here: the '
+        'figures are drawn by the CPU tests '
+        '(tests/test_torch_make_figures.py), not here')
+
+
+def check_entry(device):
+    """(e): `insite_tpu_torch.entry.entry()` on the card: one rollout
+    launch, against the kernel's plain version on the same tensors within
+    `TOL`'s f32 rollout tolerance. Returns its launches."""
+    import torch
+    from insite_tpu_torch.discovery.library import PolynomialLibrary
+    from insite_tpu_torch.entry import DT, entry
+    from insite_tpu_torch.ops import rollout
+    fn, args = entry()
+    torch.cuda.synchronize(device)
+    rollout.reset_launch_counts()
+    y = fn(*args)
+    torch.cuda.synchronize(device)
+    launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
+                'sens': rollout.SENS_LAUNCHES}
+    coefs, y0, statics, arms = args
+    plain = rollout.batched_rollout_plain(PolynomialLibrary(n_inputs=3),
+                                          coefs[None], y0, statics, arms, DT)
+    err = check_close('entry() vs plain', y, plain, *TOL['f32']['y'])
+    log(f'  entry(): {tuple(y.shape)} on {y.device}, launches {launches}, '
+        f'max abs err vs plain {err:.3e}')
+    if launches != {'rollout': 1, 'sens': 0}:
+        raise AssertionError(f'entry() launched {launches}')
+    return launches
+
+
+def run_entry_points(device, logs, less_samples_log):
+    """Phase 16. Returns (the launches of the bench's timed parts by mode,
+    entry()'s launches, the wall of each step)."""
+    import torch
+    walls = {}
+
+    def step(name, t0):
+        torch.cuda.synchronize(device)
+        walls[name] = perf_counter() - t0
+        log(f'[entry] {name}: {walls[name]:.4f} s')
+
+    bench_launches = {}
+    for mode in ('fused', 'standard'):
+        t0 = perf_counter()
+        log(f'[entry] (a) the bench in this process, {mode}, {N_PATIENTS} '
+            'patients')
+        _, bench_launches[mode], _, _ = bench_in_process(device, mode)
+        step(f'(a) bench {mode}', t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t_child = perf_counter()
+        log('[entry] (b) started: python -m insite_tpu_torch.bench')
+        child = start_bench_child()
+        try:
+            t0 = perf_counter()
+            log('[entry] (c) the results CLI on the logs of phases 5, 6, 11')
+            check_results_cli(logs, tmp)
+            step('(c) results CLI', t0)
+            t0 = perf_counter()
+            log('[entry] (d) the figure CLI\'s row functions')
+            check_figure_rows(logs, less_samples_log)
+            step('(d) figure rows', t0)
+            t0 = perf_counter()
+            log('[entry] (e) entry()')
+            entry_launches = check_entry(device)
+            step('(e) entry()', t0)
+            t0 = perf_counter()
+            finish_bench_child(child, t_child)
+            step('(b) bench child, waiting for it', t0)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    return bench_launches, entry_launches, walls
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3469,16 +3742,21 @@ def main():
     if not r['rmse_orig'] < 0.1:
         raise AssertionError(f'rmse_orig {r["rmse_orig"]}% >= 0.1%')
 
+    # the logs of phases 5, 6, 8 and 11, read by phase 16's CLIs
+    kept = tempfile.TemporaryDirectory()
+    kept_logs = {name: f'{kept.name}/{name}.txt'
+                 for name in ('table', 'tumor', 'vectorized')}
+
     # 5. main table
     log('[table] sweep: sindy, insite x EQ_4_A..D, 1 seed, 1000/100/100')
-    table_launches, table_rows = run_main_table(device)
+    table_launches, table_rows = run_main_table(device, kept_logs['table'])
     log('[table] card f32 against host f64, one EQ_4_D collection')
     check_card_against_host(device)
 
     # 6. tumor main table
     log('[tumor] sweep: sindy, insite x cancer_sim, EQ_5_A..D, seed 0, '
         '1000/100/100')
-    tumor_launches = run_tumor_table(device)
+    tumor_launches = run_tumor_table(device, kept_logs['tumor'])
     log('[tumor] card f32 against host f64, one cancer_sim collection')
     check_card_against_host(device, 'cancer_sim')
 
@@ -3487,7 +3765,7 @@ def main():
 
     # 8. msm on both families, the three INSIGHT sweeps
     msm_launches = run_msm_table(device)
-    insight_launches = run_insight_sweeps(device)
+    insight_launches = run_insight_sweeps(device, kept.name)
     log('[insight] card f32 against host f64, one EQ_4_D collection of 50 '
         'training patients')
     check_card_against_host(device, 'EQ_4_D', n_train=50)
@@ -3513,8 +3791,8 @@ def main():
     # 11. the vectorized seed columns
     log(f'[vectorized] vectorized_sweep: {VECTORIZED_SEEDS} seeds a column, '
         '1000/100/100')
-    vec_launches, vec_by_column, vec_means = run_vectorized(device,
-                                                            table_rows)
+    vec_launches, vec_by_column, vec_means = run_vectorized(
+        device, table_rows, kept_logs['vectorized'])
     log('[vectorized] card f32 against host f64, one EQ_4_D insite column')
     check_vectorized_card_against_host(device)
 
@@ -3550,6 +3828,16 @@ def main():
                                                            table_rows)
     log(f'[slice8] phase 15 wall {perf_counter() - t15:.4f} s; by step '
         f'{json.dumps(slice8_walls)}')
+
+    # 16. the repository's own entry points: the bench, the results and
+    # figure CLIs, entry()
+    t16 = perf_counter()
+    bench_launches, entry_launches, entry_walls = run_entry_points(
+        device, list(kept_logs.values()),
+        f'{kept.name}/INSIGHT_LESS_SAMPLES.txt')
+    kept.cleanup()
+    log(f'[entry] phase 16 wall {perf_counter() - t16:.4f} s; by step '
+        f'{json.dumps(entry_walls)}')
 
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
@@ -3597,6 +3885,11 @@ def main():
                               for part, by_tag in bfgs_launches.items()
                               for tag, n in by_tag.items()},
             'launches_xla': xla_launches[key],
+            # the bench's timed parts (fused: the timed pass and
+            # `BENCH_REPEATS` device-time repeats), and entry()
+            'launches_bench_fused': bench_launches['fused'][key],
+            'launches_bench_standard': bench_launches['standard'][key],
+            'launches_entry': entry_launches[key],
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

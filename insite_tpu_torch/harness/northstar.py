@@ -13,7 +13,10 @@ Stages, each timed between device synchronisations:
 
 `simulate_cohort` and `discover_and_finetune` are the two halves, so a
 cohort from elsewhere (for example the JAX package's) can be fed to the
-later stages.
+later stages. With ``device_time_repeats`` R > 0, sim+design+QR and the
+fine-tune each run R more times after the timed pass, on the inputs
+already on the device, and the fastest of each is reported: the device
+times that `insite_tpu_torch.bench` prints.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from insite_tpu_torch.core.dtypes import resolve_float
 from insite_tpu_torch.discovery.library import PolynomialLibrary
 from insite_tpu_torch.discovery.stlsq import _qr_reduce, stlsq_from_qr
 from insite_tpu_torch.models.sindy import (_eq4_design,
-                                           insite_gn_finetune_predict)
+                                           check_rollout_backend,
+                                           insite_gn_finetune_predict,
+                                           insite_gn_finetune_predict_jvp)
 from insite_tpu_torch.sim import pkpd
 
 LIBRARY = PolynomialLibrary(n_inputs=3)      # [y, c0, c1]
@@ -85,16 +90,52 @@ def _factual_rmse(preds, vol, lengths):
     return rmse_orig, rmse_all
 
 
+def _finetune_fn(rollout_backend: str, device):
+    """The Levenberg-Marquardt fine-tune ``rollout_backend`` selects, as
+    `SINDyConfig.rollout_backend` does: 'auto' the kernels on CUDA
+    tensors and their plain versions on the CPU, 'pallas' the kernels
+    (CUDA tensors required), 'xla' jvp through the plain rollout."""
+    check_rollout_backend(rollout_backend, device)
+    if rollout_backend == 'xla':
+        return insite_gn_finetune_predict_jvp
+    return insite_gn_finetune_predict
+
+
+def _fastest(fn, repeats: int, device) -> float:
+    """The least wall time, in seconds, of ``repeats`` calls of ``fn``,
+    each between two device synchronisations."""
+    times = []
+    for _ in range(repeats):
+        _sync(device)
+        t0 = perf_counter()
+        fn()
+        _sync(device)
+        times.append(perf_counter() - t0)
+    return min(times)
+
+
 def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
                           lam: float = 10.0, gn_iters: int = 12,
                           projection_horizon: int = 1,
-                          max_stlsq_iter: int = 100) -> dict:
+                          max_stlsq_iter: int = 100,
+                          rollout_backend: str = 'auto',
+                          device_time_repeats: int = 0,
+                          simulate=None) -> dict:
     """Design + QR, host STLSQ, INSITE fine-tune and the factual RMSE on a
     cohort ``(vol, statics, treat, lengths)`` of tensors on one device.
     The first stage's time also covers any device work on the cohort still
-    pending when this is called."""
+    pending when this is called.
+
+    With ``device_time_repeats`` R > 0, after the timed stages the first
+    stage and the fine-tune each run R more times on the same inputs, and
+    the least of each is returned as ``device_sim_design_s`` and
+    ``device_finetune_s``; the repeats change no result. ``simulate``
+    (a callable that draws the cohort again) makes a repeat of the first
+    stage simulate too; without it the repeat builds the design and QR of
+    ``cohort``."""
     vol, statics, treat, lengths = cohort
     device, dtype = vol.device, vol.dtype
+    finetune_fn = _finetune_fn(rollout_backend, device)
     seq_length = vol.shape[1]
     t0 = perf_counter()
     triangles = [(R.cpu().numpy(), qty.cpu().numpy())
@@ -113,12 +154,16 @@ def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
                        np.flatnonzero(np.abs(coefs).reshape(-1) > 1e-3))
     prev = vol[:, :-1]
     arms = treat[:, :seq_length - 1].to(torch.int32)
+    coefs_t = torch.as_tensor(coefs, dtype=dtype, device=device)
+
+    def finetune():
+        return finetune_fn(
+            LIBRARY, coefs_t, prev, statics, arms, lengths, STANDARD_DT,
+            lam=lam, projection_horizon=projection_horizon,
+            gn_iters=gn_iters, y_clip=None, active_idx=active_idx)
+
     t2 = perf_counter()
-    preds, _ = insite_gn_finetune_predict(
-        LIBRARY, torch.as_tensor(coefs, dtype=dtype, device=device), prev,
-        statics, arms, lengths, STANDARD_DT, lam=lam,
-        projection_horizon=projection_horizon, gn_iters=gn_iters,
-        y_clip=None, active_idx=active_idx)
+    preds, _ = finetune()
     _sync(device)
     t_finetune = perf_counter() - t2
 
@@ -127,9 +172,18 @@ def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
                            _factual_rmse(preds, vol, lengths))
     t_metric = perf_counter() - t3
 
+    device_times = {}
+    if device_time_repeats > 0:
+        device_times['device_sim_design_s'] = _fastest(
+            lambda: design_qr(simulate() if simulate else cohort),
+            device_time_repeats, device)
+        device_times['device_finetune_s'] = _fastest(
+            finetune, device_time_repeats, device)
+
     eq_strs = [LIBRARY.pretty_equation(coefs[a], INPUT_NAMES)
                for a in range(2)]
     return {
+        **device_times,
         'coefs': coefs,
         'preds': preds,
         'global_equation_string': ' | '.join(
@@ -146,19 +200,32 @@ def fused_northstar(n_train: int, seed: int = 0,
                     seq_length: int = 60, threshold: float = 0.1,
                     alpha: float = 0.5, lam: float = 10.0,
                     gn_iters: int = 12, projection_horizon: int = 1,
-                    max_stlsq_iter: int = 100, dtype=None, *,
+                    max_stlsq_iter: int = 100, rollout_backend='auto',
+                    dtype=None, device_time_repeats: int = 0, *,
                     device) -> dict:
     """The whole north-star workload (simulate + discover + fine-tune) on
     ``device``. Returns the global coefficients and equation string, the
     fine-tuned predictions, the factual normalised RMSEs (%) and per-stage
-    wall times in seconds."""
+    wall times in seconds; with ``device_time_repeats`` R > 0 also the
+    least of R further runs of sim+design+QR (``device_sim_design_s``)
+    and of the fine-tune (``device_finetune_s``), on the inputs already on
+    the device. ``rollout_backend`` stands where the JAX function has
+    ``use_pallas`` ('auto', 'pallas' or 'xla', as
+    `SINDyConfig.rollout_backend`); a kernel that fails to build or launch
+    fails the call."""
+
+    def simulate():
+        return simulate_cohort(n_train, seed, equation_name, conf_coeff,
+                               seq_length, device=device, dtype=dtype)
+
     _sync(device)
     t0 = perf_counter()
-    cohort = simulate_cohort(n_train, seed, equation_name, conf_coeff,
-                             seq_length, device=device, dtype=dtype)
+    cohort = simulate()
     t_sim = perf_counter() - t0          # the rest is timed in the next stage
     r = discover_and_finetune(cohort, threshold, alpha, lam, gn_iters,
-                              projection_horizon, max_stlsq_iter)
+                              projection_horizon, max_stlsq_iter,
+                              rollout_backend, device_time_repeats,
+                              simulate)
     r['t_sim_design'] += t_sim
     r['total'] += t_sim
     return r

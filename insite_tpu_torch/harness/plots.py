@@ -18,12 +18,8 @@ import math
 import numpy as np
 
 from insite_tpu_torch.harness.results import (DATASET_NAME_MAP,
-                                              METHOD_NAME_MAP, _mean,
-                                              _unique, ci)
-
-
-def _is_missing(v) -> bool:
-    return v is None or (isinstance(v, float) and math.isnan(v))
+                                              METHOD_NAME_MAP, _is_missing,
+                                              _mean, _std, _unique, ci)
 
 
 def _numeric_columns(rows) -> list:
@@ -42,12 +38,6 @@ def _plotted_rows(rows) -> list:
     if not any('errored' in r for r in rows):
         return list(rows)
     return [r for r in rows if not r.get('errored', True)]
-
-
-def _std(values) -> float:
-    """Population standard deviation over the non-NaN values."""
-    v = np.asarray([x for x in values if not math.isnan(x)], float)
-    return float(np.std(v)) if v.size else math.nan
 
 
 def _agg(rows, group_cols, use_95_ci=True, numeric=None):

@@ -1,13 +1,16 @@
-"""Results tools without pandas: the sweep log's rows back as dicts, the
-95 % t-interval, the LaTeX main table and the paper's, and the markdown
-parity table, whose texts are those of `insite_tpu.harness.results`'s
-`generate_main_results_table`, `generate_main_results_table_paper_format`
-and `parity_table` on the same rows."""
+"""Results tools without pandas: the sweep log's rows back as dicts (with
+each line's logging timestamp if asked), several logs' rows as one frame,
+the 95 % t-interval, the LaTeX main table and the paper's, and the
+markdown parity table, whose texts are those of
+`insite_tpu.harness.results`'s `generate_main_results_table`,
+`generate_main_results_table_paper_format` and `parity_table` on the same
+rows."""
 
 from __future__ import annotations
 
 import ast
 import math
+from datetime import datetime
 
 import numpy as np
 from scipy import stats
@@ -44,9 +47,27 @@ def custom_format(number, threshold=1e-2):
     return f'{number:.2f}'
 
 
-def rows_from_log(path) -> list:
+# what `_log_ts` holds for a line whose timestamp cannot be parsed
+EPOCH = datetime(1970, 1, 1)
+
+
+def _line_ts(line: str) -> datetime:
+    """The logging timestamp that starts ``line``, read as the JAX
+    package's `df_from_log` reads it (the text before ' INFO' or ' DEBUG',
+    ',' taken as the decimal point); `EPOCH` where it cannot be parsed."""
+    try:
+        return datetime.fromisoformat(
+            line.split(' INFO')[0].split(' DEBUG')[0].replace(',', '.')
+            .strip())
+    except ValueError:
+        return EPOCH
+
+
+def rows_from_log(path, with_ts=False) -> list:
     """The '[Exp evaluation complete] {...}' lines of a sweep log, as
-    dicts."""
+    dicts. ``with_ts``: each row also carries ``_log_ts``, its line's
+    logging timestamp (a `datetime`), so that rows of the same cell from
+    several logs can be ordered by when they were written."""
     rows = []
     with open(path) as f:
         for line in f:
@@ -54,12 +75,29 @@ def rows_from_log(path) -> list:
                 payload = line.split(TAG)[1].strip()
                 payload = payload.replace('nan', "'nan'")
                 payload = payload.replace('array', '')
-                rows.append(ast.literal_eval(payload))
+                row = ast.literal_eval(payload)
+                if with_ts:
+                    row['_log_ts'] = _line_ts(line)
+                rows.append(row)
     return rows
 
 
 def _is_nan(v) -> bool:
     return isinstance(v, float) and math.isnan(v)
+
+
+def _is_missing(v) -> bool:
+    """None or NaN: what pandas' ``isna`` finds missing."""
+    return v is None or _is_nan(v)
+
+
+def concat_rows(row_lists) -> list:
+    """Several logs' rows as one frame, as `pandas.concat` of their
+    frames makes it: every row carries every column, in order of first
+    appearance, NaN where its log has none."""
+    rows = [r for rows in row_lists for r in rows]
+    columns = _unique(k for r in rows for k in r)
+    return [{c: r.get(c, math.nan) for c in columns} for r in rows]
 
 
 def _mean(values) -> float:
@@ -89,17 +127,26 @@ def _unique(seq) -> list:
     return list(dict.fromkeys(seq))
 
 
+def _std(values) -> float:
+    """Population standard deviation over the non-NaN values (NaN if
+    none), as pandas aggregates with `np.std`."""
+    v = np.asarray([x for x in values if not math.isnan(x)], float)
+    return float(np.std(v)) if v.size else math.nan
+
+
 def _completed(rows) -> list:
     """The rows not marked errored (a NaN mark counts as not errored)."""
     return [r for r in rows
             if _is_nan(r.get('errored', False)) or not r.get('errored')]
 
 
-def _cell_stats(rows):
-    """(columns, {(dataset, method): {rmse column: (mean, 95 % CI)}},
-    the cells in table order) of the completed rows, or None where no
-    table can be made. Column order is first appearance; cells sort by
-    the dataset and method orderings, unknown names last."""
+def _cell_stats(rows, use_95_ci=True):
+    """(columns, {(dataset, method): {rmse column: (mean, error)}}, the
+    cells in table order) of the completed rows, or None where no table
+    can be made; the error is the 95 % t-interval or, without
+    ``use_95_ci``, the standard deviation. Column order is first
+    appearance; cells sort by the dataset and method orderings, unknown
+    names last; rows with a missing or NaN name are left out."""
     columns = [c for c in _unique(k for r in rows for k in r)
                if c != 'errored']
     rows = _completed(rows)
@@ -109,31 +156,33 @@ def _cell_stats(rows):
     groups = {}
     for r in rows:
         key = (r.get('dataset_name'), r.get('method_name'))
-        if None not in key:
+        if not any(_is_missing(k) for k in key):
             groups.setdefault(key, []).append(r)
+    err = ci if use_95_ci else _std
     stats_of = {}
     for key in sorted(groups):
         # a metric a row lacks (or logged as 'nan') counts as NaN
         vals = {c: [float(g.get(c, math.nan)) for g in groups[key]]
                 for c in rmse_cols}
-        stats_of[key] = {c: (_mean(v), ci(v)) for c, v in vals.items()}
+        stats_of[key] = {c: (_mean(v), err(v)) for c, v in vals.items()}
     order = sorted(stats_of, key=_ordered)       # stable: ties keep a-z
     return columns, stats_of, order
 
 
 def _cell(stats, metric):
-    """(mean, 95 % CI) strings of a cell, or None where it has no mean."""
+    """(mean, error) strings of a cell, or None where it has no mean."""
     if stats is None or math.isnan(stats[metric][0]):
         return None
     mean, err = stats[metric]
     return custom_format(mean), custom_format(0.0 if np.isnan(err) else err)
 
 
-def generate_main_results_table(rows) -> dict:
+def generate_main_results_table(rows, use_95_ci=True) -> dict:
     """LaTeX table per n-step metric and for the 1-step
     ``encoder_test_rmse_orig``: per (dataset, method), the mean over seeds
-    and its 95 % t-interval (0.00 where the interval is NaN, n = 1)."""
-    agg = _cell_stats(rows)
+    and its 95 % t-interval (0.00 where the interval is NaN, n = 1), or
+    without ``use_95_ci`` its standard deviation."""
+    agg = _cell_stats(rows, use_95_ci)
     if agg is None:
         return {}
     columns, stats_of, order = agg
@@ -168,12 +217,13 @@ def generate_main_results_table(rows) -> dict:
 ODE_METHODS = ('sindy', 'wsindy', 'insite')
 
 
-def generate_main_results_table_paper_format(rows) -> dict:
+def generate_main_results_table_paper_format(rows, use_95_ci=True) -> dict:
     """The paper's LaTeX tables, one per n-step metric: a tabularx layout
     with \\cref dataset headers, the learned-treatment-effect (LTE) and
     ODE-discovery (ODE-D) method groups, and the INSITE row shaded and in
-    bold. A group with no method in the rows emits nothing."""
-    agg = _cell_stats(rows)
+    bold. A group with no method in the rows emits nothing. The ± is the
+    95 % t-interval or, without ``use_95_ci``, the standard deviation."""
+    agg = _cell_stats(rows, use_95_ci)
     if agg is None:
         return {}
     columns, stats_of, order = agg

@@ -144,19 +144,25 @@ def _unserved(cfg: SINDyConfig) -> list:
     return out
 
 
+def check_rollout_backend(backend: str, device) -> None:
+    """An unknown backend name raises, and so do the kernels asked for
+    ('pallas') on a device other than a CUDA card."""
+    if backend not in ROLLOUT_BACKENDS:
+        raise ValueError(f'rollout_backend={backend!r}; '
+                         f'expected one of {ROLLOUT_BACKENDS}')
+    if backend == 'pallas' and torch.device(device).type != 'cuda':
+        raise ValueError("rollout_backend='pallas' runs the rollout "
+                         'kernels, which need CUDA tensors; the device is '
+                         f'{device}')
+
+
 def _check_solver_settings(cfg: SINDyConfig, device: torch.device) -> None:
     """Unknown solver or backend names raise, and so do the kernels asked
     for on tensors they cannot take."""
     if cfg.insite_solver not in INSITE_SOLVERS:
         raise ValueError(f'insite_solver={cfg.insite_solver!r}; expected '
                          f'one of {INSITE_SOLVERS}')
-    if cfg.rollout_backend not in ROLLOUT_BACKENDS:
-        raise ValueError(f'rollout_backend={cfg.rollout_backend!r}; '
-                         f'expected one of {ROLLOUT_BACKENDS}')
-    if cfg.rollout_backend == 'pallas' and device.type != 'cuda':
-        raise ValueError("rollout_backend='pallas' runs the rollout "
-                         'kernels, which need CUDA tensors; the device is '
-                         f'{device}')
+    check_rollout_backend(cfg.rollout_backend, device)
 
 
 class SINDyRegressor(CausalEstimator):

@@ -469,3 +469,19 @@ def test_joint_fold_matches_plain_joint_on_cuda(cuda, dtype):
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)
+
+
+@pytest.mark.cuda
+def test_entry_launches_the_rollout_kernel_once(cuda):
+    """The flagship forward step (`insite_tpu_torch.entry`) on the card:
+    one rollout launch, against the same step on the host."""
+    from insite_tpu_torch.entry import entry
+    fn, args = entry()
+    rollout.reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES) == (1, 0)
+    fn_cpu, args_cpu = entry('cpu')
+    rtol, atol = TOL[torch.float32]
+    torch.testing.assert_close(got.cpu(), fn_cpu(*args_cpu), rtol=rtol,
+                               atol=atol)
