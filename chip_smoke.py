@@ -49,7 +49,9 @@ Phases, in order; any failure exits non-zero:
             active set, and at phase 13's lam tune: the validation cohort
             of an EQ_4_D fit (100 patients) stacked once per value of the
             7-value grid (B=700, per-row coefficients, the fit's
-            support). Every case asserts its launches. First, before any
+            support), and at phase 17's half of the n-step set, one of
+            two shards (B=29,500, T=64, per-row coefficients, Kr = the
+            fitted support). Every case asserts its launches. First, before any
             plain version runs, the device time of one call of each
             kernel (torch.profiler, median of 20 calls, one session; a
             call is one launch, two for the case that goes in groups, and
@@ -285,6 +287,26 @@ Phases, in order; any failure exits non-zero:
             made, group means finite; the figures are drawn by the CPU
             tests); (e) `entry()`: one rollout launch, against the plain
             version within `TOL`'s f32 rollout tolerance.
+17. mesh    the batch mesh (`insite_tpu_torch.parallel`): the visible cards
+            repeated in turn to at least two shards (one card holds
+            several; the number of distinct cards is printed): (a) both
+            kernels on tensors on the last card while cuda:0 is current,
+            against their plain versions (`TOL`, f32); (b) insite on an
+            EQ_4_D collection at the reference size (1,000 / 100 / 100,
+            seq 60, horizon 5, gamma 2), its 1-step (B=11,800) and n-step
+            (B=59,000) predictions unsharded and split over the shards,
+            launches asserted as shards x the unsharded run's, predictions
+            and fine-tuned coefficients within `MESH_RTOL` / `MESH_ATOL`;
+            (c) 10-seed sindy and insite columns of `vectorized_eq4_sweep`
+            (1,000 / 100) unsharded and seed-sharded, launches and per-seed
+            results held the same way; (d) ct, crn, edct, rmsn and gnet
+            columns (EQ_4_D, 200 / 10 / 10, one seed a shard, 2 epochs,
+            dropout 0) sharded against unsharded the same way, then ct
+            with dropout on, its sharded means inside phase 12's ct band
+            of the unsharded ones; (e) `dryrun_multichip(2)` and
+            `dryrun_multichip(max(2, cards))`. Each step's wall time and
+            the sharded against the unsharded wall are printed; on one
+            card the shards run one after another.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -804,6 +826,10 @@ BENCH_REPEATS = 2
 BENCH_LINE_KEYS = {'metric', 'value', 'unit', 'vs_baseline'}
 BENCH_METRIC = 'eq4_10k_simulate_discover_finetune_wall_s'
 BENCH_CHILD_TIMEOUT_S = 300
+# phase 17: the batch mesh. Sharded against unsharded on the card, f32
+# (predictions, coefficients, per-seed RMSEs)
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-7
+MESH_SEEDS = 10
 # repetitions of a plain version in phase 3's call timing (each takes
 # 0.1-0.3 s; the kernels take 20)
 PLAIN_REPS = 5
@@ -3612,6 +3638,250 @@ def run_entry_points(device, logs, less_samples_log):
     return bench_launches, entry_launches, walls
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the batch mesh
+
+def mesh_of(n_shards):
+    """The visible cards repeated in turn up to ``n_shards`` shards."""
+    import torch
+    from insite_tpu_torch.parallel import batch_mesh
+    count = torch.cuda.device_count()
+    return batch_mesh([torch.device('cuda', i % count)
+                       for i in range(n_shards)])
+
+
+def counted(device, fn):
+    """(fn(), its kernel launches, its wall time to a synchronisation)."""
+    import torch
+    from insite_tpu_torch.ops import rollout
+    torch.cuda.synchronize()
+    rollout.reset_launch_counts()
+    t0 = perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = perf_counter() - t0
+    return out, {'rollout': rollout.ROLLOUT_LAUNCHES,
+                 'sens': rollout.SENS_LAUNCHES}, wall
+
+
+def check_sharded_launches(what, unsharded, sharded, shards):
+    """Raise unless the sharded run launched each kernel exactly shards x
+    the unsharded run's count; prints the launches a shard."""
+    per_shard = {k: n / shards for k, n in sharded.items()}
+    log(f'  {what}: unsharded {unsharded}, sharded {sharded} over {shards} '
+        f'shards, {per_shard} a shard')
+    if sharded != {k: shards * n for k, n in unsharded.items()}:
+        raise AssertionError(f'{what}: {sharded} launches over {shards} '
+                             f'shards, expected {shards} x {unsharded}')
+
+
+def check_kernel_on_last_card(device):
+    """Both kernels on tensors on the last visible card while cuda:0 is
+    current, against their plain versions there within `TOL` (f32): on one
+    card the same card, through the wrappers' device guard."""
+    import torch
+    from insite_tpu_torch.ops import rollout
+    last = torch.device('cuda', torch.cuda.device_count() - 1)
+    case = eq4_case(2048, 60, True, 2)
+    args = tensors(case, torch.float32, last)
+    act = case['active_idx']
+    with torch.cuda.device(0):
+        rollout.reset_launch_counts()
+        y = rollout.batched_rollout(*args)
+        ys, s = rollout.rollout_with_sens(*args, act)
+        current = torch.cuda.current_device()
+    torch.cuda.synchronize()
+    launches = (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES)
+    if launches != (1, 1) or current != 0 or y.device != last:
+        raise AssertionError(f'{last}: launches {launches}, current device '
+                             f'{current}, output on {y.device}')
+    err = max(check_close('last card rollout', y,
+                          rollout.batched_rollout_plain(*args),
+                          *TOL['f32']['y']),
+              check_close('last card sens', s,
+                          rollout.rollout_with_sens_plain(*args, act)[1],
+                          *TOL['f32']['sens']))
+    log(f'  kernels on {last} with cuda:0 current: 1 + 1 launches, max abs '
+        f'err vs plain {err:.3e}')
+
+
+def run_mesh_insite(device, mesh):
+    """(b) insite EQ_4_D at 1,000 / 100 / 100 (seq 60, horizon 5, gamma
+    2), fitted once, its 1-step (B = 11,800) and n-step (B = 59,000)
+    predictions unsharded and over ``mesh``: launches = shards x
+    unsharded, predictions and fine-tuned coefficients within
+    `MESH_RTOL` / `MESH_ATOL`. Returns ({tag: launches}, {tag: wall})."""
+    import torch
+    from insite_tpu_torch.models.sindy import SINDyRegressor
+    coll, model = fitted_model('EQ_4_D', device)
+    sharded = SINDyRegressor(model.cfg, coll, device=device, mesh=mesh)
+    sharded.fit(coll.train_f)
+    if not np.array_equal(sharded.coefs, model.coefs):
+        raise AssertionError('the two fits of one collection differ')
+    one, nst = coll.test_cf_one_step, coll.test_cf_treatment_seq
+    runs, launches, walls = {}, {}, {}
+    for tag, m in (('unsharded', model), ('sharded', sharded)):
+        runs[tag], launches[tag], walls[tag] = counted(device, lambda m=m: (
+            m.get_predictions(one), m.get_autoregressive_predictions(nst)))
+    n_one, n_nst = len(one.data['prev_outputs']), \
+        len(nst.data['prev_outputs'])
+    log(f'  insite EQ_4_D 1-step B={n_one}, n-step B={n_nst}: unsharded '
+        f'{walls["unsharded"]:.4f} s, {len(mesh)} shards '
+        f'{walls["sharded"]:.4f} s (shards run one after another on a '
+        'card)')
+    check_sharded_launches('insite EQ_4_D predictions',
+                           launches['unsharded'], launches['sharded'],
+                           len(mesh))
+    err = 0.0
+    for i, what in enumerate(('1-step', 'n-step')):
+        err = max(err, check_close(
+            f'sharded insite {what}', torch.as_tensor(runs['sharded'][i]),
+            torch.as_tensor(runs['unsharded'][i]), MESH_RTOL, MESH_ATOL))
+    coefs = [m.get_fine_tuned_coefficients(one) for m in (model, sharded)]
+    err_c = check_close('sharded insite coefficients',
+                        torch.as_tensor(coefs[1]), torch.as_tensor(coefs[0]),
+                        MESH_RTOL, MESH_ATOL)
+    log(f'  sharded vs unsharded: predictions max abs err {err:.3e}, '
+        f'fine-tuned coefficients {err_c:.3e}')
+    return ({f'insite_{t}': n for t, n in launches.items()},
+            {f'insite_{t}': w for t, w in walls.items()})
+
+
+def run_mesh_columns(device, mesh):
+    """(c) 10-seed sindy and insite columns of `vectorized_eq4_sweep`
+    (EQ_4_D, 1,000 / 100 patients) unsharded and with their seeds over
+    ``mesh``: launches = shards x unsharded, every per-seed metric and
+    coefficient within `MESH_RTOL` / `MESH_ATOL`."""
+    import torch
+    from insite_tpu_torch.harness.vectorized import vectorized_eq4_sweep
+    launches, walls = {}, {}
+    for method in ('sindy', 'insite'):
+        res = {}
+        for tag, kw in (('unsharded', dict(device=device)),
+                        ('sharded', dict(mesh=mesh))):
+            res[tag], launches[f'{method}_column_{tag}'], \
+                walls[f'{method}_column_{tag}'] = counted(
+                    device, lambda kw=kw: vectorized_eq4_sweep(
+                        'EQ_4_D', n_seeds=MESH_SEEDS, method=method, **kw))
+        check_sharded_launches(f'{MESH_SEEDS}-seed {method} column',
+                               launches[f'{method}_column_unsharded'],
+                               launches[f'{method}_column_sharded'],
+                               len(mesh))
+        err = max(check_close(f'sharded {method} column {k}',
+                              torch.as_tensor(res['sharded'][k]),
+                              torch.as_tensor(res['unsharded'][k]),
+                              MESH_RTOL, MESH_ATOL)
+                  for k in res['unsharded'])
+        log(f'  {method} column: unsharded '
+            f'{walls[f"{method}_column_unsharded"]:.4f} s, sharded '
+            f'{walls[f"{method}_column_sharded"]:.4f} s; max abs err '
+            f'{err:.3e}; 1-step mean {res["sharded"]["mean"]:.6f} %')
+    return launches, walls
+
+
+def run_mesh_neural(device, mesh):
+    """(d) each neural method's column (EQ_4_D, 200 / 10 / 10, one seed a
+    shard, 2 epochs, dropout 0, one batch an epoch: `NEURAL_ONE_BATCH`)
+    unsharded and sharded: no launch, every per-seed RMSE within
+    `MESH_RTOL` / `MESH_ATOL`; then ct with dropout on, whose sharded
+    column (masks from one generator a block) is held to the unsharded
+    column's means by phase 12's ct band (`VECTORIZED_NEURAL_BANDS`)."""
+    import torch
+    from insite_tpu_torch.harness import vectorized_neural as vn
+    walls = {}
+    kw = dict(n_seeds=len(mesh), num_patients={'train': 200, 'val': 10,
+                                               'test': 10}, epochs=2)
+
+    def column(method, **extra):
+        if method in ('crn', 'edct'):
+            return vn.vectorized_enc_dec_sweep(method, 'EQ_4_D', **kw,
+                                               **extra)
+        fn = {'ct': vn.vectorized_ct_sweep, 'rmsn': vn.vectorized_rmsn_sweep,
+              'gnet': vn.vectorized_gnet_sweep}[method]
+        if method == 'gnet':
+            extra['mc_samples'] = 2
+        return fn('EQ_4_D', **kw, **extra)
+
+    for method in ('ct', 'crn', 'edct', 'rmsn', 'gnet'):
+        ov = NEURAL_ONE_BATCH[method]
+        res, launches = {}, {}
+        for tag, where in (('unsharded', dict(device=device)),
+                           ('sharded', dict(mesh=mesh))):
+            res[tag], launches[tag], walls[f'{method}_{tag}'] = counted(
+                device, lambda where=where: column(
+                    method, model_overrides=ov, **where))
+        if launches != {t: {'rollout': 0, 'sens': 0} for t in launches}:
+            raise AssertionError(f'{method} columns launched {launches}')
+        err = max(check_close(f'sharded {method} column {k}',
+                              torch.as_tensor(res['sharded'][k]),
+                              torch.as_tensor(res['unsharded'][k]),
+                              MESH_RTOL, MESH_ATOL)
+                  for k in res['unsharded'])
+        log(f'  {method} {len(mesh)}-seed column, dropout 0: unsharded '
+            f'{walls[f"{method}_unsharded"]:.4f} s, sharded '
+            f'{walls[f"{method}_sharded"]:.4f} s; max abs err {err:.3e}')
+    res = {tag: column('ct', **where) for tag, where in (
+        ('unsharded', dict(device=device)), ('sharded', dict(mesh=mesh)))}
+    for i, keys in enumerate((['encoder_test_rmse_orig'],
+                              [f'decoder_test_rmse_{k}-step'
+                               for k in range(2, 7)])):
+        lo, hi = VECTORIZED_NEURAL_BANDS['EQ_4_D ct'][i]
+        for k in keys:
+            ratio = float(np.mean(res['sharded'][k]) /
+                          np.mean(res['unsharded'][k]))
+            if not (np.isfinite(res['sharded'][k]).all()
+                    and lo <= ratio <= hi):
+                raise AssertionError(f'ct with dropout, sharded {k}: mean '
+                                     f'x{ratio:.3f} of the unsharded')
+    log('  ct with dropout on: sharded column means inside the ct band '
+        'of the unsharded ones')
+    return walls
+
+
+def run_mesh(device):
+    """Phase 17. Returns (launches by run, the wall of each step)."""
+    import torch
+    from insite_tpu_torch.entry import dryrun_multichip
+    count = torch.cuda.device_count()
+    mesh = mesh_of(max(2, count))
+    column_mesh = mesh if MESH_SEEDS % len(mesh) == 0 else mesh_of(2)
+    log(f'[mesh] {len(mesh)} shards on {len(set(mesh))} distinct card(s) '
+        f'of {count}: {[str(d) for d in mesh]}; columns over '
+        f'{len(column_mesh)} shards')
+    walls, launches = {}, {}
+
+    def step(name, t0):
+        torch.cuda.synchronize()
+        walls[name] = perf_counter() - t0
+        log(f'[mesh] {name}: {walls[name]:.4f} s')
+
+    t0 = perf_counter()
+    check_kernel_on_last_card(device)
+    step('(a) kernels on the last card', t0)
+    t0 = perf_counter()
+    got, w = run_mesh_insite(device, mesh)
+    launches.update(got)
+    walls.update(w)
+    step('(b) insite EQ_4_D, full width', t0)
+    t0 = perf_counter()
+    got, w = run_mesh_columns(device, column_mesh)
+    launches.update(got)
+    walls.update(w)
+    step(f'(c) {MESH_SEEDS}-seed columns', t0)
+    t0 = perf_counter()
+    walls.update(run_mesh_neural(device, mesh))
+    step('(d) neural columns', t0)
+    for n in sorted({2, max(2, count)}):
+        t0 = perf_counter()
+        rec, launches[f'dryrun_{n}'], _ = counted(
+            device, lambda n=n: dryrun_multichip(n))
+        log(f'  dryrun_multichip({n}) steps: '
+            f'{json.dumps({k: round(v, 4) for k, v in rec["walls"].items()})}'
+            f'; launches {launches[f"dryrun_{n}"]}')
+        step(f'(e) dryrun_multichip({n})', t0)
+    return launches, walls
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3670,6 +3940,10 @@ def main():
                      'insight_eq4b_1step_shared': one_case}
     # phase 11's seed-stacked batches: per-row models of 10 supports
     stacked = stacked_cases(device)
+    # phase 17's half of the n-step set: one of two shards
+    half_shard = {'nstep_half_shard_b29500_t64': dict(
+        n_step_case, **{k: n_step_case[k][:29_500]
+                        for k in ('coefs', 'y0', 'statics', 'arms')})}
     # phase 13's lam tune: the validation cohort once per grid value
     tune_cases = {'tuning_b700': tuning_case(device)}
     log('[kernels] device time per call, f32, before any plain version '
@@ -3679,7 +3953,8 @@ def main():
                               '1step_shared_b11800_t59': one_step_case,
                               'degree4_f35_kr16_b10000_t59': degree4_case,
                               **tumor_cases, **sindy_family_cases,
-                              **insight_cases, **stacked, **tune_cases},
+                              **insight_cases, **stacked, **tune_cases,
+                              **half_shard},
                              device)
     log('[kernels] kernel vs plain PyTorch version on the card')
     main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
@@ -3703,7 +3978,8 @@ def main():
         f'{tag} B={case["arms"].shape[0]} T={case["arms"].shape[1]} '
         f'Kr={len(case["active_idx"])}', case, device, timed=True)
         for tag, case in {**tumor_cases, **sindy_family_cases,
-                          **insight_cases, **stacked, **tune_cases}.items()}
+                          **insight_cases, **stacked, **tune_cases,
+                          **half_shard}.items()}
     fold_res = {tag: run_fold_case(
         f'{tag} vs plain joint B={len(case["y0"])} '
         f'T={case["arms"].shape[1]}', case['joint'], device)
@@ -3839,6 +4115,12 @@ def main():
     log(f'[entry] phase 16 wall {perf_counter() - t16:.4f} s; by step '
         f'{json.dumps(entry_walls)}')
 
+    # 17. the batch mesh: sharded runs against unsharded ones, dry runs
+    t17 = perf_counter()
+    mesh_launches, mesh_walls = run_mesh(device)
+    log(f'[mesh] phase 17 wall {perf_counter() - t17:.4f} s; by step '
+        f'{json.dumps({k: round(v, 4) for k, v in mesh_walls.items()})}')
+
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),
                                 ('rollout_with_sens', 'sens', ':85')):
@@ -3890,6 +4172,10 @@ def main():
             'launches_bench_fused': bench_launches['fused'][key],
             'launches_bench_standard': bench_launches['standard'][key],
             'launches_entry': entry_launches[key],
+            # phase 17: each run unsharded and over the mesh (sharded =
+            # shards x unsharded, asserted), and the dry runs
+            'launches_mesh': {tag: n[key]
+                              for tag, n in mesh_launches.items()},
             'max_abs_err': main_case['f32'][err],
             'ms': main_case['times'][f'{key}_ms'],
             'plain_ms': main_case['times'][f'{key}_plain_ms'],

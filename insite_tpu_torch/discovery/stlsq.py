@@ -52,6 +52,30 @@ def _qr_reduce(theta: torch.Tensor, y: torch.Tensor, sample_weight=None):
     return R[:F, :F], R[:F, F]
 
 
+def _qr_reduce_sharded(thetas, ys, sample_weights=None):
+    """`_qr_reduce` of rows split into shards (TSQR): each shard's
+    ``[R_i | Q_i^T y_i]`` on its own device, then those F-row blocks
+    stacked on the first shard's device and reduced once more. The result
+    is that of the unsharded rows up to the sign of each row of R: the
+    stacked blocks have the Gram matrix and right-hand side of the whole
+    problem. A shard with fewer rows than F + 1 is padded with zero rows,
+    which change neither."""
+    F = thetas[0].shape[-1]
+    blocks = []
+    for i, (theta, y) in enumerate(zip(thetas, ys)):
+        w = None if sample_weights is None else sample_weights[i]
+        short = F + 1 - theta.shape[0]
+        if short > 0:
+            theta = torch.cat([theta, theta.new_zeros(short, F)])
+            y = torch.cat([y, y.new_zeros(short)])
+            w = None if w is None else torch.cat([w, w.new_zeros(short)])
+        R, qty = _qr_reduce(theta, y, w)
+        blocks.append(torch.cat([R, qty[:, None]], dim=1))
+    lead = blocks[0].device
+    stacked = torch.cat([b.to(lead) for b in blocks])       # [n F, F + 1]
+    return _qr_reduce(stacked[:, :F], stacked[:, F])
+
+
 def stlsq_from_qr(R, qty, threshold, alpha, max_iter: int = 100,
                   initial_mask=None, unbias: bool = True):
     """The F x F STLSQ thresholding iteration on a QR-reduced problem, in
@@ -101,8 +125,17 @@ def stlsq_hostsolve(theta, y, threshold, alpha, sample_weight=None,
                     unbias: bool = True):
     """Global-discovery STLSQ: the N-row QR reduction on the tensors'
     device, the F x F thresholding iteration on the host. Returns numpy
-    (coefs [F], mask [F])."""
-    R, qty = _qr_reduce(theta, y, sample_weight)
+    (coefs [F], mask [F]).
+
+    ``theta``, ``y`` and ``sample_weight`` may also be lists of row shards
+    (`parallel.shard_rows`, each on its device, with the shards'
+    `parallel.row_mask` in the weight, so that the padding weighs 0): the
+    reduction is then `_qr_reduce_sharded`'s, and the coefficients do not
+    depend on the number of shards."""
+    if isinstance(theta, (list, tuple)):
+        R, qty = _qr_reduce_sharded(theta, y, sample_weight)
+    else:
+        R, qty = _qr_reduce(theta, y, sample_weight)
     return stlsq_from_qr(R.cpu().numpy(), qty.cpu().numpy(), threshold,
                          alpha, max_iter=max_iter, initial_mask=initial_mask,
                          unbias=unbias)
@@ -126,21 +159,22 @@ def stlsq(theta, y, threshold, alpha, sample_weight=None,
 
     The JAX package forms and solves these equations in the compute dtype;
     here the gram and right-hand side are accumulated in float64 on the
-    tensors' device and the F x F solves run in float64 on the host."""
+    tensors' device, seed by seed, and the F x F solves run in float64 on
+    the host."""
     batched = theta.ndim == 3
     if not batched:
         theta, y = theta[None], y[None]
         sample_weight = None if sample_weight is None else sample_weight[None]
     rel = 1e-6 if theta.dtype == torch.float32 else 1e-12
     th = theta.double()
-    yw = y.double()
-    if sample_weight is not None:
-        w = sample_weight.double()
-        gram = torch.einsum('snf,sng,sn->sfg', th, th, w)
-        rhs = torch.einsum('snf,sn->sf', th, yw * w)
-    else:
-        gram = torch.einsum('snf,sng->sfg', th, th)
-        rhs = torch.einsum('snf,sn->sf', th, yw)
+    w = (torch.ones_like(th[..., 0]) if sample_weight is None
+         else sample_weight.double())
+    yw = y.double() * w
+    # one seed at a time: the same 2-D products whatever the number of
+    # seeds, so a block of a column's seeds (a sharded column) gets the
+    # whole column's bits
+    gram = torch.stack([(t * ws[:, None]).T @ t for t, ws in zip(th, w)])
+    rhs = torch.stack([t.T @ v for t, v in zip(th, yw)])
     gram, rhs = gram.cpu().numpy(), rhs.cpu().numpy()
     S, F = rhs.shape
     floor = rel * np.trace(gram, axis1=1, axis2=2) / F          # [S]

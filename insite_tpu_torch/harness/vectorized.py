@@ -43,6 +43,7 @@ from insite_tpu_torch.models.sindy import (SINDyConfig, _empty_support_predict,
                                            insite_gn_finetune_predict,
                                            wsindy_grid)
 from insite_tpu_torch.ops.rollout import batched_rollout
+from insite_tpu_torch.parallel import seed_blocks
 from insite_tpu_torch.sim import pkpd
 from insite_tpu_torch.sim.cancer import (CANCER_STAGE_OBSERVATIONS,
                                          TUMOUR_SIZE_DISTRIBUTIONS)
@@ -345,13 +346,19 @@ def _discover(cohorts, library, n_arms, eq4, method, threshold, alpha, dt):
     return coefs
 
 
+def support_union(coefs) -> tuple:
+    """The flat (arm * F + feature) coordinates where any of the models
+    ``coefs`` [S, A, F] (a tensor or numpy) exceeds 1e-3."""
+    return tuple(int(i) for i in np.flatnonzero(
+        (np.abs(np.asarray(coefs)) > 1e-3).any(axis=0)))
+
+
 def _finetune(library, coefs_rows, prev, statics, arms, lengths, dt, lam,
-              ph, gn_iters, y_clip):
+              ph, gn_iters, y_clip, union):
     """The INSITE fine-tune of rows that each carry their own seed's global
-    model, over the union of the seeds' supports (`_empty_support_predict`
-    when that is empty). Returns (preds, fine-tuned coefs [R, A, F])."""
-    union = tuple(int(i) for i in torch.nonzero(
-        (coefs_rows.abs() > 1e-3).any(dim=0).reshape(-1)).reshape(-1))
+    model, over ``union``, the union of the column's supports
+    (`_empty_support_predict` when that is empty). Returns (preds,
+    fine-tuned coefs [R, A, F])."""
     if not union:
         return _empty_support_predict(library, coefs_rows, prev, statics,
                                       arms, lengths, dt, ph, y_clip)
@@ -363,13 +370,13 @@ def _finetune(library, coefs_rows, prev, statics, arms, lengths, dt, lam,
 
 
 def _predict(library, coefs, rows, arms, lengths, statics, dt, *, insite,
-             lam, ph, gn_iters, y_clip, group=None):
+             lam, ph, gn_iters, y_clip, union, group=None):
     """Predictions [R, W-1] of the stacked rows of S seeds (seed-major,
     R / S rows a seed), each seed's rows with its own model ``coefs``
     [S, A, F]. INSITE fine-tunes each row over its first lengths - ``ph``
-    steps; with ``group`` = P it fine-tunes the first of every P
-    consecutive rows (the branches or plans of one prefix) and rolls all P
-    out with that row's model."""
+    steps, in the coordinates ``union``; with ``group`` = P it fine-tunes
+    the first of every P consecutive rows (the branches or plans of one
+    prefix) and rolls all P out with that row's model."""
     S = coefs.shape[0]
     prev = rows[:, :-1]
     per_seed = rows.shape[0] // S
@@ -379,7 +386,7 @@ def _predict(library, coefs, rows, arms, lengths, statics, dt, *, insite,
     if group is None:
         return _finetune(library, coefs.repeat_interleave(per_seed, dim=0),
                          prev, statics, arms, lengths, dt, lam, ph,
-                         gn_iters, y_clip)[0]
+                         gn_iters, y_clip, union)[0]
 
     def first(x):
         return x.reshape(-1, group, *x.shape[1:])[:, 0]
@@ -387,7 +394,7 @@ def _predict(library, coefs, rows, arms, lengths, statics, dt, *, insite,
     _, coefs_pref = _finetune(
         library, coefs.repeat_interleave(per_seed // group, dim=0),
         first(prev), first(statics), first(arms), first(lengths), dt, lam,
-        ph, gn_iters, y_clip)
+        ph, gn_iters, y_clip, union)
     return batched_rollout(library, coefs_pref.repeat_interleave(group,
                                                                  dim=0),
                            prev[:, 0], statics, arms, dt, y_clip=y_clip)
@@ -430,32 +437,39 @@ def _n_step_rmses(preds, rows, lengths, valid, S, ph, norm_c):
     return torch.sqrt((err * err).sum(1) / denom[:, None]) / norm_c * 100.0
 
 
-def column(cohorts, *, family: str, method: str, threshold: float,
-           alpha: float, lam: float, projection_horizon: int,
-           gn_iters: int = 12, dedup_one_step: bool = False,
-           dt: float = STANDARD_DT) -> dict:
-    """One seed column from its seeds' cohorts (`eq4_cohort`, or
-    `tumor_cohort` of `tumor_draws`): discovery per seed, then every seed's
-    1-step rows in one batch and every seed's n-step rows in another.
-    ``family`` is 'eq4' or 'tumor'. The n-step fine-tune runs once per
-    (patient, prefix) on its first plan; ``dedup_one_step`` does the same
-    for the 1-step rows' two branches (EQ_4). Returns per seed:
-    'encoder_test_rmse_orig', '_all', '_last' [S],
-    'decoder_test_rmse_{2..ph+1}-step' [S] and 'global_coefs' [S, A, F]
-    (float64 numpy)."""
+def discover_column(cohorts, *, family: str, method: str, threshold: float,
+                    alpha: float, dt: float = STANDARD_DT) -> np.ndarray:
+    """Every seed's global model of a column, [S, A, F] float64 numpy:
+    the family's design over the seeds' stacked training cohorts, then
+    `_discover`."""
+    eq4 = family == 'eq4'
+    statics = cohorts[0]['train'][3]
+    library = PolynomialLibrary(n_inputs=1 + statics.shape[-1])
+    return _discover(cohorts, library, 2 if eq4 else 4, eq4, method,
+                     threshold, alpha, dt)
+
+
+def evaluate_column(cohorts, coefs_np, *, family: str, method: str,
+                    lam: float, projection_horizon: int, gn_iters: int = 12,
+                    dedup_one_step: bool = False, dt: float = STANDARD_DT,
+                    union=None) -> dict:
+    """The 1-step and n-step evaluation of a column whose seeds' global
+    models are ``coefs_np`` [S, A, F]: every seed's 1-step rows in one
+    batch and every seed's n-step rows in another. INSITE fine-tunes in
+    the coordinates ``union`` (the union of these seeds' supports when
+    None; a block of a sharded column takes the whole column's). Returns
+    the per-seed arrays of `column`."""
     eq4 = family == 'eq4'
     S, ph = len(cohorts), projection_horizon
     train_statics = cohorts[0]['train'][3]
     dtype, dev = train_statics.dtype, train_statics.device
     library = PolynomialLibrary(n_inputs=1 + train_statics.shape[-1])
-    n_arms = 2 if eq4 else 4
     norm_c = MAX_VALUE if eq4 else TUMOUR_DEATH_THRESHOLD
     y_clip = None if eq4 else (0.0, float(TUMOUR_DEATH_THRESHOLD))
-    coefs_np = _discover(cohorts, library, n_arms, eq4, method, threshold,
-                         alpha, dt)
     coefs = torch.as_tensor(coefs_np, dtype=dtype, device=dev)
     kw = dict(insite=(method == 'insite'), lam=lam, gn_iters=gn_iters,
-              y_clip=y_clip)
+              y_clip=y_clip,
+              union=support_union(coefs_np) if union is None else union)
 
     rows, arms, lengths, statics, valid = _stack(cohorts, 'one_step')
     preds = _predict(library, coefs, rows, arms, lengths, statics, dt, ph=1,
@@ -475,6 +489,28 @@ def column(cohorts, *, family: str, method: str, threshold: float,
     return out
 
 
+def column(cohorts, *, family: str, method: str, threshold: float,
+           alpha: float, lam: float, projection_horizon: int,
+           gn_iters: int = 12, dedup_one_step: bool = False,
+           dt: float = STANDARD_DT) -> dict:
+    """One seed column from its seeds' cohorts (`eq4_cohort`, or
+    `tumor_cohort` of `tumor_draws`): discovery per seed
+    (`discover_column`), then every seed's 1-step rows in one batch and
+    every seed's n-step rows in another (`evaluate_column`).
+    ``family`` is 'eq4' or 'tumor'. The n-step fine-tune runs once per
+    (patient, prefix) on its first plan; ``dedup_one_step`` does the same
+    for the 1-step rows' two branches (EQ_4). Returns per seed:
+    'encoder_test_rmse_orig', '_all', '_last' [S],
+    'decoder_test_rmse_{2..ph+1}-step' [S] and 'global_coefs' [S, A, F]
+    (float64 numpy)."""
+    coefs = discover_column(cohorts, family=family, method=method,
+                            threshold=threshold, alpha=alpha, dt=dt)
+    return evaluate_column(cohorts, coefs, family=family, method=method,
+                           lam=lam, projection_horizon=projection_horizon,
+                           gn_iters=gn_iters, dedup_one_step=dedup_one_step,
+                           dt=dt)
+
+
 def _summary(res: dict, n_seeds: int) -> dict:
     res['mean'] = float(np.mean(res['encoder_test_rmse_orig']))
     res['ci95'] = (float(ci(res['encoder_test_rmse_orig']))
@@ -492,22 +528,42 @@ def vectorized_eq4_sweep(equation_str: str, n_seeds: int = 10,
                          lam: float = 10.0, method: str = 'insite',
                          gn_iters: int = 12, projection_horizon: int = 5,
                          noise_scale: float = 1.0,
-                         dedup_one_step: bool = False, *, device,
-                         dtype=None) -> dict:
+                         dedup_one_step: bool = False, *, device=None,
+                         dtype=None, mesh=None) -> dict:
     """Seeds 0..n_seeds-1 of one (EQ_4 dataset, method) column on
     ``device``: per-seed arrays (metrics [S], 'global_coefs' [S, 2, 7])
     and the 1-step 'mean' and 'ci95'. The 1-step rows are fine-tuned one
-    by one unless ``dedup_one_step``."""
+    by one unless ``dedup_one_step``.
+
+    With a ``mesh`` (`parallel.batch_mesh`; ``device`` is then unused),
+    the seeds are split into one block per device (n_seeds a multiple of
+    the mesh size, as in the JAX package): each block's cohorts, design,
+    discovery and fine-tune run as a column of their own on its device,
+    and the per-seed results are joined in seed order. A seed's cohort
+    comes from its own generator whatever its block, and a row moves only
+    its own seed's support, so the mesh changes placement, not the
+    results."""
     assert 'EQ_4' in equation_str
     assert method in ('insite', 'sindy', 'wsindy')
-    cohorts = [eq4_cohort(s, equation_str, n_train, n_test, seq_length,
-                          conf_coeff, projection_horizon, noise_scale,
-                          device=device, dtype=dtype)
-               for s in range(n_seeds)]
-    res = column(cohorts, family='eq4', method=method, threshold=threshold,
-                 alpha=alpha, lam=lam,
-                 projection_horizon=projection_horizon, gn_iters=gn_iters,
-                 dedup_one_step=dedup_one_step)
+    if device is None and mesh is None:
+        raise TypeError('vectorized_eq4_sweep needs device= or mesh=')
+    blocks = ([(device, slice(0, n_seeds))] if mesh is None
+              else seed_blocks(n_seeds, mesh))
+    cohorts = [[eq4_cohort(s, equation_str, n_train, n_test, seq_length,
+                           conf_coeff, projection_horizon, noise_scale,
+                           device=dev, dtype=dtype)
+                for s in range(seeds.start, seeds.stop)]
+               for dev, seeds in blocks]
+    coefs = [discover_column(c, family='eq4', method=method,
+                             threshold=threshold, alpha=alpha)
+             for c in cohorts]
+    union = support_union(np.concatenate(coefs))
+    parts = [evaluate_column(c, k, family='eq4', method=method, lam=lam,
+                             projection_horizon=projection_horizon,
+                             gn_iters=gn_iters,
+                             dedup_one_step=dedup_one_step, union=union)
+             for c, k in zip(cohorts, coefs)]
+    res = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     return _summary(res, n_seeds)
 
 

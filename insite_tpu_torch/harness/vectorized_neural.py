@@ -24,6 +24,17 @@ One generator per column, on the device, draws every batch order and
 dropout mask of all its stages: a column repeats bit for bit in one
 process, but a seed's row depends on the seeds that share its column
 (the JAX package gives each seed a key of its own).
+
+With a ``mesh`` (`parallel.batch_mesh`), the seed axis is split into one
+block of consecutive seeds a device (n_seeds a multiple of the mesh size,
+as in the JAX package): the collections and stacked data stay on the
+mesh's first device, each stage trains one stacked fit a block on the
+block's device, and predictions run each block's seeds on its device and
+gather them on the first. The column's generator draws the batch orders
+of all seeds, each block taking its slice, so a sharded column takes the
+unsharded column's batches; the dropout masks come from one generator a
+block. With dropout 0 a sharded column is the unsharded one; with dropout
+on it differs in its masks (and so in every later draw).
 """
 
 from __future__ import annotations
@@ -39,8 +50,9 @@ from insite_tpu_torch.eval.metrics import (normalised_masked_rmse,
                                            normalised_n_step_rmses)
 from insite_tpu_torch.models import crn, ct, edct, gnet, rmsn
 from insite_tpu_torch.models.nn.training import (
-    encoder_decoder_train_configs, fit_br_column, fit_simple_column,
+    bases_on, encoder_decoder_train_configs, fit_br_column, fit_simple_column,
     merge_by_mask, seeded_net, stack_nets, stacked_call, treatment_head_mask)
+from insite_tpu_torch.parallel import seed_blocks
 
 DEFAULT_PATIENTS = {'train': 1000, 'val': 100, 'test': 100}
 
@@ -137,29 +149,115 @@ def _config(config_cls, colls, epochs, model_overrides, **fields):
         **(model_overrides or {})})
 
 
-def _fit_br_stage(build, seeds, train: dict, tc, gen):
+class _Column:
+    """Where a column's seeds live: ``device`` holds its collections and
+    stacked data; ``blocks`` are (device, seed slice) pairs, one a mesh
+    device, or the whole column on ``device``; ``gen`` (on ``device``)
+    draws the batch orders, and ``block_gens`` the blocks' dropout masks
+    (None: ``gen`` draws them too)."""
+
+    def __init__(self, n_seeds: int, seed_start: int, device, mesh):
+        if device is None and mesh is None:
+            raise TypeError('a column needs device= or mesh=')
+        if mesh is None:
+            self.device = torch.device(device)
+            self.blocks = [(self.device, slice(0, n_seeds))]
+        else:
+            self.device = mesh[0]
+            self.blocks = seed_blocks(n_seeds, mesh)
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            seed_start)
+        self.block_gens = None if mesh is None else [
+            torch.Generator(device=d).manual_seed(seed_start + 1 + i)
+            for i, (d, _) in enumerate(self.blocks)]
+
+    def split(self, stacked: dict, leaves: bool = False) -> list:
+        """``stacked`` ``[S, ...]`` tensors as one dict a block, on its
+        device; with ``leaves``, as new leaf tensors that require
+        gradients (stacked parameters)."""
+        out = []
+        for d, sl in self.blocks:
+            block = {k: v[sl].detach().to(d) if leaves else v[sl].to(d)
+                     for k, v in stacked.items()}
+            if leaves:
+                block = {k: v.requires_grad_() for k, v in block.items()}
+            out.append(block)
+        return out
+
+    def seed(self, s: int):
+        """(block index, index within the block, device) of seed s."""
+        for i, (d, sl) in enumerate(self.blocks):
+            if sl.start <= s < sl.stop:
+                return i, s - sl.start, d
+        raise IndexError(s)
+
+
+class _Stage:
+    """One trained network of a column: its base module and stacked
+    parameters a seed block, each on the block's device."""
+
+    def __init__(self, col: _Column, base, params: list):
+        self.col = col
+        self.bases = bases_on(base, [d for d, _ in col.blocks])
+        self.params = params
+
+    def predict(self, make):
+        """``make(base, params)`` gives one block's ``predict(batch)``;
+        returns the column's: ``batch`` ``[S, rows, ...]`` on the column's
+        device, each block's seeds predicted on its device, the outputs
+        (a tensor or a tuple) gathered on the column's device."""
+        fns = [make(b, p) for b, p in zip(self.bases, self.params)]
+        if len(fns) == 1:
+            return fns[0]
+        lead = self.col.device
+
+        def predict(batch):
+            outs = [fn({k: v[sl].to(d) for k, v in batch.items()})
+                    for fn, (d, sl) in zip(fns, self.col.blocks)]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.cat([o[i].to(lead) for o in outs])
+                             for i in range(len(outs[0])))
+            return torch.cat([o.to(lead) for o in outs])
+
+        return predict
+
+    def seed(self, s: int):
+        """(base, parameters, device) of seed s alone."""
+        i, j, d = self.col.seed(s)
+        return self.bases[i], {k: p[j] for k, p in self.params[i].items()}, d
+
+
+def _fit_br_stage(build, seeds, train: dict, tc, col: _Column):
     """Build, stack and train one balanced-representation stage for the
-    column on ``train`` (`fit_br_column`). Returns ``predict(batch) ->
-    (outcome, representation)``, seed-vmapped, with the classifier's
-    trained parameters and, with ``weights_ema``, the EMA of the rest."""
-    base, params = _initial_stack(build, seeds, gen.device)
-    ema = fit_br_column(base, params, train, tc, gen)
-    params = {k: p.detach() for k, p in params.items()}
+    column on ``train`` (`fit_br_column`, one stacked fit a seed block).
+    Returns ``predict(batch) -> (outcome, representation)``, seed-vmapped,
+    with the classifier's trained parameters and, with ``weights_ema``,
+    the EMA of the rest."""
+    base, params = _initial_stack(build, seeds, col.device)
+    params = col.split(params, leaves=True)
+    emas = fit_br_column(base, params, col.split(train), tc, col.gen,
+                         col.block_gens)
+    params = [{k: p.detach() for k, p in b.items()} for b in params]
     if tc.weights_ema:
-        params = merge_by_mask(params, ema, treatment_head_mask(base))
+        mask = treatment_head_mask(base)
+        params = [merge_by_mask(p, e, mask) for p, e in zip(params, emas)]
 
-    def predict(batch):
-        return stacked_call(base, params, (batch,))[1:3]
+    def make(b, p):
+        return lambda batch: stacked_call(b, p, (batch,))[1:3]
 
-    return predict
+    return _Stage(col, base, params).predict(make)
 
 
-def _fit_simple_stage(build, seeds, train: dict, loss_fn, tc, gen):
+def _fit_simple_stage(build, seeds, train: dict, loss_fn, tc,
+                      col: _Column) -> _Stage:
     """Build, stack and train one single-optimizer network for the column
-    on ``train`` (`fit_simple_column`). Returns ``(base, params)``."""
-    base, params = _initial_stack(build, seeds, gen.device)
-    fit_simple_column(base, params, loss_fn, train, tc, gen)
-    return base, {k: p.detach() for k, p in params.items()}
+    on ``train`` (`fit_simple_column`, one stacked fit a seed block)."""
+    base, params = _initial_stack(build, seeds, col.device)
+    params = col.split(params, leaves=True)
+    fit_simple_column(base, params, loss_fn, col.split(train), tc, col.gen,
+                      col.block_gens)
+    return _Stage(col, base,
+                  [{k: p.detach() for k, p in b.items()} for b in params])
 
 
 def _one_step_metrics(res, colls, preds, n_rows):
@@ -193,8 +291,8 @@ def vectorized_ct_sweep(dataset_name: str, n_seeds: int = 10,
                         cf_seq_mode: str = 'sliding_treatment',
                         noise_scale: float = 1.0,
                         model_overrides: dict = None,
-                        max_seq_length: int = 60, *, device,
-                        dtype=None) -> dict:
+                        max_seq_length: int = 60, *, device=None,
+                        dtype=None, mesh=None) -> dict:
     """A CT column, seeds ``seed_start`` .. + n_seeds - 1, on ``device``
     in ``dtype`` (float32 unless named): one stacked fit, then the 1-step
     and the rolling-origin n-step evaluation of every seed (predictions
@@ -202,6 +300,8 @@ def vectorized_ct_sweep(dataset_name: str, n_seeds: int = 10,
     Returns the run row's metric keys, one value a seed."""
     dtype = resolve_float(dtype)
     seeds = list(range(seed_start, seed_start + n_seeds))
+    col = _Column(n_seeds, seed_start, device, mesh)
+    device = col.device
     colls = _collections(dataset_name, seeds,
                          num_patients or DEFAULT_PATIENTS, coeff,
                          cf_seq_mode, noise_scale, max_seq_length, device,
@@ -210,11 +310,10 @@ def vectorized_ct_sweep(dataset_name: str, n_seeds: int = 10,
         c.process_data_multi()
     cfg = _config(ct.CTConfig, colls, epochs, model_overrides,
                   treatment_mode='multilabel')
-    gen = torch.Generator(device=device).manual_seed(seed_start)
     train, _ = _stack_padded([c.train_f.data for c in colls], ct.BATCH_KEYS,
                              device, dtype)
     predict_br = _fit_br_stage(lambda: ct.CTNetwork(cfg, dtype=dtype), seeds,
-                               train, ct.ct_train_config(cfg), gen)
+                               train, ct.ct_train_config(cfg), col)
 
     def predict(batch):
         return predict_br(batch)[0]
@@ -258,8 +357,8 @@ def vectorized_enc_dec_sweep(method: str, dataset_name: str,
                              cf_seq_mode: str = 'sliding_treatment',
                              noise_scale: float = 1.0,
                              model_overrides: dict = None,
-                             max_seq_length: int = 60, *, device,
-                             dtype=None) -> dict:
+                             max_seq_length: int = 60, *, device=None,
+                             dtype=None, mesh=None) -> dict:
     """A CRN or EDCT column (``method``) on ``device`` in ``dtype``: the
     encoder as one stacked fit; its representations start each seed's
     decoder processing on the host (EDCT keeps every row's
@@ -269,6 +368,8 @@ def vectorized_enc_dec_sweep(method: str, dataset_name: str,
     assert method in ('crn', 'edct')
     dtype = resolve_float(dtype)
     seeds = list(range(seed_start, seed_start + n_seeds))
+    col = _Column(n_seeds, seed_start, device, mesh)
+    device = col.device
     colls = _collections(dataset_name, seeds,
                          num_patients or DEFAULT_PATIENTS, coeff,
                          cf_seq_mode, noise_scale, max_seq_length, device,
@@ -282,13 +383,12 @@ def vectorized_enc_dec_sweep(method: str, dataset_name: str,
     build_enc = functools.partial(fam.encoder_network, cfg, dtype)
     build_dec = functools.partial(fam.decoder_network, cfg, dtype)
     enc_tc, dec_tc = encoder_decoder_train_configs(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed_start)
     ph = cfg.projection_horizon
 
     # the encoder column
     enc_train, _ = _stack_padded([c.train_f.data for c in colls],
                                  fam.ENC_KEYS, device, dtype)
-    enc_predict = _fit_br_stage(build_enc, seeds, enc_train, enc_tc, gen)
+    enc_predict = _fit_br_stage(build_enc, seeds, enc_train, enc_tc, col)
 
     # the encoder's outputs feed each seed's decoder processing
     save_r = method == 'edct'
@@ -322,7 +422,7 @@ def vectorized_enc_dec_sweep(method: str, dataset_name: str,
         dec_list.append(td)
     dec_train, _ = _stack_padded(dec_list, list(dec_list[0]), device, dtype)
     dec_predict = _fit_br_stage(build_dec, [s + 1 for s in seeds], dec_train,
-                                dec_tc, gen)
+                                dec_tc, col)
     del dec_list, dec_train
 
     res = _new_result()
@@ -378,8 +478,8 @@ def vectorized_rmsn_sweep(dataset_name: str, n_seeds: int = 10,
                           cf_seq_mode: str = 'sliding_treatment',
                           noise_scale: float = 1.0,
                           model_overrides: dict = None,
-                          max_seq_length: int = 60, *, device,
-                          dtype=None) -> dict:
+                          max_seq_length: int = 60, *, device=None,
+                          dtype=None, mesh=None) -> dict:
     """An RMSN column on ``device`` in ``dtype``: the four networks
     (propensity-treatment, propensity-history, the SW-weighted encoder and
     decoder; seeds + 0 .. + 3) each one stacked fit; the stabilized
@@ -389,6 +489,8 @@ def vectorized_rmsn_sweep(dataset_name: str, n_seeds: int = 10,
     keys, one value a seed."""
     dtype = resolve_float(dtype)
     seeds = list(range(seed_start, seed_start + n_seeds))
+    col = _Column(n_seeds, seed_start, device, mesh)
+    device = col.device
     colls = _collections(dataset_name, seeds,
                          num_patients or DEFAULT_PATIENTS, coeff,
                          cf_seq_mode, noise_scale, max_seq_length, device,
@@ -399,7 +501,6 @@ def vectorized_rmsn_sweep(dataset_name: str, n_seeds: int = 10,
                   treatment_mode='multilabel')
     factories = rmsn.network_factories(cfg, dtype)
     tcs = rmsn.train_configs(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed_start)
     ph_steps = cfg.projection_horizon
 
     def fit(i, data_list, loss):
@@ -407,7 +508,7 @@ def vectorized_rmsn_sweep(dataset_name: str, n_seeds: int = 10,
                                    dtype)
         return _fit_simple_stage(factories[i], [s + i for s in seeds],
                                  stacked, _lstm_output_loss(loss), tcs[i],
-                                 gen)
+                                 col)
 
     def extras(data, *keys):
         return {k: data[k] for k in keys}
@@ -418,13 +519,13 @@ def vectorized_rmsn_sweep(dataset_name: str, n_seeds: int = 10,
     scores = []
     for i, inputs in enumerate((rmsn._propensity_inputs_treat,
                                 rmsn._propensity_inputs_hist)):
-        base, params = fit(i, [{'x': inputs(td),
-                                **extras(td, 'current_treatments',
-                                         'active_entries')}
-                               for td in train_datas], bce_loss)
+        stage = fit(i, [{'x': inputs(td),
+                         **extras(td, 'current_treatments',
+                                  'active_entries')}
+                        for td in train_datas], bce_loss)
         stacked, _ = _stack_padded([{'x': inputs(td)} for td in train_datas],
                                    ['x'], device, dtype)
-        out, _ = _predict_chunked(_lstm_output_predict(base, params),
+        out, _ = _predict_chunked(stage.predict(_lstm_output_predict),
                                   stacked, eval_chunk)
         scores.append(_numpy(torch.sigmoid(out)))
 
@@ -438,11 +539,11 @@ def vectorized_rmsn_sweep(dataset_name: str, n_seeds: int = 10,
             td['stabilized_weights'], td['active_entries'])
 
     # the SW-weighted encoder column
-    enc_base, enc_params = fit(2, [{'x': rmsn._encoder_inputs(td),
+    enc_stage = fit(2, [{'x': rmsn._encoder_inputs(td),
                                     **extras(td, 'outputs', 'active_entries'),
                                     'sw': td['sw_tilde_enc']}
                                    for td in train_datas], rmsn.weighted_mse)
-    enc_predict = _lstm_output_predict(enc_base, enc_params)
+    enc_predict = enc_stage.predict(_lstm_output_predict)
 
     # the decoder rows, per seed on the host
     shims = [_ArrayEncoder() for _ in seeds]
@@ -470,8 +571,8 @@ def vectorized_rmsn_sweep(dataset_name: str, n_seeds: int = 10,
                          **extras(dd, 'outputs', 'active_entries',
                                   'init_state'),
                          'sw': dd['sw_tilde_dec']})
-    dec_predict = _lstm_output_predict(
-        *fit(3, dec_list, rmsn.weighted_mse), with_init_state=True)
+    dec_predict = fit(3, dec_list, rmsn.weighted_mse).predict(
+        functools.partial(_lstm_output_predict, with_init_state=True))
 
     res = _new_result()
     one_step, n_rows = _stack_padded(
@@ -509,8 +610,8 @@ def vectorized_gnet_sweep(dataset_name: str, n_seeds: int = 10,
                           cf_seq_mode: str = 'sliding_treatment',
                           noise_scale: float = 1.0,
                           model_overrides: dict = None,
-                          max_seq_length: int = 60, *, device,
-                          dtype=None) -> dict:
+                          max_seq_length: int = 60, *, device=None,
+                          dtype=None, mesh=None) -> dict:
     """A G-Net column on ``device`` in ``dtype``: the network as one
     stacked fit on each seed's training rows less its holdout split; the
     holdout residuals, the 1-step evaluation and the ``mc_samples``
@@ -520,6 +621,8 @@ def vectorized_gnet_sweep(dataset_name: str, n_seeds: int = 10,
     metric keys, one value a seed."""
     dtype = resolve_float(dtype)
     seeds = list(range(seed_start, seed_start + n_seeds))
+    col = _Column(n_seeds, seed_start, device, mesh)
+    device = col.device
     colls = _collections(dataset_name, seeds,
                          num_patients or DEFAULT_PATIENTS, coeff,
                          cf_seq_mode, noise_scale, max_seq_length, device,
@@ -531,19 +634,17 @@ def vectorized_gnet_sweep(dataset_name: str, n_seeds: int = 10,
     ph, do = cfg.projection_horizon, cfg.dim_outcome
     for c in colls:
         c.split_train_f_holdout(cfg.holdout_ratio)
-    gen = torch.Generator(device=device).manual_seed(seed_start)
     train, _ = _stack_padded(
         [{'x': gnet._inputs(c.train_f.data),
           'outputs': c.train_f.data['outputs'],
           'active_entries': c.train_f.data['active_entries']}
          for c in colls], ['x', 'outputs', 'active_entries'], device, dtype)
-    base, params = _fit_simple_stage(
+    stage = _fit_simple_stage(
         lambda: gnet.GNetNetwork(cfg, dtype=dtype), seeds, train,
-        gnet.outcome_loss(do), gnet.train_config(cfg), gen)
+        gnet.outcome_loss(do), gnet.train_config(cfg), col)
     del train
-
-    def predict(batch):
-        return stacked_call(base, params, (batch['x'],))[..., :do]
+    predict = stage.predict(lambda b, p: lambda batch: stacked_call(
+        b, p, (batch['x'],))[..., :do])
 
     def predict_outputs(datas):
         stacked, rows = _stack_padded([{'x': gnet._inputs(d)}
@@ -561,26 +662,27 @@ def vectorized_gnet_sweep(dataset_name: str, n_seeds: int = 10,
     M = cfg.mc_samples
     predicted = []
     for s, c in enumerate(colls):
+        # the seed's rollouts on its block's device
+        base, params_s, dev = stage.seed(s)
         h = hold[s]
         resid_bank = torch.as_tensor(h['outputs'], dtype=dtype,
-                                     device=device) - \
-            hold_pred[s, :hold_rows[s]]
+                                     device=dev) - \
+            hold_pred[s, :hold_rows[s]].to(dev)
         resid_len = torch.as_tensor(h['sequence_lengths'].astype(np.int64),
-                                    device=device)
+                                    device=dev)
         dd = c.test_cf_treatment_seq.data
         n = len(dd['prev_outputs'])
         rng = np.random.RandomState(seeds[s])
         ridx = torch.as_tensor(np.stack([
             np.concatenate([rng.randint(hold_rows[s], size=n)
                             for _ in range(M)])
-            for _ in range(ph + 1)]), dtype=torch.int64, device=device)
+            for _ in range(ph + 1)]), dtype=torch.int64, device=dev)
         x = torch.as_tensor(gnet._inputs(dd), dtype=dtype,
-                            device=device).repeat(M, 1, 1)
+                            device=dev).repeat(M, 1, 1)
         split = torch.as_tensor(dd['future_past_split'].astype(np.int64),
-                                device=device).repeat(M)
-        params_s = {k: p[s] for k, p in params.items()}
+                                device=dev).repeat(M)
 
-        def net(xb):
+        def net(xb, base=base, params_s=params_s):
             return torch.func.functional_call(base, params_s, (xb,))
 
         rows = gnet.CHUNK_ROWS

@@ -30,6 +30,7 @@ them copies to the host.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -139,9 +140,19 @@ def br_losses(treatment_pred, outcome_pred, batch, alpha, balancing,
     """Optimizer 0's loss terms: the masked outcome MSE and the balancing
     BCE (against the factual treatments, or, for domain confusion, alpha
     times the BCE against uniform targets)."""
+    mse, active, bce_elem, active_t = br_loss_elements(
+        treatment_pred, outcome_pred, batch, alpha, balancing,
+        treatment_mode)
+    return masked_mean(mse, active), masked_mean(bce_elem, active_t)
+
+
+def br_loss_elements(treatment_pred, outcome_pred, batch, alpha, balancing,
+                     treatment_mode):
+    """The elements `br_losses` averages, each with its mask: (squared
+    outcome error, active entries, balancing BCE, active steps). A batch
+    split over devices sums them and their masks per shard."""
     mse = (outcome_pred - batch['outputs']) ** 2
     active = batch['active_entries']
-    mse_loss = masked_mean(mse, active)
     if balancing == 'grad_reverse':
         bce_elem = bce(treatment_pred, batch['current_treatments'],
                        treatment_mode)
@@ -152,7 +163,7 @@ def br_losses(treatment_pred, outcome_pred, batch, alpha, balancing,
         else:
             uniform = uniform * 0.5
         bce_elem = alpha * bce(treatment_pred, uniform, treatment_mode)
-    return mse_loss, masked_mean(bce_elem, active[..., 0])
+    return mse, active, bce_elem, active[..., 0]
 
 
 def make_batches(gen, n: int, batch_size: int):
@@ -325,8 +336,47 @@ def _step_column(opt, params, grads, max_grad_norm=None):
     opt.step()
 
 
-def fit_br_column(base: torch.nn.Module, params: dict, data: dict,
-                  cfg: TrainConfig, gen: torch.Generator) -> dict:
+def _seed_blocks(base, params, data, gen, block_gens):
+    """The blocks of a column fit: ``params`` and ``data`` as one dict
+    each (the whole column, on one device) or as lists, one seed block a
+    device. Returns (listed, [(`bases_on` the block's device, params,
+    data, dropout generator, seed slice)])."""
+    listed = isinstance(params, (list, tuple))
+    if not listed:
+        params, data = [params], [data]
+    gens = block_gens if block_gens is not None else [gen] * len(params)
+    if len(gens) != len(params):
+        raise ValueError(f'{len(gens)} generators for {len(params)} blocks')
+    bases = bases_on(base, [next(iter(p.values())).device for p in params])
+    blocks, lo = [], 0
+    for b, p, d, g in zip(bases, params, data, gens):
+        n = next(iter(p.values())).shape[0]
+        blocks.append((b, p, d, g, slice(lo, lo + n)))
+        lo += n
+    return listed, blocks
+
+
+def bases_on(base: torch.nn.Module, devices) -> list:
+    """``base`` for each of ``devices``: itself on its own device, one copy
+    on each other device (its buffers are the seeds' shared ones, and
+    `functional_call` reads them there)."""
+    copies = {next(base.parameters()).device: base}
+    for d in devices:
+        if d not in copies:
+            copies[d] = copy.deepcopy(base).to(d)
+    return [copies[d] for d in devices]
+
+
+def _column_orders(gen, blocks, n_seeds: int, n: int, batch_size: int):
+    """One epoch's batch orders of the whole column from ``gen``
+    (`column_batches`), each block's seeds' slice on its device."""
+    order = column_batches(gen, n_seeds, n, batch_size)
+    return [order[:, sl].to(next(iter(p.values())).device)
+            for _, p, _, _, sl in blocks]
+
+
+def fit_br_column(base: torch.nn.Module, params, data, cfg: TrainConfig,
+                  gen: torch.Generator, block_gens=None):
     """`fit_br_model` for a column of S seeds at once: ``params`` (from
     `stack_nets`) train in place on ``data`` (tensors ``[S, N, ...]``, on
     the generator's device; short seeds zero-padded). Each batch is one
@@ -335,92 +385,126 @@ def fit_br_column(base: torch.nn.Module, params: dict, data: dict,
     optimizers step every seed, clipping per seed; the EMA count is
     shared, as every seed takes ``N // batch_size`` batches. Dropout masks
     differ between the seeds and all come from ``gen``. Returns the EMA,
-    stacked like ``params``."""
-    treat = treatment_head_mask(base)
-    group0 = [p for k, p in params.items() if not treat[k]]
-    group1 = [p for k, p in params.items() if treat[k]]
-    opt0 = _base_optimizer(group0, cfg)
-    opt1 = _base_optimizer(group1, cfg)
-    ema = {k: p.detach().clone() for k, p in params.items()}
-    ema_list, param_list = list(ema.values()), list(params.values())
-    mode = cfg.treatment_mode
+    stacked like ``params``.
 
-    def losses(p, batch, alpha, detach_treatment):
-        def one(p_s, b_s):
-            tp, op, _ = functional_call(
-                base, p_s, (b_s, alpha),
-                {'gen': gen, 'detach_treatment': detach_treatment})
-            if not detach_treatment:
-                mse_loss, bce_loss = br_losses(tp, op, b_s, alpha,
-                                               cfg.balancing, mode)
-                return mse_loss + bce_loss
-            bce_elem = bce(tp, b_s['current_treatments'], mode)
-            if cfg.balancing == 'domain_confusion':
-                bce_elem = alpha * bce_elem
-            return masked_mean(bce_elem, b_s['active_entries'][..., 0])
-        return torch.func.vmap(one, randomness='different')(p, batch).sum()
+    A sharded column passes ``params`` and ``data`` as lists, one block of
+    consecutive seeds a device, and ``block_gens``, one generator a block
+    on its device. Each block then trains as its own stacked fit on its
+    device, with its own optimizers; ``gen`` draws the batch orders of the
+    whole column, each block taking its seeds' slice, so they are the
+    unsharded column's; each block's dropout masks come from its own
+    generator. Returns one EMA a block."""
+    listed, blocks = _seed_blocks(base, params, data, gen, block_gens)
+    treat = treatment_head_mask(base)
+    mode = cfg.treatment_mode
+    n_seeds = sum(sl.stop - sl.start for *_, sl in blocks)
+    n = next(iter(blocks[0][2].values())).shape[1]
+    bs = min(cfg.batch_size, n)
+    alphas = alpha_at_epoch(torch.arange(cfg.epochs), cfg.epochs, cfg.alpha,
+                            cfg.alpha_rate, cfg.update_alpha)
+    alphas = alphas.expand(cfg.epochs)
 
     def grads(loss, group):
         return torch.autograd.grad(loss, group, allow_unused=True,
                                    materialize_grads=True)
 
-    S, n = next(iter(data.values())).shape[:2]
-    bs = min(cfg.batch_size, n)
-    alphas = alpha_at_epoch(torch.arange(cfg.epochs), cfg.epochs, cfg.alpha,
-                            cfg.alpha_rate, cfg.update_alpha)
-    alphas = alphas.expand(cfg.epochs).to(gen.device)
+    states = []
+    for b_base, b_params, b_data, b_gen, _ in blocks:
+        def losses(p, batch, alpha, detach_treatment, b_base=b_base,
+                   b_gen=b_gen):
+            def one(p_s, b_s):
+                tp, op, _ = functional_call(
+                    b_base, p_s, (b_s, alpha),
+                    {'gen': b_gen, 'detach_treatment': detach_treatment})
+                if not detach_treatment:
+                    mse_loss, bce_loss = br_losses(tp, op, b_s, alpha,
+                                                   cfg.balancing, mode)
+                    return mse_loss + bce_loss
+                bce_elem = bce(tp, b_s['current_treatments'], mode)
+                if cfg.balancing == 'domain_confusion':
+                    bce_elem = alpha * bce_elem
+                return masked_mean(bce_elem, b_s['active_entries'][..., 0])
+            return torch.func.vmap(one, randomness='different')(
+                p, batch).sum()
+
+        group0 = [p for k, p in b_params.items() if not treat[k]]
+        group1 = [p for k, p in b_params.items() if treat[k]]
+        dev = next(iter(b_params.values())).device
+        states.append(dict(
+            params=b_params, data=b_data, losses=losses, group0=group0,
+            group1=group1, opt0=_base_optimizer(group0, cfg),
+            opt1=_base_optimizer(group1, cfg),
+            ema={k: p.detach().clone() for k, p in b_params.items()},
+            alphas=alphas.to(dev)))
     count = 0
     for epoch in range(cfg.epochs):
-        alpha = alphas[epoch]
-        for idx in column_batches(gen, S, n, bs):
-            batch = _gather_rows(data, idx)
-            p = merge_by_mask(ema, params, treat) if cfg.weights_ema \
-                else params
-            _step_column(opt0, group0,
-                         grads(losses(p, batch, alpha, False), group0),
-                         cfg.max_grad_norm)
-            p = merge_by_mask(params, ema, treat) if cfg.weights_ema \
-                else params
-            _step_column(opt1, group1,
-                         grads(losses(p, batch, alpha, True), group1),
-                         cfg.max_grad_norm)
+        orders = _column_orders(gen, blocks, n_seeds, n, bs)
+        for i in range(orders[0].shape[0]):
+            for st, order in zip(states, orders):
+                batch = _gather_rows(st['data'], order[i])
+                alpha, params_b, ema = (st['alphas'][epoch], st['params'],
+                                        st['ema'])
+                p = merge_by_mask(ema, params_b, treat) if cfg.weights_ema \
+                    else params_b
+                _step_column(st['opt0'], st['group0'],
+                             grads(st['losses'](p, batch, alpha, False),
+                                   st['group0']), cfg.max_grad_norm)
+                p = merge_by_mask(params_b, ema, treat) if cfg.weights_ema \
+                    else params_b
+                _step_column(st['opt1'], st['group1'],
+                             grads(st['losses'](p, batch, alpha, True),
+                                   st['group1']), cfg.max_grad_norm)
             if cfg.weights_ema:
-                count = _ema_update(ema_list, param_list, count, cfg.beta)
-    for p in param_list:
-        p.grad = None
-    return ema
+                for st in states:
+                    _ema_update(list(st['ema'].values()),
+                                list(st['params'].values()), count, cfg.beta)
+                count += 1
+    for st in states:
+        for p in st['params'].values():
+            p.grad = None
+    emas = [st['ema'] for st in states]
+    return emas if listed else emas[0]
 
 
-def fit_simple_column(base: torch.nn.Module, params: dict, loss_fn,
-                      data: dict, cfg: TrainConfig,
-                      gen: torch.Generator) -> dict:
+def fit_simple_column(base: torch.nn.Module, params, loss_fn, data,
+                      cfg: TrainConfig, gen: torch.Generator,
+                      block_gens=None):
     """`fit_simple` for a column of S seeds at once: ``params`` (from
     `stack_nets`) train in place on ``data`` (tensors ``[S, N, ...]``, on
     the generator's device; short seeds zero-padded), one step a batch on
     the sum of the S per-seed ``loss_fn(net, batch, gen)``, where ``net``
     calls ``base`` with one seed's parameters; clipping per seed.
-    Returns ``params``."""
-    trainable = list(params.values())
-    opt = _base_optimizer(trainable, cfg)
-
-    def loss(batch):
-        def one(p_s, b_s):
-            def net(*args, **kwargs):
-                return functional_call(base, p_s, args, kwargs)
-            return loss_fn(net, b_s, gen)
-        return torch.func.vmap(one, randomness='different')(
-            params, batch).sum()
-
-    S, n = next(iter(data.values())).shape[:2]
+    Returns ``params``. A sharded column passes lists and
+    ``block_gens``, as `fit_br_column` describes."""
+    listed, blocks = _seed_blocks(base, params, data, gen, block_gens)
+    n_seeds = sum(sl.stop - sl.start for *_, sl in blocks)
+    n = next(iter(blocks[0][2].values())).shape[1]
     bs = min(cfg.batch_size, n)
+    states = []
+    for b_base, b_params, b_data, b_gen, _ in blocks:
+        def loss(batch, b_base=b_base, b_params=b_params, b_gen=b_gen):
+            def one(p_s, b_s):
+                def net(*args, **kwargs):
+                    return functional_call(b_base, p_s, args, kwargs)
+                return loss_fn(net, b_s, b_gen)
+            return torch.func.vmap(one, randomness='different')(
+                b_params, batch).sum()
+
+        trainable = list(b_params.values())
+        states.append((loss, trainable, b_data,
+                       _base_optimizer(trainable, cfg)))
     for _ in range(cfg.epochs):
-        for idx in column_batches(gen, S, n, bs):
-            g = torch.autograd.grad(loss(_gather_rows(data, idx)), trainable,
-                                    allow_unused=True,
-                                    materialize_grads=True)
-            _step_column(opt, trainable, g, cfg.max_grad_norm)
-    for p in trainable:
-        p.grad = None
+        orders = _column_orders(gen, blocks, n_seeds, n, bs)
+        for i in range(orders[0].shape[0]):
+            for (loss, trainable, b_data, opt), order in zip(states,
+                                                              orders):
+                g = torch.autograd.grad(loss(_gather_rows(b_data, order[i])),
+                                        trainable, allow_unused=True,
+                                        materialize_grads=True)
+                _step_column(opt, trainable, g, cfg.max_grad_norm)
+    for _, trainable, _, _ in states:
+        for p in trainable:
+            p.grad = None
     return params
 
 

@@ -26,6 +26,13 @@ folded onto a per-arm model by `ops/joint_fold.py`.
 
 Otherwise CPU tensors take each kernel's plain PyTorch version and CUDA
 tensors the kernel; nothing falls back from one to the other.
+
+With a ``mesh`` (`parallel.batch_mesh`), the rows a model predicts are
+sharded over its devices: each shard's rollouts and fine-tune run on its
+own device, through the kernels on every CUDA shard, and the predictions
+are gathered on ``device``. The fit is not sharded, as in the JAX package.
+Where the JAX package takes XLA under a mesh (GSPMD cannot partition a
+Pallas call), ``'auto'`` here launches the kernels on every shard.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from insite_tpu_torch.ops.rollout import (batched_rollout,
                                           batched_rollout_plain,
                                           rollout_with_sens,
                                           rollout_with_sens_plain)
+from insite_tpu_torch.parallel import gather_rows, shard_rows
 from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
 
 
@@ -156,29 +164,32 @@ def check_rollout_backend(backend: str, device) -> None:
                          f'{device}')
 
 
-def _check_solver_settings(cfg: SINDyConfig, device: torch.device) -> None:
+def _check_solver_settings(cfg: SINDyConfig, devices) -> None:
     """Unknown solver or backend names raise, and so do the kernels asked
-    for on tensors they cannot take."""
+    for on tensors they cannot take (on any of ``devices``)."""
     if cfg.insite_solver not in INSITE_SOLVERS:
         raise ValueError(f'insite_solver={cfg.insite_solver!r}; expected '
                          f'one of {INSITE_SOLVERS}')
-    check_rollout_backend(cfg.rollout_backend, device)
+    for device in devices:
+        check_rollout_backend(cfg.rollout_backend, device)
 
 
 class SINDyRegressor(CausalEstimator):
     """A-SINDy, A-WSINDy (``cfg.wsindy``) or INSITE (``cfg.insite``) on
-    ``device``, in ``dtype`` (float32 unless given). Predictions come back
-    as numpy, scaled like the dataset's outputs, ``[rows, T, 1]``."""
+    ``device``, in ``dtype`` (float32 unless given), its predictions sharded
+    over ``mesh`` when one is given. Predictions come back as numpy, scaled
+    like the dataset's outputs, ``[rows, T, 1]``."""
 
     def __init__(self, cfg: SINDyConfig, dataset_collection=None, *, device,
-                 dtype=None):
+                 dtype=None, mesh=None):
         unserved = _unserved(cfg)
         if unserved:
             raise NotImplementedError(
                 'not ported yet (ROADMAP.md): ' + ', '.join(unserved))
         self.cfg = cfg
         self.device = torch.device(device)
-        _check_solver_settings(cfg, self.device)
+        self.mesh = mesh
+        _check_solver_settings(cfg, (self.device,) + tuple(mesh or ()))
         self.dtype = resolve_float(dtype)
         self.dt = STANDARD_DT
         self.global_equation_string = ''
@@ -424,11 +435,34 @@ class SINDyRegressor(CausalEstimator):
         """``rollout_backend='xla'``: the plain versions, no kernel."""
         return self.cfg.rollout_backend == 'xla'
 
+    def _on_mesh(self, fn, *rows):
+        """``fn(*rows)``; with a mesh, on each shard of the tensors among
+        ``rows`` (the rest passed as they are), gathered on ``device``."""
+        if self.mesh is None:
+            return fn(*rows)
+        at = [i for i, r in enumerate(rows) if torch.is_tensor(r)]
+        shards, n = shard_rows([rows[i] for i in at], self.mesh)
+        outs = []
+        for shard in shards:
+            args = list(rows)
+            for i, x in zip(at, shard):
+                args[i] = x
+            outs.append(fn(*args))
+        out = gather_rows(outs, n)
+        if isinstance(out, tuple):
+            return tuple(o.to(self.device) for o in out)
+        return out.to(self.device)
+
     def _global_rollout(self, dataset) -> np.ndarray:
         prev, statics, arms, lengths = self._rollout_args(dataset)
         roll, _ = _rollouts(self.library, self._fold, self._plain)
-        preds = roll(self._tensor(self.coefs)[None], prev[:, 0], statics,
-                     arms, self.dt, y_clip=self._y_clip())
+
+        def run(prev_s, statics_s, arms_s):
+            coefs = self._tensor(self.coefs).to(prev_s.device)
+            return roll(coefs[None], prev_s[:, 0], statics_s, arms_s,
+                        self.dt, y_clip=self._y_clip())
+
+        preds = self._on_mesh(run, prev, statics, arms)
         return self._scaled_numpy(preds, lengths, dataset)
 
     def _active_idx(self) -> tuple:
@@ -454,7 +488,10 @@ class SINDyRegressor(CausalEstimator):
         With ``cfg.finetune_chunk`` (2048 by default with the degree-4
         library, whose Jacobian is [rows, T, up to A * 35]) the rows go
         through in chunks of that size, the last one padded by repeating
-        its final row."""
+        its final row. Under a mesh each call is sharded (`_on_mesh`), and
+        the chunk is rounded up to a multiple of the mesh size, so that a
+        chunk splits evenly and the bound on the Jacobian holds per
+        device."""
         cfg = self.cfg
         prev, statics, arms, lengths = self._rollout_args(dataset)
         if cfg.smooth_input_data:
@@ -467,10 +504,10 @@ class SINDyRegressor(CausalEstimator):
                 for x in (prev, statics, arms, lengths))
             lam = torch.tensor(lam_grid, dtype=torch.float64,
                                device=prev.device).repeat_interleave(n_rows)
-        coefs = self._tensor(self.coefs)
         active_idx = self._active_idx()
 
         def solve(prev_c, statics_c, arms_c, lengths_c, lam_c):
+            coefs = self._tensor(self.coefs).to(prev_c.device)
             if not active_idx:
                 return _empty_support_predict(
                     self.library, coefs, prev_c, statics_c, arms_c,
@@ -495,7 +532,9 @@ class SINDyRegressor(CausalEstimator):
             chunk = 2048
         n = prev.shape[0]
         if not chunk or n <= chunk:
-            return solve(prev, statics, arms, lengths, lam)
+            return self._on_mesh(solve, prev, statics, arms, lengths, lam)
+        if self.mesh is not None:
+            chunk = -(-chunk // len(self.mesh)) * len(self.mesh)
         preds_l, coefs_l = [], []
         for i in range(0, n, chunk):
             take = min(chunk, n - i)
@@ -507,9 +546,9 @@ class SINDyRegressor(CausalEstimator):
                                                        *xs.shape[1:])])
                 return xs
 
-            p, c = solve(padded(prev), padded(statics), padded(arms),
-                         padded(lengths),
-                         padded(lam) if torch.is_tensor(lam) else lam)
+            p, c = self._on_mesh(solve, padded(prev), padded(statics),
+                                 padded(arms), padded(lengths),
+                                 padded(lam) if torch.is_tensor(lam) else lam)
             preds_l.append(p[:take])
             coefs_l.append(c[:take])
         return torch.cat(preds_l), torch.cat(coefs_l)

@@ -12,9 +12,10 @@ plain PyTorch version beside it:
   fine-tune.
 
 Each dispatches on the device of its inputs: CPU tensors take the plain
-version, CUDA tensors launch the kernel, and a failed build or launch
-raises. More active coordinates than the sensitivity kernel takes go
-through it in groups, one launch a group. The module counts kernel launches
+version, CUDA tensors launch the kernel on the card that holds them
+(whichever card is current), and a failed build or launch raises, as do
+inputs on more than one device. More active coordinates than the
+sensitivity kernel takes go through it in groups, one launch a group. The module counts kernel launches
 in `ROLLOUT_LAUNCHES` and `SENS_LAUNCHES`, so a run can show that it went
 through the kernels.
 
@@ -263,11 +264,14 @@ def _rollout_cuda(library, coefs, y0, statics, arms, dt, substeps, y_clip):
     if B == 0 or T == 0:
         return out
     fn = getattr(_kernels(), f'insite_rollout_{_suffix(y0.dtype)}')
-    stream = torch.cuda.current_stream(y0.device).cuda_stream
     c, y, u, ar = ops
-    err = fn(c.data_ptr(), bstride, y.data_ptr(), u.data_ptr(),
-             ar.data_ptr(), table.ctypes.data, out.data_ptr(), B, T, A, F, S,
-             substeps, dt / substeps, *_clip_args(y_clip), stream)
+    # the launch, its shared-memory attribute and the stream act on the
+    # current card: make it the tensors' own
+    with torch.cuda.device(y0.device):
+        stream = torch.cuda.current_stream(y0.device).cuda_stream
+        err = fn(c.data_ptr(), bstride, y.data_ptr(), u.data_ptr(),
+                 ar.data_ptr(), table.ctypes.data, out.data_ptr(), B, T, A,
+                 F, S, substeps, dt / substeps, *_clip_args(y_clip), stream)
     _raise_on(err, 'rollout_kernel')
     ROLLOUT_LAUNCHES += 1
     return out
@@ -285,12 +289,13 @@ def _sens_cuda(library, coefs, y0, statics, arms, dt, active_idx, substeps,
     if B == 0 or T == 0:
         return out, sens
     fn = getattr(_kernels(), f'insite_rollout_sens_{_suffix(y0.dtype)}')
-    stream = torch.cuda.current_stream(y0.device).cuda_stream
     c, y, u, ar = ops
-    err = fn(c.data_ptr(), bstride, y.data_ptr(), u.data_ptr(),
-             ar.data_ptr(), table.ctypes.data, act.ctypes.data, Kr,
-             out.data_ptr(), sens.data_ptr(), B, T, A, F, S, substeps,
-             dt / substeps, *_clip_args(y_clip), stream)
+    with torch.cuda.device(y0.device):
+        stream = torch.cuda.current_stream(y0.device).cuda_stream
+        err = fn(c.data_ptr(), bstride, y.data_ptr(), u.data_ptr(),
+                 ar.data_ptr(), table.ctypes.data, act.ctypes.data, Kr,
+                 out.data_ptr(), sens.data_ptr(), B, T, A, F, S, substeps,
+                 dt / substeps, *_clip_args(y_clip), stream)
     _raise_on(err, 'rollout_sens_kernel')
     SENS_LAUNCHES += 1
     return out, sens
@@ -315,6 +320,15 @@ def _sens_in_groups(sens_fn, group: int, library, coefs, y0, statics, arms,
 # ---------------------------------------------------------------------------
 # public entry points
 
+def _one_device(*tensors) -> torch.device:
+    """The one device of ``tensors``; inputs on two devices raise."""
+    devices = {x.device for x in tensors}
+    if len(devices) != 1:
+        raise ValueError('the rollout inputs lie on more than one device: '
+                         f'{sorted(map(str, devices))}')
+    return devices.pop()
+
+
 def batched_rollout(library, coefs, y0, statics, arms, dt,
                     substeps=STEPS_FOR_DT, y_clip=None):
     """Euler rollout of the discovered model: [B, T] predictions y[1..T].
@@ -322,7 +336,7 @@ def batched_rollout(library, coefs, y0, statics, arms, dt,
     coefs: [1, A, F] (shared) or [B, A, F]; y0: [B]; statics: [B, S];
     arms: [B, T] integer arm per step; y_clip: optional (lo, hi) applied
     after each step's sub-steps."""
-    if y0.device.type == 'cpu':
+    if _one_device(coefs, y0, statics, arms).type == 'cpu':
         return batched_rollout_plain(library, coefs, y0, statics, arms, dt,
                                      substeps, y_clip)
     return _rollout_cuda(library, coefs, y0, statics, arms, dt, substeps,
@@ -335,7 +349,7 @@ def rollout_with_sens(library, coefs, y0, statics, arms, dt, active_idx,
     (preds [B, T], sens [B, T, Kr]). active_idx: flat (arm * F + feature)
     coordinates, any number of them: beyond the kernel's bound they take
     one launch per group of that many."""
-    if y0.device.type == 'cpu':
+    if _one_device(coefs, y0, statics, arms).type == 'cpu':
         return rollout_with_sens_plain(library, coefs, y0, statics, arms, dt,
                                        active_idx, substeps, y_clip)
     return _sens_in_groups(_sens_cuda, kernel_bounds()['Kr'], library, coefs,

@@ -1,6 +1,7 @@
 """The flagship forward step: the port's `entry()` against the JAX
 package's `__graft_entry__.entry()` on the CPU (float32, atol 1e-5;
-measured: 1.9e-06 on predictions up to 25.7)."""
+measured: 1.9e-06 on predictions up to 25.7); and the port's
+`dryrun_multichip` over a mesh of two CPU devices."""
 
 import jax
 import numpy as np
@@ -38,3 +39,27 @@ def test_entry_defaults_to_the_card():
         with pytest.raises((AssertionError, RuntimeError)):
             entry()
 
+
+
+def test_dryrun_multichip_on_two_cpu_devices():
+    """Every step of the dry run over a 2-shard mesh of CPU devices (the
+    plain versions stand in for the kernels): finite results of the JAX
+    dry run's shapes, the data-parallel CT step equal to the unsharded one
+    (asserted inside, rtol 1e-5), and the seed-sharded sindy column equal
+    to the unsharded column bit for bit."""
+    from insite_tpu_torch.entry import dryrun_multichip
+    from insite_tpu_torch.harness.vectorized import vectorized_eq4_sweep
+    cpu = torch.device('cpu')
+    r = dryrun_multichip(2, devices=[cpu, cpu])
+    assert set(r['walls']) == {'stlsq', 'finetune', 'ct_step', 'sindy_column',
+                               'ct_column', 'gnet_column', 'sens_kernel'}
+    assert r['stlsq_coefs'].shape == (7,)
+    assert r['finetune_preds'].shape == (8, 11)
+    assert np.isfinite(r['ct_loss'])
+    ref = vectorized_eq4_sweep('EQ_4_D', n_seeds=2, n_train=16, n_test=4,
+                               seq_length=12, method='sindy', device=cpu)
+    for k in ref:
+        np.testing.assert_array_equal(r['sindy_column'][k], ref[k])
+    for col, key in (('ct_column', 'encoder_test_rmse_orig'),
+                     ('gnet_column', 'decoder_test_rmse_6-step')):
+        assert r[col][key].shape == (2,) and np.isfinite(r[col][key]).all()

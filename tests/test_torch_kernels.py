@@ -210,6 +210,19 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn, extra):
         run_port(fn, eq4_case(5, 9, False), *extra)
 
 
+@pytest.mark.parametrize('fn,extra', [
+    (rollout.batched_rollout, ()),
+    (rollout.rollout_with_sens, ((1, 4),))])
+def test_inputs_on_two_devices_raise(fn, extra):
+    """A wrapper given tensors on two devices raises before it runs
+    anything (here a CPU tensor beside a 'meta' one)."""
+    spec, coefs, y0, statics, arms, dt = eq4_case(5, 9, False)
+    with pytest.raises(ValueError, match='more than one device'):
+        fn(PolynomialLibrary(**spec), torch.as_tensor(coefs, device='meta'),
+           torch.as_tensor(y0), torch.as_tensor(statics),
+           torch.as_tensor(arms), dt, *extra)
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     monkeypatch.setenv('PATH', str(tmp_path))
@@ -466,6 +479,38 @@ def test_joint_fold_matches_plain_joint_on_cuda(cuda, dtype):
     y_ref, s_ref = rollout.rollout_with_sens_plain(
         lib, c, y0_t, u, zeros, dt, act, y_clip=TUMOR_CLIP, treatments=tr)
     assert (ref == 0).any() and s.shape == (53, 21, 11)
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_kernels_launch_on_their_tensors_card(cuda, dtype):
+    """Both kernels on tensors on the last visible card while cuda:0 is
+    current, against their plain versions there (`TOL`): each launch runs
+    on its tensors' card, whichever is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices: one to be current, another '
+                    'to hold the tensors')
+    last = torch.device('cuda', torch.cuda.device_count() - 1)
+    case = CASES['per_patient_333']()
+    act = active(case[1])
+    rtol, atol = TOL[dtype]
+    with torch.cuda.device(0):
+        rollout.reset_launch_counts()
+        out = run_port(rollout.batched_rollout, case, device=last,
+                       dtype=dtype)
+        y, s = run_port(rollout.rollout_with_sens, case, act, device=last,
+                        dtype=dtype)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(last)
+    assert (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES) == (1, 1)
+    assert out.device == y.device == s.device == last
+    ref = run_port(rollout.batched_rollout_plain, case, device=last,
+                   dtype=dtype)
+    y_ref, s_ref = run_port(rollout.rollout_with_sens_plain, case, act,
+                            device=last, dtype=dtype)
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(s, s_ref, rtol=10 * rtol, atol=10 * atol)

@@ -6,10 +6,10 @@ fine-tune per seed (rtol 1e-10), and the EQ_4 column core fed the JAX
 package's cohorts against its `_one_seed` (RMSEs rtol 1e-6, coefficients
 rtol 1e-8); the port's vectorized EQ_4 cohort against its collection's
 (bit for bit); `vectorized_sweep`'s rows against the JAX runner's, the
-skipped and the not-yet-ported columns, and the CLI.
-
-The JAX package's `test_sweep_sharded_over_mesh_matches_single_device` has
-no counterpart: the port runs a column on one card and has no mesh."""
+skipped and the not-yet-ported columns, and the CLI; and, the counterpart
+of the JAX package's `test_sweep_sharded_over_mesh_matches_single_device`,
+the port's `vectorized_eq4_sweep` with its seeds sharded over a mesh of 2
+and of 8 CPU devices against the unsharded column (rtol 1e-10)."""
 
 import jax
 import jax.numpy as jnp
@@ -345,3 +345,29 @@ def test_cli_vectorized_on_cpu(tmp_path):
     assert rows[0]['seconds_taken'] == rows[1]['seconds_taken']
     text = open(log_path).read()
     assert '[Sweep config]' in text and 'Latex Table::' in text
+
+
+@pytest.mark.parametrize('method', ['sindy', 'insite'])
+def test_sweep_sharded_over_mesh_matches_single_device(method):
+    """The seeds split into one block a device: each block's cohorts,
+    discovery and fine-tune (over the whole column's union of supports)
+    on its device give the unsharded column's per-seed results (f64, rtol
+    1e-10)."""
+    from insite_tpu_torch.parallel import batch_mesh
+    kw = dict(n_seeds=8, n_train=30, n_test=3, seq_length=20, method=method,
+              dtype=torch.float64)
+    ref = vectorized.vectorized_eq4_sweep('EQ_4_D', device='cpu', **kw)
+    for k in (2, 8):
+        got = vectorized.vectorized_eq4_sweep(
+            'EQ_4_D', mesh=batch_mesh([torch.device('cpu')] * k), **kw)
+        assert list(got) == list(ref)
+        worst = max(float(np.max(np.abs(np.asarray(got[key]) -
+                                        np.asarray(ref[key]))))
+                    for key in ref)
+        print(f'{method} k={k}: largest absolute deviation {worst:.3e}')
+        for key in ref:
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-10,
+                                       err_msg=key)
+    with pytest.raises(ValueError, match='multiple of the mesh size'):
+        vectorized.vectorized_eq4_sweep(
+            'EQ_4_D', mesh=batch_mesh([torch.device('cpu')] * 3), **kw)
