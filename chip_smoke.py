@@ -307,6 +307,20 @@ Phases, in order; any failure exits non-zero:
             `dryrun_multichip(max(2, cards))`. Each step's wall time and
             the sharded against the unsharded wall are printed; on one
             card the shards run one after another.
+18. surface the port's public surface on the card machine (no JAX, pandas
+            or PyYAML): (a) a fresh interpreter imports every name in the
+            ``__all__`` of every subpackage; it must load neither the
+            kernel library nor, before the harness's names are asked for,
+            the runner (`harness/__init__.py` exports lazily), and its
+            wall is printed; (b) `masked_ridge` on the card in f32 and f64
+            (59,000 x 10, a mask and 0/1 weights) against the host's f64
+            solve of the same values (`SURFACE_RIDGE_RTOL`); (c) ``python
+            -m insite_tpu_torch.seed_gaps`` as children, on the tracked
+            logs and on the logs of phases 5, 6 and 11, as the default
+            table and as ``--next-cell``: exit 0, the table's header and
+            total line, the total equal to the cells' gaps, and phase 5's
+            cells counted; (d) phase 16's bench-child wall beside
+            `BENCH_CHILD_BEFORE_S`, its wall before the exports.
 
 The last two lines of stdout are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -830,6 +844,16 @@ BENCH_CHILD_TIMEOUT_S = 300
 # (predictions, coefficients, per-seed RMSEs)
 MESH_RTOL, MESH_ATOL = 1e-5, 1e-7
 MESH_SEEDS = 10
+# phase 18: the public surface. `masked_ridge` on the card against the
+# host's float64 solve of the same values: f64 to rounding, f32 to its
+# cast of the float64 solve
+SURFACE_RIDGE_RTOL = {'float64': 1e-10, 'float32': 1e-6}
+SURFACE_CHILD_TIMEOUT_S = 120
+# phase 16's `python -m insite_tpu_torch.bench` child, seconds from its
+# start, before the subpackages exported their names: the median of two
+# runs of `tools/time_bench_child.py` on the tree before them (NVIDIA H100
+# 80GB HBM3, 700.00 W; the tree with the exports 10.671 s in the same call)
+BENCH_CHILD_BEFORE_S = 10.178267237999997
 # repetitions of a plain version in phase 3's call timing (each takes
 # 0.1-0.3 s; the kernels take 20)
 PLAIN_REPS = 5
@@ -3481,19 +3505,20 @@ def start_bench_child():
 
 def finish_bench_child(child, t0):
     """(b), checked: the child ended cleanly and its last line of stdout
-    parses with `bench.py`'s keys. Returns the line."""
+    parses with `bench.py`'s keys. Returns its wall from its start."""
     out, err = child.communicate(timeout=BENCH_CHILD_TIMEOUT_S)
     if child.returncode != 0:
         raise AssertionError(f'the bench child failed:\n{err[-4000:]}')
+    wall = perf_counter() - t0
     line = json.loads(out.strip().splitlines()[-1])
     log(f'  python -m insite_tpu_torch.bench: {json.dumps(line)}; '
-        f'{perf_counter() - t0:.4f} s from its start')
+        f'{wall:.4f} s from its start')
     for msg in err.strip().splitlines():
         log(f'    {msg}')
     if set(line) != BENCH_LINE_KEYS | {'device_time_s'} or \
             line['metric'] != BENCH_METRIC:
         raise AssertionError(f'the bench child printed {line}')
-    return line
+    return wall
 
 
 def check_results_cli(logs, tmp):
@@ -3629,7 +3654,8 @@ def run_entry_points(device, logs, less_samples_log):
             entry_launches = check_entry(device)
             step('(e) entry()', t0)
             t0 = perf_counter()
-            finish_bench_child(child, t_child)
+            walls['(b) bench child from its start'] = finish_bench_child(
+                child, t_child)
             step('(b) bench child, waiting for it', t0)
         finally:
             if child.poll() is None:
@@ -3882,6 +3908,199 @@ def run_mesh(device):
     return launches, walls
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the public surface
+
+SUBPACKAGES = ('core', 'data', 'discovery', 'eval', 'models', 'models.nn',
+               'ops', 'parallel', 'sim', 'utils', 'harness')
+SURFACE_CODE = '''
+import importlib, json, sys
+from time import perf_counter
+t0 = perf_counter()
+import insite_tpu_torch
+names = 1
+for sub in %r:
+    pkg = importlib.import_module('insite_tpu_torch.' + sub)
+    if sub == 'harness':
+        runner_before = 'insite_tpu_torch.harness.runner' in sys.modules
+    for n in pkg.__all__:
+        getattr(pkg, n)
+    names += len(pkg.__all__)
+from insite_tpu_torch.ops import build, rollout
+print(json.dumps({
+    'imports_s': perf_counter() - t0, 'names': names,
+    'version': insite_tpu_torch.__version__,
+    'runner_before_harness_names': runner_before,
+    'runner_after': 'insite_tpu_torch.harness.runner' in sys.modules,
+    'kernel_library_loaded': build.load_library.cache_info().currsize
+    + rollout._kernels.cache_info().currsize > 0,
+    'loaded_of_jax_pandas_yaml': sorted(
+        {'jax', 'pandas', 'yaml'} & set(sys.modules))}))
+''' % (SUBPACKAGES,)
+
+
+def start_child(args, cwd):
+    """A child interpreter of the repository's code in ``cwd``, output
+    captured."""
+    import os
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent)
+    path = os.environ.get('PYTHONPATH')
+    env = {**os.environ,
+           'PYTHONPATH': root if not path else f'{root}{os.pathsep}{path}'}
+    return subprocess.Popen([sys.executable, *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_child(what, child, t0):
+    """(stdout, wall from ``t0``) of a child that must exit 0."""
+    out, err = child.communicate(timeout=SURFACE_CHILD_TIMEOUT_S)
+    wall = perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f'{what} exited {child.returncode}:\n'
+                             f'{err[-4000:]}')
+    return out, wall
+
+
+def check_surface_child(out, wall):
+    """(a), checked: every exported name imported; no kernel library, no
+    runner before the harness's names, no JAX, pandas or PyYAML."""
+    rec = json.loads(out.strip().splitlines()[-1])
+    log(f'[surface] (a) {rec["names"]} exported names imported in '
+        f'{rec["imports_s"]:.4f} s, the child {wall:.4f} s from its start; '
+        f'runner loaded before the harness names '
+        f'{rec["runner_before_harness_names"]}, after '
+        f'{rec["runner_after"]}; kernel library loaded '
+        f'{rec["kernel_library_loaded"]}; of jax, pandas, yaml loaded '
+        f'{rec["loaded_of_jax_pandas_yaml"]}')
+    if rec['runner_before_harness_names'] or not rec['runner_after'] or \
+            rec['kernel_library_loaded'] or \
+            rec['loaded_of_jax_pandas_yaml'] or rec['version'] != '0.1.0':
+        raise AssertionError(f'the surface child reported {rec}')
+
+
+def check_masked_ridge(device):
+    """(b): `masked_ridge` on the card against the host's float64 solve of
+    the same values, at the EQ_4 design's size (1,000 patients x 59 steps,
+    F = 10), with 3 columns masked and a fifth of the rows weighing 0."""
+    import torch
+    from insite_tpu_torch.discovery import masked_ridge
+    gen = torch.Generator().manual_seed(18)
+    N, F = 59_000, 10
+    theta = torch.randn(N, F, generator=gen, dtype=torch.float64)
+    y = theta @ torch.randn(F, generator=gen, dtype=torch.float64) + \
+        0.1 * torch.randn(N, generator=gen, dtype=torch.float64)
+    weight = (torch.rand(N, generator=gen) > 0.2).double()
+    mask = torch.ones(F, dtype=torch.bool)
+    mask[[1, 4, 8]] = False
+    for dtype in (torch.float64, torch.float32):
+        args = [a.to(dtype) for a in (theta, y, weight)]
+        host = masked_ridge(args[0].double(), args[1].double(), 0.05, mask,
+                            args[2].double())
+        torch.cuda.synchronize(device)
+        t0 = perf_counter()
+        card = masked_ridge(*[a.to(device) for a in args[:2]], 0.05,
+                            mask.to(device), args[2].to(device))
+        torch.cuda.synchronize(device)
+        wall = perf_counter() - t0
+        if card.device != device or card.dtype != dtype:
+            raise AssertionError(f'masked_ridge returned {card.dtype} on '
+                                 f'{card.device}')
+        card = card.cpu().double()
+        err = float((card - host).abs().max())
+        rtol = SURFACE_RIDGE_RTOL[str(dtype).split('.')[-1]]
+        log(f'[surface] (b) masked_ridge {dtype} on the card vs host f64: '
+            f'max abs err {err:.3e} (rtol {rtol:g}); {wall:.4f} s')
+        if not torch.allclose(card, host, rtol=rtol, atol=0) or \
+                (card[~mask] != 0).any():
+            raise AssertionError(f'masked_ridge {dtype}: {card} vs {host}')
+
+
+def check_gap_table(what, out, target=10):
+    """(c): the default table's header, rows and total line; returns the
+    counts by (method, dataset)."""
+    from insite_tpu_torch import seed_gaps
+    lines = out.rstrip('\n').split('\n')
+    w = max(len(ds) for ds in seed_gaps.DATASETS) + 2
+    header = 'method'.ljust(8) + ''.join(ds.ljust(w)
+                                         for ds in seed_gaps.DATASETS)
+    if lines[0] != header or len(lines) != len(seed_gaps.METHODS) + 2:
+        raise AssertionError(f'{what}: the table reads\n{out}')
+    counts = {}
+    for m, line in zip(seed_gaps.METHODS, lines[1:-1]):
+        cells = line.split()
+        if cells[0] != m or len(cells) != len(seed_gaps.DATASETS) + 1:
+            raise AssertionError(f'{what}: row {line!r}')
+        counts.update({(m, ds): int(v)
+                       for ds, v in zip(seed_gaps.DATASETS, cells[1:])})
+    total = sum(max(0, target - v) for v in counts.values())
+    if lines[-1] != f'missing seed-runs to n={target}: {total}':
+        raise AssertionError(f'{what}: total line {lines[-1]!r}, the cells '
+                             f'give {total}')
+    for line in lines:
+        log(f'    {line}')
+    return counts
+
+
+def run_surface(device, phase_logs, bench_child_s):
+    """Phase 18. ``phase_logs``: the logs of phases 5, 6 and 11;
+    ``bench_child_s``: phase 16's bench-child wall. Returns the wall of
+    each step."""
+    from pathlib import Path
+    walls = {}
+    logs = Path(__file__).resolve().parent / 'logs' / 'run-*.txt'
+    with tempfile.TemporaryDirectory() as tmp:
+        # the phases' logs under the names a sweep gives its logs
+        for i, path in enumerate(phase_logs):
+            Path(tmp, f'run-phase{i}.txt').symlink_to(path)
+        phase_glob = str(Path(tmp, 'run-*.txt'))
+        work = Path(tmp, 'work')            # no marker files here
+        work.mkdir()
+        # every child started at once; each one's wall is the time from
+        # then to when it is seen to have ended, the quick ones first
+        t0 = perf_counter()
+        children = {}
+        for tag, glob_ in (('tracked', str(logs)), ('phases', phase_glob)):
+            for flags in ((), ('--next-cell',)):
+                children[f'(c) seed_gaps {tag} {" ".join(flags)}'.strip()] = \
+                    start_child(['-m', 'insite_tpu_torch.seed_gaps',
+                                 '--logs', glob_, *flags], work)
+        children['(a) surface child'] = start_child(['-c', SURFACE_CODE],
+                                                    work)
+        try:
+            t1 = perf_counter()
+            check_masked_ridge(device)
+            walls['(b) masked_ridge'] = perf_counter() - t1
+            outs = {}
+            for what, child in children.items():
+                outs[what], walls[what] = finish_child(what, child, t0)
+        finally:
+            for child in children.values():
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+    check_surface_child(outs['(a) surface child'],
+                        walls['(a) surface child'])
+    for tag in ('tracked', 'phases'):
+        log(f'[surface] (c) python -m insite_tpu_torch.seed_gaps on the '
+            f'{tag} logs, {walls[f"(c) seed_gaps {tag}"]:.4f} s:')
+        counts = check_gap_table(tag, outs[f'(c) seed_gaps {tag}'])
+        cell = outs[f'(c) seed_gaps {tag} --next-cell'].strip()
+        log(f'[surface] (c) --next-cell on the {tag} logs: {cell!r}, '
+            f'{walls[f"(c) seed_gaps {tag} --next-cell"]:.4f} s')
+        if cell and len(cell.split()) != 6:
+            raise AssertionError(f'--next-cell printed {cell!r}')
+        if tag == 'phases':
+            short = [k for k in ((m, ds) for m in ('sindy', 'insite')
+                                 for ds in DATASETS) if counts[k] < 1]
+            if short:
+                raise AssertionError(f'phase 5\'s cells {short} counted 0')
+    log(f'[surface] (d) phase 16\'s bench child {bench_child_s:.4f} s from '
+        f'its start; before the exports {BENCH_CHILD_BEFORE_S:.4f} s')
+    return walls
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4111,7 +4330,6 @@ def main():
     bench_launches, entry_launches, entry_walls = run_entry_points(
         device, list(kept_logs.values()),
         f'{kept.name}/INSIGHT_LESS_SAMPLES.txt')
-    kept.cleanup()
     log(f'[entry] phase 16 wall {perf_counter() - t16:.4f} s; by step '
         f'{json.dumps(entry_walls)}')
 
@@ -4120,6 +4338,15 @@ def main():
     mesh_launches, mesh_walls = run_mesh(device)
     log(f'[mesh] phase 17 wall {perf_counter() - t17:.4f} s; by step '
         f'{json.dumps({k: round(v, 4) for k, v in mesh_walls.items()})}')
+
+    # 18. the public surface: the exports, masked_ridge, seed_gaps
+    t18 = perf_counter()
+    surface_walls = run_surface(
+        device, [kept_logs[k] for k in ('table', 'tumor', 'vectorized')],
+        entry_walls['(b) bench child from its start'])
+    kept.cleanup()
+    log(f'[surface] phase 18 wall {perf_counter() - t18:.4f} s; by step '
+        f'{json.dumps({k: round(v, 4) for k, v in surface_walls.items()})}')
 
     kernels = []
     for name, key, replaces in (('rollout', 'rollout', ':40'),

@@ -10,6 +10,7 @@ The vectorized seed columns take `stlsq`, the JAX package's masked-ridge
 form (a relative ridge floor, 20 fixed iterations), batched over seeds:
 the [S, F, F] normal equations are formed in float64 on the device and
 solved in float64 on the host whatever the compute dtype (F <= 7, S <= 10).
+`masked_ridge` is one such solve, as the JAX package exports it.
 
 One deliberate difference from `insite_tpu.discovery.stlsq`: where the
 support's columns are linearly dependent (the EQ_5 A/B design, whose
@@ -141,6 +142,53 @@ def stlsq_hostsolve(theta, y, threshold, alpha, sample_weight=None,
                          unbias=unbias)
 
 
+def _normal_equations(theta, y, sample_weight=None):
+    """The weighted normal equations of a seed-stacked problem, in float64
+    on the host: theta [S, N, F], y and sample_weight [S, N] (no weight:
+    every row weighs 1). Each seed's gram [F, F] and right-hand side [F]
+    are accumulated in float64 on the tensors' device, one seed at a time:
+    the same 2-D products whatever the number of seeds, so a block of a
+    column's seeds (a sharded column) gets the whole column's bits. Returns
+    numpy (gram [S, F, F], rhs [S, F])."""
+    th = theta.double()
+    w = (torch.ones_like(th[..., 0]) if sample_weight is None
+         else sample_weight.double())
+    yw = y.double() * w
+    gram = torch.stack([(t * ws[:, None]).T @ t for t, ws in zip(th, w)])
+    rhs = torch.stack([t.T @ v for t, v in zip(th, yw)])
+    return gram.cpu().numpy(), rhs.cpu().numpy()
+
+
+def _masked_solve(gram, rhs, mask, alpha):
+    """Solve (gram + alpha I) c = rhs restricted to the ``mask`` columns,
+    batched over seeds, in float64 numpy: gram [S, F, F], rhs and mask
+    [S, F], alpha [S]. Masked columns get a unit diagonal and a zero
+    right-hand side, so their coefficients are exactly 0."""
+    m = mask.astype(np.float64)
+    eye = np.eye(gram.shape[-1])
+    A = gram * m[:, :, None] * m[:, None, :] + \
+        eye * (alpha[:, None, None] * m[:, None, :] + (1.0 - m)[:, None, :])
+    return np.linalg.solve(A, (rhs * m)[..., None])[..., 0]
+
+
+def masked_ridge(theta, y, alpha, mask=None, sample_weight=None):
+    """One masked ridge solve, `insite_tpu.discovery.stlsq.masked_ridge`:
+    the coefficients [F] that minimise ``|W^(1/2) (theta c - y)|^2 +
+    alpha |c|^2`` over the ``mask`` columns (all of them without one),
+    0 elsewhere. theta [N, F], y and sample_weight [N]. ``alpha`` is used
+    as given: the relative floor is `stlsq`'s alone. The normal equations
+    are formed and solved in float64 (`_normal_equations`); the result is
+    a tensor of theta's dtype on theta's device."""
+    gram, rhs = _normal_equations(
+        theta[None], y[None],
+        None if sample_weight is None else sample_weight[None])
+    F = rhs.shape[-1]
+    mask = (np.ones(F, bool) if mask is None
+            else torch.as_tensor(mask).cpu().numpy().astype(bool))
+    c = _masked_solve(gram, rhs, mask[None], np.full(1, float(alpha)))[0]
+    return torch.as_tensor(c, dtype=theta.dtype, device=theta.device)
+
+
 def stlsq(theta, y, threshold, alpha, sample_weight=None,
           max_iter: int = 20, unbias: bool = True):
     """The masked-ridge STLSQ of `insite_tpu.discovery.stlsq.stlsq`,
@@ -149,52 +197,36 @@ def stlsq(theta, y, threshold, alpha, sample_weight=None,
     [S, F]), without the seed axis if the input had none.
 
     Each iteration solves the ridge normal equations restricted to the
-    support (masked columns get a unit diagonal and a zero right-hand
-    side) and thresholds; ``max_iter`` fixed iterations reach the fixed
-    point of the reference's converge-or-break loop. The ridge is
-    ``max(alpha, floor)`` with the JAX package's relative floor
-    ``rel * trace(gram) / F`` (rel 1e-6 for float32 inputs, 1e-12
-    otherwise), which keeps an exactly duplicated column pair (EQ_5_A's
-    constant static) solvable; the unbias refit takes the floor alone.
+    support (`_masked_solve`) and thresholds; ``max_iter`` fixed
+    iterations reach the fixed point of the reference's converge-or-break
+    loop. The ridge is ``max(alpha, floor)`` with the JAX package's
+    relative floor ``rel * trace(gram) / F`` (rel 1e-6 for float32
+    inputs, 1e-12 otherwise), which keeps an exactly duplicated column
+    pair (EQ_5_A's constant static) solvable; the unbias refit takes the
+    floor alone.
 
     The JAX package forms and solves these equations in the compute dtype;
-    here the gram and right-hand side are accumulated in float64 on the
-    tensors' device, seed by seed, and the F x F solves run in float64 on
-    the host."""
+    here they are formed in float64 on the tensors' device, seed by seed
+    (`_normal_equations`), and the F x F solves run in float64 on the
+    host."""
     batched = theta.ndim == 3
     if not batched:
         theta, y = theta[None], y[None]
         sample_weight = None if sample_weight is None else sample_weight[None]
     rel = 1e-6 if theta.dtype == torch.float32 else 1e-12
-    th = theta.double()
-    w = (torch.ones_like(th[..., 0]) if sample_weight is None
-         else sample_weight.double())
-    yw = y.double() * w
-    # one seed at a time: the same 2-D products whatever the number of
-    # seeds, so a block of a column's seeds (a sharded column) gets the
-    # whole column's bits
-    gram = torch.stack([(t * ws[:, None]).T @ t for t, ws in zip(th, w)])
-    rhs = torch.stack([t.T @ v for t, v in zip(th, yw)])
-    gram, rhs = gram.cpu().numpy(), rhs.cpu().numpy()
+    gram, rhs = _normal_equations(theta, y, sample_weight)
     S, F = rhs.shape
     floor = rel * np.trace(gram, axis1=1, axis2=2) / F          # [S]
     alpha_eff = np.maximum(alpha, floor)
-    eye = np.eye(F)
-
-    def solve(mask, a):
-        m = mask.astype(np.float64)
-        A = gram * m[:, :, None] * m[:, None, :] + \
-            eye * (a[:, None, None] * m[:, None, :] + (1.0 - m)[:, None, :])
-        return np.linalg.solve(A, (rhs * m)[..., None])[..., 0]
 
     mask = np.ones((S, F), bool)
     coefs = np.zeros((S, F))
     for _ in range(max_iter):
-        c = solve(mask, alpha_eff)
+        c = _masked_solve(gram, rhs, mask, alpha_eff)
         mask = (np.abs(c) >= threshold) & mask
         coefs = np.where(mask, c, 0.0)
     if unbias:
-        coefs = np.where(mask, solve(mask, floor), 0.0)
+        coefs = np.where(mask, _masked_solve(gram, rhs, mask, floor), 0.0)
     if not batched:
         return coefs[0], mask[0]
     return coefs, mask

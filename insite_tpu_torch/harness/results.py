@@ -1,7 +1,7 @@
 """Results tools without pandas: the sweep log's rows back as dicts (with
-each line's logging timestamp if asked), several logs' rows as one frame,
-the 95 % t-interval, the LaTeX main table and the paper's, and the
-markdown parity table, whose texts are those of
+each line's logging timestamp if asked) and its sweep configurations,
+several logs' rows as one frame, the 95 % t-interval, the LaTeX main table
+and the paper's, and the markdown parity table, whose texts are those of
 `insite_tpu.harness.results`'s `generate_main_results_table`,
 `generate_main_results_table_paper_format` and `parity_table` on the same
 rows."""
@@ -9,11 +9,11 @@ rows."""
 from __future__ import annotations
 
 import ast
+import json
 import math
 from datetime import datetime
 
 import numpy as np
-from scipy import stats
 
 METHOD_NAME_MAP = {'sindy': 'A-SINDy', 'wsindy': 'A-WSINDy',
                    'te-cde': 'TE-CDE', 'insite': r'\bf INSITE',
@@ -35,6 +35,8 @@ TAG = '[Exp evaluation complete] '
 
 def ci(data, confidence=0.95, axis=0):
     """95 % t-interval half-width."""
+    # scipy.stats takes seconds to import, and only the tables need it
+    from scipy import stats
     a = 1.0 * np.array(data)
     n = a.shape[axis]
     se = stats.sem(a, axis=axis)
@@ -80,6 +82,27 @@ def rows_from_log(path, with_ts=False) -> list:
                     row['_log_ts'] = _line_ts(line)
                 rows.append(row)
     return rows
+
+
+def _read_sweep_fingerprints(log_path: str) -> list:
+    """Every distinct '[Sweep config] {json}' of a sweep log (a log can
+    hold several appended sweeps, each writing rows under its own config);
+    [] for a log without one or a path that cannot be read."""
+    tag = '[Sweep config] '
+    fps = []
+    try:
+        with open(log_path) as f:
+            for line in f:
+                if tag in line:
+                    try:
+                        fp = json.loads(line.split(tag, 1)[1])
+                    except json.JSONDecodeError:
+                        continue
+                    if fp not in fps:
+                        fps.append(fp)
+    except OSError:
+        return []
+    return fps
 
 
 def _is_nan(v) -> bool:

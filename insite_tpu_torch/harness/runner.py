@@ -61,7 +61,8 @@ from insite_tpu_torch.harness.config import (RunConfig, SINDY_ALPHA,
                                              sindy_params_for)
 from insite_tpu_torch.harness.insights import recover_parametric_dist
 from insite_tpu_torch.harness.metrics_logger import MetricsLogger
-from insite_tpu_torch.harness.results import (generate_main_results_table,
+from insite_tpu_torch.harness.results import (_read_sweep_fingerprints,
+                                              generate_main_results_table,
                                               rows_from_log)
 from insite_tpu_torch.models import crn, ct, edct, gnet, rmsn
 
@@ -71,6 +72,10 @@ SINDY_METHODS = ('sindy', 'insite', 'wsindy')
 # the methods whose collection the encoder processing serves
 ENCODER_METHODS = ('crn', 'edct', 'rmsn')
 METHODS = SINDY_METHODS + ('msm', 'ct', 'gnet') + ENCODER_METHODS
+# the methods with a `vectorized_sweep` column: all nine, in the JAX
+# package's order
+VECTORIZED_METHODS = ('insite', 'sindy', 'wsindy', 'ct', 'crn', 'edct',
+                      'rmsn', 'gnet', 'msm')
 
 
 # method -> (estimator, config)
@@ -371,27 +376,6 @@ def _sweep_fingerprint(cfg: RunConfig, experiment_name: str) -> dict:
 def _log_fingerprint(cfg: RunConfig, experiment_name: str, log) -> None:
     log.info('[Sweep config] ' + json.dumps(
         _sweep_fingerprint(cfg, experiment_name), sort_keys=True))
-
-
-def _read_sweep_fingerprints(log_path: str) -> list:
-    """Every distinct '[Sweep config] {json}' of a sweep log (a log can
-    hold several appended sweeps, each writing rows under its own config);
-    [] for a log without one or a path that cannot be read."""
-    tag = '[Sweep config] '
-    fps = []
-    try:
-        with open(log_path) as f:
-            for line in f:
-                if tag in line:
-                    try:
-                        fp = json.loads(line.split(tag, 1)[1])
-                    except json.JSONDecodeError:
-                        continue
-                    if fp not in fps:
-                        fps.append(fp)
-    except OSError:
-        return []
-    return fps
 
 
 # the INSIGHT grids' fields: part of a resumed run's key, not of the

@@ -9,8 +9,9 @@ the meaning of `insite_tpu.models.nn.blocks`:
 - `VariationalLSTM`: a stacked LSTM whose dropout masks are drawn once per
   batch and multiply the carried state; under `torch.func.vmap` over
   stacked parameters its step is `lstm_step`;
-- `fixed_sin_cos`, `RelativePositionalEncoding`, `MultiHeadedAttention` with
-  relative positions on keys and values, `PositionwiseFeedForward`,
+- `fixed_sin_cos`, `AbsolutePositionalEncoding` (no baseline uses it, as
+  in the JAX package), `RelativePositionalEncoding`, `MultiHeadedAttention`
+  with relative positions on keys and values, `PositionwiseFeedForward`,
   `TransformerMultiInputBlock` (CT's two- or three-stream block) and
   EDCT's `TransformerEncoderBlock` and `TransformerDecoderBlock`;
 - `first_attention_maps`: each attention module's map of one forward
@@ -260,6 +261,30 @@ def fixed_sin_cos(d_model: int, max_len: int, *, device=None, dtype=None):
     pe[:, 0::2] = torch.sin(position * div)
     pe[:, 1::2] = torch.cos(position * div)
     return pe
+
+
+class AbsolutePositionalEncoding(nn.Module):
+    """A table of positions ``[max_len, d_model]``: ``forward(x)`` gives
+    its first ``T`` rows broadcast to ``[B, T, d_model]`` for ``x`` of
+    shape ``[B, T, ...]``. The table is trainable (a parameter ``pe``,
+    N(0, 1) init, flax's name, so `convert.state_dict_from_flax` carries
+    it over) or the fixed sinusoid (a buffer outside the state_dict, as
+    flax keeps no parameter for it)."""
+
+    def __init__(self, max_len: int, d_model: int, trainable=False, *,
+                 device=None, dtype=None):
+        super().__init__()
+        if trainable:
+            self.pe = nn.Parameter(torch.randn(max_len, d_model,
+                                               device=device, dtype=dtype))
+        else:
+            self.register_buffer('pe', fixed_sin_cos(
+                d_model, max_len, device=device, dtype=dtype),
+                persistent=False)
+
+    def forward(self, x):
+        B, T = x.shape[:2]
+        return self.pe[None, :T].expand(B, T, self.pe.shape[-1])
 
 
 class RelativePositionalEncoding(nn.Module):

@@ -28,9 +28,9 @@ import os
 
 from insite_tpu_torch.harness import plots
 from insite_tpu_torch.harness.results import (
-    _is_missing, _unique, concat_rows, generate_main_results_table,
-    generate_main_results_table_paper_format, parity_table, rows_from_log)
-from insite_tpu_torch.harness.runner import _read_sweep_fingerprints
+    _is_missing, _read_sweep_fingerprints, _unique, concat_rows,
+    generate_main_results_table, generate_main_results_table_paper_format,
+    parity_table, rows_from_log)
 
 # the main table's sweep settings
 PROTOCOL = {'epochs': 100, 'train_samples': 1000, 'val_samples': 100,
@@ -68,13 +68,20 @@ def on_protocol(row) -> bool:
     return _is_missing(row.get('train_samples', math.nan))
 
 
+def off_protocol_configs(fps) -> list:
+    """The sweep configurations among ``fps`` that are off the protocol:
+    another scale or epoch count, or a hyperparameter variant (non-empty
+    ``model_overrides``)."""
+    return [fp for fp in fps
+            if any(fp.get(k) != v for k, v in PROTOCOL.items())
+            or fp.get('model_overrides')]
+
+
 def _off_protocol(path) -> bool:
     """Print and return True where ``path`` holds a sweep configuration
-    off the protocol (scale or epochs, or a hyperparameter variant)."""
+    off the protocol (`off_protocol_configs`)."""
     fps = _read_sweep_fingerprints(path)
-    bad = [fp for fp in fps
-           if any(fp.get(k) != v for k, v in PROTOCOL.items())
-           or fp.get('model_overrides')]
+    bad = off_protocol_configs(fps)
     if bad:
         print(f'[protocol] skipping {path}: {len(bad)} of {len(fps)} sweep '
               f'config(s) off-protocol, e.g. '

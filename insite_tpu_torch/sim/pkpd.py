@@ -47,6 +47,19 @@ class Equation(IntEnum):
     EQ_4_M = 9
 
 
+class CfSeqMode(IntEnum):
+    SLIDING_TREATMENT = 1
+    RANDOM_TRAJECTORIES = 2
+
+
+def true_dy_dt(y, t, treatment, hidden_c0, hidden_c1):
+    """The ground-truth vector field ``-c * y``, ``c`` the decay constant
+    of the treatment arm (``hidden_c0`` for arm 0, ``hidden_c1``
+    otherwise); every argument broadcasts, ``t`` is unused."""
+    c = torch.where(torch.as_tensor(treatment) == 0, hidden_c0, hidden_c1)
+    return -c * y
+
+
 def _substeps_for(seq_length: int) -> int:
     """The reference integrates with STEPS_FOR_DT sub-steps only when
     dt > HMAX; for seq_length >= 300 one Euler step is used."""

@@ -1,5 +1,7 @@
 """QR reduction and host STLSQ: the port against the JAX package."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,7 +10,9 @@ import torch
 from insite_tpu.discovery.library import PolynomialLibrary
 from insite_tpu.discovery.stlsq import _qr_reduce as jax_qr_reduce
 from insite_tpu.discovery.stlsq import stlsq_from_qr as jax_stlsq_from_qr
-from insite_tpu_torch.discovery import stlsq as ts
+
+# the module: the subpackage exports the function `stlsq` under its name
+ts = importlib.import_module('insite_tpu_torch.discovery.stlsq')
 
 
 def _problem(seed, n=400):
