@@ -42,6 +42,7 @@ from insite_tpu_torch.data.collection import PkpdDatasetCollection
 from insite_tpu_torch.eval.metrics import normalised_masked_rmse
 from insite_tpu_torch.harness.northstar import _sync, fused_northstar
 from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+from insite_tpu_torch.utils.profiling import span
 
 METRIC = 'eq4_10k_simulate_discover_finetune_wall_s'
 TARGET_S = 60.0            # BASELINE.json: under 60 s for the whole workload
@@ -75,24 +76,22 @@ def _fitted_insite(coll, device) -> SINDyRegressor:
 
 
 def _standard(n_train: int, seed: int, device) -> dict:
-    """The collection -> fit -> fine-tune -> RMSE path, each stage timed
-    between device synchronisations."""
+    """The collection -> fit -> fine-tune -> RMSE path, each stage a span
+    (`utils/profiling.py`) that ends at a device synchronisation."""
     _sync(device)
-    t0 = perf_counter()
-    coll = PkpdDatasetCollection(
-        conf_coeff=2.0, num_patients={'train': n_train, 'val': 100,
-                                      'test': 2},
-        equation_str='EQ_4_D', seed=seed, device=device)
-    _sync(device)
-    t_sim = perf_counter() - t0
-    t1 = perf_counter()
-    model = _fitted_insite(coll, device)
-    _sync(device)
-    t_fit = perf_counter() - t1
-    t2 = perf_counter()
-    preds = model._fine_tuned_rollout(coll.train_f, projection_horizon=1)
-    _sync(device)
-    t_finetune = perf_counter() - t2
+    with span('collection') as sim:
+        coll = PkpdDatasetCollection(
+            conf_coeff=2.0, num_patients={'train': n_train, 'val': 100,
+                                          'test': 2},
+            equation_str='EQ_4_D', seed=seed, device=device)
+        _sync(device)
+    with span('fit') as fit:
+        model = _fitted_insite(coll, device)
+        _sync(device)
+    with span('predict') as fine_tune:
+        preds = model._fine_tuned_rollout(coll.train_f, projection_horizon=1)
+        _sync(device)
+    t_sim, t_fit, t_finetune = sim.seconds, fit.seconds, fine_tune.seconds
     rmse_orig, rmse_all = normalised_masked_rmse(coll.train_f, preds)
     return {'t_sim': t_sim, 't_fit': t_fit, 't_finetune': t_finetune,
             'total': t_sim + t_fit + t_finetune,

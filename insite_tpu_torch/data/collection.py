@@ -19,6 +19,7 @@ from insite_tpu_torch.data.processing import (process_data_pkpd,
                                               process_data_tumor)
 from insite_tpu_torch.sim import cancer, continuous, pkpd
 from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
+from insite_tpu_torch.utils.profiling import span, to_host
 
 SUBSETS = ('train_f', 'val_f', 'test_cf_one_step', 'test_cf_treatment_seq')
 SUBSET_NAMES = {'train_f': 'train', 'val_f': 'val',
@@ -71,15 +72,18 @@ class DatasetCollection:
 
     def process_data_multi(self, include_continuous_treatment=False):
         """The processing of CT and the SINDy family: every subset, then the
-        n-step test set's evaluation windows."""
+        n-step test set's evaluation windows. Each subset is the tracer's
+        span 'processing.<subset>', the windows 'processing.test_windows'."""
         for name in SUBSETS:
             ds = getattr(self, name)
             if ds is not None:
-                self._process(ds, include_continuous_treatment)
-        self.test_cf_treatment_seq.process_sequential_test(
-            self.projection_horizon)
-        self.test_cf_treatment_seq.process_sequential_multi(
-            self.projection_horizon)
+                with span(f'processing.{name}'):
+                    self._process(ds, include_continuous_treatment)
+        with span('processing.test_windows'):
+            self.test_cf_treatment_seq.process_sequential_test(
+                self.projection_horizon)
+            self.test_cf_treatment_seq.process_sequential_multi(
+                self.projection_horizon)
         self.processed_data_multi = True
 
     def process_data_decoder(self, encoder, save_encoder_r=False):
@@ -235,7 +239,7 @@ class PkpdDatasetCollection(DatasetCollection):
                     params, max_seq_length, projection_horizon, gen,
                     self.equation, cf_seq_mode=cf_seq_mode, dtype=dtype)
             ds = SeqDataset(data, name, norm_const=MAX_VALUE)
-            ds.sim_params = {k: (v.cpu().numpy() if torch.is_tensor(v)
+            ds.sim_params = {k: (to_host(v).numpy() if torch.is_tensor(v)
                                  else v) for k, v in params.items()}
             return ds
 

@@ -18,6 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from insite_tpu_torch.utils.profiling import to_device
+
 
 @lru_cache(maxsize=None)
 def savgol_coeffs_matrix(window: int, polyorder: int) -> np.ndarray:
@@ -63,7 +65,7 @@ def windowed_filter(x: torch.Tensor, lengths: torch.Tensor,
     r = torch.clamp(j - s, max=w - 1)
     idx = s[..., None] + torch.arange(w, device=x.device)  # [..., T, w]
     windows = torch.gather(x, -1, idx.flatten(-2)).view(idx.shape)
-    Wj = torch.as_tensor(W, dtype=x.dtype, device=x.device)[r]
+    Wj = to_device(W, x.device, x.dtype)[r]
     # a fused multiply-add chain in window order: the rounding of the
     # JAX package's compiled reduction, so float64 results agree bit for bit
     out = windows[..., 0] * Wj[..., 0]

@@ -18,12 +18,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from insite_tpu_torch.utils.profiling import to_device
+
 
 def integer_powers(X: torch.Tensor, exps: np.ndarray) -> torch.Tensor:
     """X [..., n] and a non-negative integer table exps [F, n] ->
     [..., F, n] with entry X_i ** exps[k, i], computed by repeated
     multiplication."""
-    E = torch.as_tensor(exps, device=X.device)
+    E = to_device(exps, X.device)
     Xb = X[..., None, :]
     P = torch.ones_like(Xb).expand(*X.shape[:-1], *E.shape)
     for p in range(1, int(exps.max(initial=0)) + 1):

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from insite_tpu_torch.utils.profiling import span, to_device, to_host
+
 
 def _qr_reduce(theta: torch.Tensor, y: torch.Tensor, sample_weight=None):
     """QR of the weighted feature matrix: returns (R [F, F], Q^T y [F]).
@@ -39,18 +41,20 @@ def _qr_reduce(theta: torch.Tensor, y: torch.Tensor, sample_weight=None):
     whose factorization is the JAX package's host QR bit for bit (torch's
     CPU build links another LAPACK), so the discovered coefficients and
     their printed equation match the reference's exactly in float64.
+    The reduction is the span 'fit.qr', timed on the device too.
     """
-    if sample_weight is not None:
-        w = torch.sqrt(sample_weight.to(theta.dtype))
-        theta = theta * w[:, None]
-        y = y * w
-    A = torch.cat([theta, y[:, None]], dim=1)
-    if A.device.type == 'cpu':
-        R = torch.from_numpy(np.linalg.qr(A.numpy(), mode='r'))
-    else:
-        R = torch.linalg.qr(A, mode='r').R
-    F = theta.shape[-1]
-    return R[:F, :F], R[:F, F]
+    with span('fit.qr', theta.device):
+        if sample_weight is not None:
+            w = torch.sqrt(sample_weight.to(theta.dtype))
+            theta = theta * w[:, None]
+            y = y * w
+        A = torch.cat([theta, y[:, None]], dim=1)
+        if A.device.type == 'cpu':
+            R = torch.from_numpy(np.linalg.qr(A.numpy(), mode='r'))
+        else:
+            R = torch.linalg.qr(A, mode='r').R
+        F = theta.shape[-1]
+        return R[:F, :F], R[:F, F]
 
 
 def _qr_reduce_sharded(thetas, ys, sample_weights=None):
@@ -77,14 +81,16 @@ def _qr_reduce_sharded(thetas, ys, sample_weights=None):
     return _qr_reduce(stacked[:, :F], stacked[:, F])
 
 
+@span('fit')
+@span('fit.stlsq')
 def stlsq_from_qr(R, qty, threshold, alpha, max_iter: int = 100,
                   initial_mask=None, unbias: bool = True):
     """The F x F STLSQ thresholding iteration on a QR-reduced problem, in
-    float64 on the host. Takes numpy (R, Q^T y); returns numpy
-    (coefs [F], mask [F]). The unbias refit treats the support as rank
-    deficient when the smallest singular value of its columns of R is at
-    most F times the epsilon of R's own type (the precision of the QR)
-    times the largest."""
+    float64 on the host (the span 'fit.stlsq'). Takes numpy (R, Q^T y);
+    returns numpy (coefs [F], mask [F]). The unbias refit treats the
+    support as rank deficient when the smallest singular value of its
+    columns of R is at most F times the epsilon of R's own type (the
+    precision of the QR) times the largest."""
     R = np.asarray(R)
     F = R.shape[0]
     rcond = F * np.finfo(R.dtype).eps
@@ -137,9 +143,9 @@ def stlsq_hostsolve(theta, y, threshold, alpha, sample_weight=None,
         R, qty = _qr_reduce_sharded(theta, y, sample_weight)
     else:
         R, qty = _qr_reduce(theta, y, sample_weight)
-    return stlsq_from_qr(R.cpu().numpy(), qty.cpu().numpy(), threshold,
-                         alpha, max_iter=max_iter, initial_mask=initial_mask,
-                         unbias=unbias)
+    return stlsq_from_qr(to_host(R).numpy(), to_host(qty).numpy(),
+                         threshold, alpha, max_iter=max_iter,
+                         initial_mask=initial_mask, unbias=unbias)
 
 
 def _normal_equations(theta, y, sample_weight=None):
@@ -156,7 +162,7 @@ def _normal_equations(theta, y, sample_weight=None):
     yw = y.double() * w
     gram = torch.stack([(t * ws[:, None]).T @ t for t, ws in zip(th, w)])
     rhs = torch.stack([t.T @ v for t, v in zip(th, yw)])
-    return gram.cpu().numpy(), rhs.cpu().numpy()
+    return to_host(gram).numpy(), to_host(rhs).numpy()
 
 
 def _masked_solve(gram, rhs, mask, alpha):
@@ -184,9 +190,9 @@ def masked_ridge(theta, y, alpha, mask=None, sample_weight=None):
         None if sample_weight is None else sample_weight[None])
     F = rhs.shape[-1]
     mask = (np.ones(F, bool) if mask is None
-            else torch.as_tensor(mask).cpu().numpy().astype(bool))
+            else to_host(torch.as_tensor(mask)).numpy().astype(bool))
     c = _masked_solve(gram, rhs, mask[None], np.full(1, float(alpha)))[0]
-    return torch.as_tensor(c, dtype=theta.dtype, device=theta.device)
+    return to_device(c, theta.device, theta.dtype)
 
 
 def stlsq(theta, y, threshold, alpha, sample_weight=None,

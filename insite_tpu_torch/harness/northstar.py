@@ -1,15 +1,21 @@
 """The north-star pipeline: simulate an EQ_4 cohort, discover one ODE per
 arm, fine-tune it per patient (INSITE) and score the factual fit.
 
-Stages, each timed between device synchronisations:
+Stages, each a span of the program's tracer (`utils/profiling.py`) whose
+host duration is the stage's time:
 
-  sim+design+QR  simulate the cohort, build the smoothed-finite-difference
-                 design matrix and reduce each arm by QR on the device; only
-                 two F x (F+1) triangles go to the host,
-  STLSQ          the F x F thresholding iteration on the host in float64,
+  sim+design+QR  simulate the cohort (span 'collection'), build the
+                 smoothed-finite-difference design matrix and reduce each
+                 arm by QR on the device (span 'fit', the QR 'fit.qr');
+                 only two F x (F+1) triangles go to the host,
+  STLSQ          the F x F thresholding iteration on the host in float64
+                 (span 'fit', the iteration 'fit.stlsq'),
   fine-tune      the Levenberg-Marquardt loop (gn_iters + 1 launches of the
-                 rollout-with-sensitivities kernel, one rollout launch),
-  metric         the normalised factual RMSE, reduced on the device.
+                 rollout-with-sensitivities kernel, one rollout launch;
+                 span 'predict', the loop 'predict.lm'), ending at a
+                 device synchronisation,
+  metric         the normalised factual RMSE, reduced on the device (span
+                 'metric').
 
 `simulate_cohort` and `discover_and_finetune` are the two halves, so a
 cohort from elsewhere (for example the JAX package's) can be fed to the
@@ -20,8 +26,6 @@ times that `insite_tpu_torch.bench` prints.
 """
 
 from __future__ import annotations
-
-from time import perf_counter
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from insite_tpu_torch.models.sindy import (_eq4_design,
                                            insite_gn_finetune_predict,
                                            insite_gn_finetune_predict_jvp)
 from insite_tpu_torch.sim import pkpd
+from insite_tpu_torch.utils.profiling import span, to_device, to_host
 
 LIBRARY = PolynomialLibrary(n_inputs=3)      # [y, c0, c1]
 INPUT_NAMES = ['x0', 'u0', 'u1']
@@ -45,6 +50,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+@span('collection')
 def simulate_cohort(n: int, seed: int, equation_name: str = 'EQ_4_D',
                     conf_coeff: float = 2.0, seq_length: int = 60, *,
                     device, dtype=None):
@@ -65,6 +71,7 @@ def simulate_cohort(n: int, seed: int, equation_name: str = 'EQ_4_D',
     return vol, statics, treat, lengths
 
 
+@span('fit')
 def design_qr(cohort, library=LIBRARY):
     """EQ_4 fit semantics (offset 1, smoothed 4th-order finite differences)
     and the per-arm QR reduction: returns [(R, Q^T y)] for arms 0 and 1."""
@@ -101,16 +108,16 @@ def _finetune_fn(rollout_backend: str, device):
     return insite_gn_finetune_predict
 
 
-def _fastest(fn, repeats: int, device) -> float:
-    """The least wall time, in seconds, of ``repeats`` calls of ``fn``,
-    each between two device synchronisations."""
+def _fastest(name: str, fn, repeats: int, device) -> float:
+    """The least host duration, in seconds, of ``repeats`` calls of
+    ``fn``, each a span ``name`` between two device synchronisations."""
     times = []
     for _ in range(repeats):
         _sync(device)
-        t0 = perf_counter()
-        fn()
-        _sync(device)
-        times.append(perf_counter() - t0)
+        with span(name) as s:
+            fn()
+            _sync(device)
+        times.append(s.seconds)
     return min(times)
 
 
@@ -137,24 +144,23 @@ def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
     device, dtype = vol.device, vol.dtype
     finetune_fn = _finetune_fn(rollout_backend, device)
     seq_length = vol.shape[1]
-    t0 = perf_counter()
-    triangles = [(R.cpu().numpy(), qty.cpu().numpy())
-                 for R, qty in design_qr(cohort)]
-    t_sim_design = perf_counter() - t0
+    with span('fit') as sim_design:
+        triangles = [(to_host(R).numpy(), to_host(qty).numpy())
+                     for R, qty in design_qr(cohort)]
 
-    t1 = perf_counter()
-    # cast to the compute dtype, as the JAX package does
-    coefs = np.stack([
-        stlsq_from_qr(R, qty, threshold, alpha, max_iter=max_stlsq_iter)[0]
-        for R, qty in triangles]).astype(
-            torch.empty((), dtype=dtype).numpy().dtype)
-    t_stlsq = perf_counter() - t1
+    with span('fit') as stlsq:
+        # cast to the compute dtype, as the JAX package does
+        coefs = np.stack([
+            stlsq_from_qr(R, qty, threshold, alpha,
+                          max_iter=max_stlsq_iter)[0]
+            for R, qty in triangles]).astype(
+                torch.empty((), dtype=dtype).numpy().dtype)
 
     active_idx = tuple(int(i) for i in
                        np.flatnonzero(np.abs(coefs).reshape(-1) > 1e-3))
     prev = vol[:, :-1]
     arms = treat[:, :seq_length - 1].to(torch.int32)
-    coefs_t = torch.as_tensor(coefs, dtype=dtype, device=device)
+    coefs_t = to_device(coefs, device, dtype)
 
     def finetune():
         return finetune_fn(
@@ -162,23 +168,23 @@ def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
             lam=lam, projection_horizon=projection_horizon,
             gn_iters=gn_iters, y_clip=None, active_idx=active_idx)
 
-    t2 = perf_counter()
-    preds, _ = finetune()
-    _sync(device)
-    t_finetune = perf_counter() - t2
+    with span('predict') as fine_tune:
+        preds, _ = finetune()
+        _sync(device)
 
-    t3 = perf_counter()
-    rmse_orig, rmse_all = (float(v) for v in
-                           _factual_rmse(preds, vol, lengths))
-    t_metric = perf_counter() - t3
+    with span('metric') as metric:
+        rmse_orig, rmse_all = (float(to_host(v)) for v in
+                               _factual_rmse(preds, vol, lengths))
 
     device_times = {}
     if device_time_repeats > 0:
         device_times['device_sim_design_s'] = _fastest(
-            lambda: design_qr(simulate() if simulate else cohort),
+            'fit', lambda: design_qr(simulate() if simulate else cohort),
             device_time_repeats, device)
         device_times['device_finetune_s'] = _fastest(
-            finetune, device_time_repeats, device)
+            'predict', finetune, device_time_repeats, device)
+    t_sim_design, t_stlsq = sim_design.seconds, stlsq.seconds
+    t_finetune, t_metric = fine_tune.seconds, metric.seconds
 
     eq_strs = [LIBRARY.pretty_equation(coefs[a], INPUT_NAMES)
                for a in range(2)]
@@ -219,9 +225,9 @@ def fused_northstar(n_train: int, seed: int = 0,
                                seq_length, device=device, dtype=dtype)
 
     _sync(device)
-    t0 = perf_counter()
-    cohort = simulate()
-    t_sim = perf_counter() - t0          # the rest is timed in the next stage
+    with span('collection') as sim:      # the rest is timed in the next stage
+        cohort = simulate()
+    t_sim = sim.seconds
     r = discover_and_finetune(cohort, threshold, alpha, lam, gn_iters,
                               projection_horizon, max_stlsq_iter,
                               rollout_backend, device_time_repeats,

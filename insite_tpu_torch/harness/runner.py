@@ -39,6 +39,10 @@ column of seeds as one batch (`harness/vectorized.py` for the ODE methods,
 `harness/vectorized_msm.py` for msm, `harness/vectorized_neural.py` for
 the neural baselines, each stage of which trains as one seed-stacked fit)
 and logs the same per-seed rows, marked ``'vectorized': True``.
+
+A run's collection (`_collection_for`) and its processing and estimator
+(`_build_model`) are the tracer's spans 'collection' and 'processing'
+(`utils/profiling.py`); the estimator's own spans follow.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from insite_tpu_torch.harness.results import (_read_sweep_fingerprints,
                                               generate_main_results_table,
                                               rows_from_log)
 from insite_tpu_torch.models import crn, ct, edct, gnet, rmsn
+from insite_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger('insite_tpu_torch')
 
@@ -113,6 +118,7 @@ def _require_served(methods) -> None:
                                   ', '.join(unknown))
 
 
+@span('collection')
 def _collection_for(dataset_name, method_name, seed, domain_conf,
                     cfg: RunConfig, experiment=Experiment.MAIN_TABLE, *,
                     device, dtype=None):
@@ -190,6 +196,7 @@ def _dims_from_collection(coll, with_vitals=False) -> dict:
     return dims
 
 
+@span('processing')
 def _build_model(method_name, dataset_name, coll, cfg: RunConfig,
                  domain_conf: float = 2.0,
                  experiment=Experiment.MAIN_TABLE, *, device, dtype=None,

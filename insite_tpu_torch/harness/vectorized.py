@@ -25,6 +25,9 @@ float64 whatever the compute dtype) or, for wsindy, `weak_sindy_fit_select`
 (float64 on the host), not the standard path's QR STLSQ, so a seed's
 coefficients agree with the standard path's to the solver's tolerance, not
 bitwise.
+
+The tracer's spans (`utils/profiling.py`): 'collection' (`tumor_draws`,
+`tumor_cohort`), 'fit' (`discover_column`), 'predict' (`evaluate_column`).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from insite_tpu_torch.sim.tumor import (TUMOUR_DEATH_THRESHOLD,
                                         calc_diameter, calc_volume,
                                         cf_factual_core, cf_one_step_rows,
                                         cf_seq_rows, factual_core)
+from insite_tpu_torch.utils.profiling import span, to_device, to_host
 
 TUMOR_VARIANTS = {
     # patient_type_choices, beta_c_noise, extra_noise
@@ -125,14 +129,14 @@ def _truncated_normal(gen, lower, upper, shape, dtype, device):
     """`jax.random.truncated_normal`'s construction from a generator: a
     uniform between erf(lower / sqrt 2) and erf(upper / sqrt 2) through
     sqrt 2 * erfinv, clipped inside (lower, upper)."""
-    lower = torch.as_tensor(lower, dtype=dtype, device=device)
-    upper = torch.as_tensor(upper, dtype=dtype, device=device)
+    lower = to_device(lower, device, dtype)
+    upper = to_device(upper, device, dtype)
     sqrt2 = float(np.sqrt(2.0))
     a, b = torch.erf(lower / sqrt2), torch.erf(upper / sqrt2)
     u = a + (b - a) * torch.rand(shape, generator=gen, dtype=dtype,
                                  device=device)
     out = sqrt2 * torch.erfinv(u)
-    inf = torch.tensor(float('inf'), dtype=dtype, device=device)
+    inf = to_device(float('inf'), device, dtype)
     return torch.minimum(torch.maximum(out, torch.nextafter(lower, inf)),
                          torch.nextafter(upper, -inf))
 
@@ -150,26 +154,26 @@ def _tumor_params(gen, n: int, chemo_coeff: float, radio_coeff: float,
     kw = dict(dtype=dtype, device=device)
     stages = sorted(TUMOUR_SIZE_DISTRIBUTIONS)
     total = sum(CANCER_STAGE_OBSERVATIONS.values())
-    probs = torch.tensor([CANCER_STAGE_OBSERVATIONS[s] / total
-                          for s in stages], dtype=torch.float64,
-                         device=device)
+    probs = to_device([CANCER_STAGE_OBSERVATIONS[s] / total
+                       for s in stages], device, torch.float64)
     dist = np.array([TUMOUR_SIZE_DISTRIBUTIONS[s] for s in stages])
-    mus, sigmas = (torch.as_tensor(dist[:, i], **kw) for i in (0, 1))
-    lbs = torch.as_tensor((np.log(dist[:, 2]) - dist[:, 0]) / dist[:, 1],
-                          **kw)
-    ubs = torch.as_tensor((np.log(dist[:, 3]) - dist[:, 0]) / dist[:, 1],
-                          **kw)
+    mus, sigmas = (to_device(dist[:, i], device, dtype) for i in (0, 1))
+    lbs = to_device((np.log(dist[:, 2]) - dist[:, 0]) / dist[:, 1], device,
+                    dtype)
+    ubs = to_device((np.log(dist[:, 3]) - dist[:, 0]) / dist[:, 1], device,
+                    dtype)
     stage = torch.multinomial(probs, n, replacement=True, generator=gen)
     tn = _truncated_normal(gen, lbs[stage], ubs[stage], (n,), dtype, device)
     initial_volumes = calc_volume(torch.exp(tn * sigmas[stage] + mus[stage]))
 
     alpha_params, rho_params = (0.0398, 0.168), (7e-5, 7.23e-3)
     corr = 0.87
-    cov = torch.tensor(
+    cov = to_device(
         [[alpha_params[1] ** 2, corr * alpha_params[1] * rho_params[1]],
-         [corr * alpha_params[1] * rho_params[1], rho_params[1] ** 2]], **kw)
+         [corr * alpha_params[1] * rho_params[1], rho_params[1] ** 2]],
+        device, dtype)
     L = torch.linalg.cholesky(cov)
-    mean = torch.tensor([alpha_params[0], rho_params[0]], **kw)
+    mean = to_device([alpha_params[0], rho_params[0]], device, dtype)
     z = torch.randn((n, 16, 2), generator=gen, **kw)
     cand = mean + torch.einsum('ngk,jk->ngj', z, L)
     ok = (cand > 0.0).all(dim=-1)                           # [n, 16]
@@ -177,8 +181,7 @@ def _tumor_params(gen, n: int, chemo_coeff: float, radio_coeff: float,
     pick = cand[torch.arange(n, device=device), first]
     pick = torch.where(ok.any(dim=1)[:, None], pick, mean)
 
-    choices = torch.tensor(patient_type_choices, dtype=torch.int64,
-                           device=device)
+    choices = to_device(patient_type_choices, device, torch.int64)
     ptypes = choices[torch.randint(0, len(patient_type_choices), (n,),
                                    generator=gen, device=device)]
     chemo_adj = torch.where(ptypes < 3, 0.0, 0.1).to(dtype)
@@ -206,6 +209,7 @@ def _tumor_params(gen, n: int, chemo_coeff: float, radio_coeff: float,
             'radio_sigmoid_betas': full(radio_coeff / d_max)}, ptypes
 
 
+@span('collection')
 def tumor_draws(seed: int, dataset_name: str, n_train: int, n_test: int,
                 seq_length: int, coeff: float, projection_horizon: int, *,
                 device, dtype=None) -> dict:
@@ -244,6 +248,7 @@ def tumor_draws(seed: int, dataset_name: str, n_train: int, n_test: int,
     return out
 
 
+@span('collection')
 def tumor_cohort(draws: dict, seq_length: int, projection_horizon: int,
                  include_dosage: bool = False) -> dict:
     """A tumor-family seed's cohorts from its draws, as the JAX package's
@@ -437,6 +442,7 @@ def _n_step_rmses(preds, rows, lengths, valid, S, ph, norm_c):
     return torch.sqrt((err * err).sum(1) / denom[:, None]) / norm_c * 100.0
 
 
+@span('fit')
 def discover_column(cohorts, *, family: str, method: str, threshold: float,
                     alpha: float, dt: float = STANDARD_DT) -> np.ndarray:
     """Every seed's global model of a column, [S, A, F] float64 numpy:
@@ -449,6 +455,7 @@ def discover_column(cohorts, *, family: str, method: str, threshold: float,
                      threshold, alpha, dt)
 
 
+@span('predict')
 def evaluate_column(cohorts, coefs_np, *, family: str, method: str,
                     lam: float, projection_horizon: int, gn_iters: int = 12,
                     dedup_one_step: bool = False, dt: float = STANDARD_DT,
@@ -466,7 +473,7 @@ def evaluate_column(cohorts, coefs_np, *, family: str, method: str,
     library = PolynomialLibrary(n_inputs=1 + train_statics.shape[-1])
     norm_c = MAX_VALUE if eq4 else TUMOUR_DEATH_THRESHOLD
     y_clip = None if eq4 else (0.0, float(TUMOUR_DEATH_THRESHOLD))
-    coefs = torch.as_tensor(coefs_np, dtype=dtype, device=dev)
+    coefs = to_device(coefs_np, dev, dtype)
     kw = dict(insite=(method == 'insite'), lam=lam, gn_iters=gn_iters,
               y_clip=y_clip,
               union=support_union(coefs_np) if union is None else union)
@@ -484,7 +491,7 @@ def evaluate_column(cohorts, coefs_np, *, family: str, method: str,
            'encoder_test_rmse_last': r_last}
     out.update({f'decoder_test_rmse_{k + 2}-step': n_step[:, k]
                 for k in range(ph)})
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out = {k: to_host(v).numpy() for k, v in out.items()}
     out['global_coefs'] = coefs_np
     return out
 

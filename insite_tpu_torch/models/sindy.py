@@ -33,6 +33,9 @@ own device, through the kernels on every CUDA shard, and the predictions
 are gathered on ``device``. The fit is not sharded, as in the JAX package.
 Where the JAX package takes XLA under a mesh (GSPMD cannot partition a
 Pallas call), ``'auto'`` here launches the kernels on every shard.
+
+`SINDyRegressor.fit` is the tracer's span 'fit' (`utils/profiling.py`),
+its two prediction calls and the fine-tunes the span 'predict'.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from insite_tpu_torch.ops.rollout import (batched_rollout,
                                           rollout_with_sens_plain)
 from insite_tpu_torch.parallel import gather_rows, shard_rows
 from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
+from insite_tpu_torch.utils.profiling import span, to_device, to_host
 
 
 @dataclass
@@ -212,8 +216,7 @@ class SINDyRegressor(CausalEstimator):
     # helpers
 
     def _tensor(self, x, dtype=None):
-        return torch.as_tensor(x, dtype=dtype or self.dtype,
-                               device=self.device)
+        return to_device(x, self.device, dtype or self.dtype)
 
     def _unscaled_arrays(self, dataset):
         """(prev [N, T] observed y, statics [N, S], arms, lengths [N]) in
@@ -241,6 +244,7 @@ class SINDyRegressor(CausalEstimator):
     # ------------------------------------------------------------------
     # fitting
 
+    @span('fit')
     def fit(self, train_f, val_f=None):
         cfg = self.cfg
         if cfg.joint_model and not _is_eq4(cfg.dataset_name) and \
@@ -368,9 +372,9 @@ class SINDyRegressor(CausalEstimator):
         """Per arm, the candidate weak solves and the strong-form
         selection, in float64 on the host: [A, F]. Every arm's weak system
         and the strong-form design come over from the device first."""
-        systems = [tuple(x.cpu().numpy() for x in sys_a)
+        systems = [tuple(to_host(x).numpy() for x in sys_a)
                    for sys_a in systems]
-        theta, xdot, ok, arm = (x.cpu().numpy() for x in design)
+        theta, xdot, ok, arm = (to_host(x).numpy() for x in design)
         grid, alphas = wsindy_grid(self.cfg)
         coefs = []
         for a, (A, b, w) in enumerate(systems):
@@ -386,6 +390,7 @@ class SINDyRegressor(CausalEstimator):
     # ------------------------------------------------------------------
     # prediction
 
+    @span('predict')
     def get_predictions(self, dataset) -> np.ndarray:
         if not self.insite:
             preds = self._global_rollout(dataset)
@@ -394,6 +399,7 @@ class SINDyRegressor(CausalEstimator):
         assert not np.any(np.isnan(preds)), 'Predictions contain NaN'
         return preds
 
+    @span('predict')
     def get_autoregressive_predictions(self, dataset) -> np.ndarray:
         ph = self.cfg.projection_horizon
         if not self.insite:
@@ -428,7 +434,7 @@ class SINDyRegressor(CausalEstimator):
         preds = torch.where(valid, preds, 0.0)
         sp = dataset.scaling_params
         preds = (preds - sp['output_means']) / sp['output_stds']
-        return preds.cpu().numpy()[..., None]
+        return to_host(preds).numpy()[..., None]
 
     @property
     def _plain(self) -> bool:
@@ -502,8 +508,8 @@ class SINDyRegressor(CausalEstimator):
             prev, statics, arms, lengths = (
                 x.repeat(len(lam_grid), *[1] * (x.ndim - 1))
                 for x in (prev, statics, arms, lengths))
-            lam = torch.tensor(lam_grid, dtype=torch.float64,
-                               device=prev.device).repeat_interleave(n_rows)
+            lam = to_device(lam_grid, prev.device,
+                            torch.float64).repeat_interleave(n_rows)
         active_idx = self._active_idx()
 
         def solve(prev_c, statics_c, arms_c, lengths_c, lam_c):
@@ -557,7 +563,7 @@ class SINDyRegressor(CausalEstimator):
                                     projection_horizon: int = 1):
         """Per-patient fine-tuned coefficients [N, A, F], numpy."""
         _, coefs = self._fine_tune(dataset, projection_horizon)
-        return coefs.cpu().numpy()
+        return to_host(coefs).numpy()
 
     def _fine_tuned_rollout(self, dataset, projection_horizon: int):
         preds, _ = self._fine_tune(dataset, projection_horizon)
@@ -709,7 +715,7 @@ class _Reduced:
         self.A, self.F = g_rows.shape[1:]
         self.K = self.A * self.F
         self.active_idx = tuple(active_idx)
-        self.act = torch.tensor(active_idx, device=dev)
+        self.act = to_device(active_idx, dev)
         self.Kr = len(active_idx)
         self.B, self.T = prev.shape
         self.sparse_flat = (g_rows.abs() > 1e-3).to(dtype).reshape(-1, self.K)
@@ -820,6 +826,7 @@ def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int):
     return c_best
 
 
+@span('predict')
 def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
                                lengths, dt, lam, projection_horizon: int,
                                gn_iters: int = 12, y_clip=None,
@@ -843,16 +850,21 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     one: global_coefs [1, F_joint], arms the combination index per step,
     and the loop works on the joint coordinates while the kernels run the
     folded per-arm model.
+
+    The call is the tracer's span 'predict' and the loop its span
+    'predict.lm', timed on the device too.
     """
     pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
                   active_idx)
     roll, roll_sens = _rollouts(library, fold)
-    c_best = _levenberg_marquardt(
-        pb, lambda c: pb.sens_residuals(roll_sens, c, statics, arms, dt,
-                                        y_clip), lam, gn_iters)
+    with span('predict.lm', prev.device):
+        c_best = _levenberg_marquardt(
+            pb, lambda c: pb.sens_residuals(roll_sens, c, statics, arms, dt,
+                                            y_clip), lam, gn_iters)
     return pb.predict(roll, c_best, statics, arms, dt, y_clip)
 
 
+@span('predict')
 def insite_gn_finetune_predict_jvp(library, global_coefs, prev, statics,
                                    arms, lengths, dt, lam,
                                    projection_horizon: int,
@@ -886,10 +898,12 @@ def insite_gn_finetune_predict_jvp(library, global_coefs, prev, statics,
             J = torch.where(pb.own[:, None, :], J, 0.0)
         return r[0], J
 
-    c_best = _levenberg_marquardt(pb, resid_jac, lam, gn_iters)
+    with span('predict.lm', prev.device):
+        c_best = _levenberg_marquardt(pb, resid_jac, lam, gn_iters)
     return pb.predict(roll, c_best, statics, arms, dt, y_clip)
 
 
+@span('predict')
 def insite_finetune_predict(library, global_coefs, prev, statics, arms,
                             lengths, dt, lam, projection_horizon: int,
                             bfgs_maxiter=None, y_clip=None, active_idx=(),

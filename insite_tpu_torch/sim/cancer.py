@@ -25,6 +25,7 @@ from insite_tpu_torch.sim.tumor import (CHEMO_AMT, DRUG_DECAY, OPTIONS_CHEMO,
                                         calc_diameter, calc_volume,
                                         cf_factual_core, cf_one_step_rows,
                                         cf_seq_rows, factual_core)
+from insite_tpu_torch.utils.profiling import to_device, to_host
 
 TUMOUR_SIZE_DISTRIBUTIONS = {'I': (1.72, 4.70, 0.3, 5.0),
                              'II': (1.96, 1.63, 0.3, 13.0),
@@ -122,8 +123,7 @@ def generate_params(num_patients: int, chemo_coeff: float,
 
 def device_params(params: dict, device, dtype) -> dict:
     """The cores' parameter tensors (`PARAM_KEYS`) on ``device``."""
-    return {k: torch.as_tensor(params[k], dtype=dtype, device=device)
-            for k in PARAM_KEYS}
+    return {k: to_device(params[k], device, dtype) for k in PARAM_KEYS}
 
 
 def factual_rvs(rs: np.random.RandomState, num_patients: int,
@@ -152,8 +152,7 @@ def cf_rvs(rs: np.random.RandomState, num_patients: int, seq_length: int,
 
 
 def _to_device(arrays: dict, device, dtype) -> dict:
-    return {k: torch.as_tensor(v, dtype=dtype, device=device)
-            for k, v in arrays.items()}
+    return {k: to_device(v, device, dtype) for k, v in arrays.items()}
 
 
 def _finish(out: dict, rs, extra_noise: bool) -> dict:
@@ -176,7 +175,7 @@ def simulate_factual(params: dict, seq_length: int,
     rvs = _to_device(factual_rvs(rs, n, seq_length), device, dtype)
     out = factual_core(device_params(params, device, dtype), rvs, seq_length,
                        int(params['window_size']), int(params['lag']))
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out = {k: to_host(v).numpy() for k, v in out.items()}
     out['patient_types'] = np.asarray(params['patient_types'])
     return _finish(out, rs, extra_noise)
 
@@ -187,7 +186,8 @@ def _valid_rows(rows: dict, seq_lengths, valid) -> tuple:
     keep = valid.reshape(-1)
     out = {k: v.reshape(-1, v.shape[-1])[keep] for k, v in rows.items()}
     out['sequence_lengths'] = seq_lengths.reshape(-1)[keep]
-    return {k: v.cpu().numpy() for k, v in out.items()}, keep.cpu().numpy()
+    return ({k: to_host(v).numpy() for k, v in out.items()},
+            to_host(keep).numpy())
 
 
 def simulate_counterfactual_1_step(params: dict, seq_length: int,
@@ -211,7 +211,7 @@ def simulate_counterfactual_1_step(params: dict, seq_length: int,
     if emit_dosage:
         dose = fact['chemo_dosage']                              # [B, T-1]
         prev = torch.cat([dose.new_zeros(n, 1), dose[:, :-1]], dim=1)
-        opt_c = torch.tensor(OPTIONS_CHEMO, dtype=dtype, device=dose.device)
+        opt_c = to_device(OPTIONS_CHEMO, dose.device, dtype)
         t_grid = torch.arange(T - 1, device=dose.device)[:, None]
         j_grid = torch.arange(T, device=dose.device)[None, :]
         dose_rows = torch.where(
@@ -265,8 +265,7 @@ def simulate_counterfactuals_treatment_seq(
     plans = treatment_plans(rs, n, T, ph, cf_seq_mode)
     (vol_rows, chemo_rows, radio_rows, dose_rows, seq_lengths,
      valid) = cf_seq_rows(p, fact,
-                          torch.as_tensor(np.ascontiguousarray(plans),
-                                          device=device),
+                          to_device(np.ascontiguousarray(plans), device),
                           rvs['noise'], T, ph)
     rows = {'cancer_volume': vol_rows, 'chemo_application': chemo_rows,
             'radio_application': radio_rows}

@@ -33,6 +33,7 @@ from insite_tpu_torch.core.constants import (
     STEPS_FOR_DT,
 )
 from insite_tpu_torch.core.dtypes import resolve_float
+from insite_tpu_torch.utils.profiling import to_device, to_host
 
 
 class Equation(IntEnum):
@@ -129,7 +130,7 @@ def get_standard_params(num_patients: int, equation: Equation,
             C_0 = shift_0 + C_0
             C_1 = shift_1 + C_1
     elif name == 'EQ_4_M':
-        modes = torch.tensor([0.1, 0.3], dtype=dtype, device=device) * scale
+        modes = to_device([0.1, 0.3], device, dtype) * scale
         C_0 = c_0 + modes[torch.randint(0, 2, (num_patients,),
                                         generator=generator, device=device)]
         C_1 = c_1 + modes[torch.randint(0, 2, (num_patients,),
@@ -168,7 +169,7 @@ def _factual_volumes(params, treatment, n_steps, dtype, dt,
                      substeps: int = STEPS_FOR_DT):
     """Closed-form batched factual rollout: ``[B, n_steps+1]`` volumes."""
     v0 = params['initial_volumes'].to(dtype)
-    dt = torch.as_tensor(dt, dtype=dtype, device=v0.device)
+    dt = to_device(dt, v0.device, dtype)
     c = torch.where(treatment == 1, params['hidden_C_1'],
                     params['hidden_C_0'])
     f = _decay_factor(c.to(dtype), dt, substeps)                   # [B]
@@ -246,7 +247,7 @@ def _add_noise(equation: Equation) -> bool:
 
 def _to_numpy(**arrays) -> dict:
     """One host copy per array, and the reference's NaN guard."""
-    out = {k: v.cpu().numpy() for k, v in arrays.items()}
+    out = {k: to_host(v).numpy() for k, v in arrays.items()}
     assert not np.any(np.isnan(out['cancer_volume']))
     return out
 
@@ -313,8 +314,7 @@ def _simulate_cf_1_step_core(params, treatment_rvs, seq_length: int,
     actions [B, 2(T-1), T], lengths [B, 2(T-1)])."""
     treatment = _treatment_from_rv(params, treatment_rvs)          # [B]
     dev = treatment.device
-    dt = torch.as_tensor(MAX_TIME_HORIZON / seq_length, dtype=dtype,
-                         device=dev)
+    dt = to_device(MAX_TIME_HORIZON / seq_length, dev, dtype)
     substeps = _substeps_for(seq_length)
     volumes = _factual_volumes(params, treatment, seq_length - 1, dtype, dt,
                                substeps)
@@ -411,8 +411,7 @@ def _simulate_cf_seq_core(params, treatment_rvs, plans, seq_length: int,
     B = treatment_rvs.shape[0]
     treatment = _treatment_from_rv(params, treatment_rvs)
     dev = treatment.device
-    dt = torch.as_tensor(MAX_TIME_HORIZON / seq_length, dtype=dtype,
-                         device=dev)
+    dt = to_device(MAX_TIME_HORIZON / seq_length, dev, dtype)
     substeps = _substeps_for(seq_length)
     # the factual grid has seq_length + 1 points here
     volumes = _factual_volumes(params, treatment, seq_length, dtype, dt,

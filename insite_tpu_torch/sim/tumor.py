@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from insite_tpu_torch.utils.profiling import to_device
+
 TUMOUR_CELL_DENSITY = 5.8e8
 CHEMO_AMT = 5.0
 RADIO_AMT = 2.0
@@ -259,8 +261,8 @@ def cf_one_step_rows(params, fact: dict, noise, seq_length: int):
 
     prev_chemo = torch.cat([torch.zeros((B, 1), dtype=dtype, device=dev),
                             fact['chemo_dosage'][:, :-1]], dim=1)
-    opt_c = torch.tensor(OPTIONS_CHEMO, dtype=dtype, device=dev)
-    opt_r = torch.tensor(OPTIONS_RADIO, dtype=dtype, device=dev)
+    opt_c = to_device(OPTIONS_CHEMO, dev, dtype)
+    opt_r = to_device(OPTIONS_RADIO, dev, dtype)
     dose_c = prev_chemo[:, :, None] * DRUG_DECAY + CHEMO_AMT * opt_c
     dose_r = RADIO_AMT * opt_r + torch.zeros_like(dose_c)
     v_cf = _volume_update(volumes[:, :-1, None], dose_c, dose_r, alpha,
