@@ -11,7 +11,10 @@ batch stride of 0). INSITE then fine-tunes the active coefficients per
 patient: a damped Gauss-Newton (Levenberg-Marquardt) loop over the whole
 cohort at once, whose residual Jacobian comes from the
 rollout-with-sensitivities kernel, one launch per iteration, followed by
-one launch of the rollout kernel for the predictions; or, with
+one launch of the rollout kernel for the predictions (on the card, where
+the problem is small enough that issuing the loop's small operations takes
+longer than running them, the chain of them between two launches replays
+from CUDA graphs); or, with
 ``insite_solver='bfgs'``, a lock-step batched BFGS whose every objective
 and gradient evaluation is one launch of the same sensitivity kernel.
 ``rollout_backend='xla'`` runs no kernel: the Levenberg-Marquardt Jacobian
@@ -40,6 +43,8 @@ its two prediction calls and the fine-tunes the span 'predict'.
 
 from __future__ import annotations
 
+import copy
+from collections import OrderedDict, namedtuple
 from dataclasses import dataclass
 from functools import partial
 from typing import Optional
@@ -61,11 +66,12 @@ from insite_tpu_torch.ops.bfgs import minimize_bfgs
 from insite_tpu_torch.ops.joint_fold import JointFold, combination_index
 from insite_tpu_torch.ops.rollout import (batched_rollout,
                                           batched_rollout_plain,
-                                          rollout_with_sens,
+                                          kernel_bounds, rollout_with_sens,
                                           rollout_with_sens_plain)
 from insite_tpu_torch.parallel import gather_rows, shard_rows
 from insite_tpu_torch.sim.tumor import TUMOUR_DEATH_THRESHOLD
-from insite_tpu_torch.utils.profiling import span, to_device, to_host
+from insite_tpu_torch.utils.profiling import (count, span, to_device,
+                                              to_host)
 
 
 @dataclass
@@ -739,18 +745,44 @@ class _Reduced:
         """The prefix's one-step errors prev[t+1] - y_t, 0 elsewhere."""
         return torch.where(self.prefix, self.prev[:, 1:] - y[:, :-1], 0.0)
 
-    def sens_residuals(self, roll_sens, c_red, statics, arms, dt, y_clip):
+    def masked(self, y, s):
         """(residuals r [B, T-1], their Jacobian J = -dy/dc [B, T-1, Kr])
-        from one rollout with sensitivities. With a global model per row,
-        the coordinates of the union outside a row's own support get a
-        zero Jacobian, as in the JAX package's full-K problem, so they stay
-        at the row's global value and are masked out of its model."""
-        y, s = roll_sens(self.to_full(c_red), self.prev[:, 0], statics,
-                         arms, dt, self.active_idx, y_clip=y_clip)
+        from a rollout y [B, T] and its sensitivities s [B, T, Kr]. With a
+        global model per row, the coordinates of the union outside a row's
+        own support get a zero Jacobian, as in the JAX package's full-K
+        problem, so they stay at the row's global value and are masked out
+        of its model."""
         J = torch.where(self.prefix[..., None], -s[:, :-1, :], 0.0)
         if self.per_row:
             J = torch.where(self.own[:, None, :], J, 0.0)
         return self.residuals(y), J
+
+    def sens_residuals(self, roll_sens, c_red, statics, arms, dt, y_clip):
+        """`masked` of one rollout with sensitivities at c_red [B, Kr]."""
+        return self.masked(*roll_sens(self.to_full(c_red), self.prev[:, 0],
+                                      statics, arms, dt, self.active_idx,
+                                      y_clip=y_clip))
+
+    # what the LM chain reads of the problem besides its sizes
+    CHAIN_INPUTS = ('prev', 'prefix', 'n_mask', 'g_red', 'sparse_flat',
+                    'act', 'own')
+
+    def pinned(self, inputs: dict):
+        """A copy of the problem that reads its `CHAIN_INPUTS` from
+        ``inputs`` (name -> a tensor of the same shape, left out where the
+        problem has None), which `refill` overwrites with those of a
+        problem of the same shapes: the inputs of a captured chain
+        (`_LMGraph`)."""
+        pb = copy.copy(self)
+        for name in self.CHAIN_INPUTS:
+            setattr(pb, name, inputs.get(name))
+        return pb
+
+    def refill(self, other) -> None:
+        for name in self.CHAIN_INPUTS:
+            x = getattr(self, name)
+            if x is not None:
+                x.copy_(getattr(other, name))
 
     def predict(self, roll, c_red, statics, arms, dt, y_clip):
         """Every row's model and its rollout: (preds [B, T], coefs [B, A,
@@ -764,7 +796,240 @@ class _Reduced:
         return preds, coefs_full
 
 
-def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int):
+# The LM chain: what runs between two evaluations of the residuals and
+# their Jacobian, written once for every path. Its state between two
+# evaluations is an `_LMState`: ds [B] the objective's row scale, c [B, Kr]
+# each row's best coefficients and obj [B] their objective, gram [B, Kr, Kr]
+# and jtr [B, Kr] the scaled J^T J and J^T r at c, mu [B] the damping, and
+# cand [B, Kr] the candidate the next evaluation is at. Keeping J^T J and
+# J^T r, and not the Jacobian, keeps the state a few numbers a row.
+_LMState = namedtuple('_LMState', 'ds c obj gram jtr mu cand')
+# the proximal penalty's weight lam / K (a float, or [B] per row) as the
+# chain reads it, beside the [Kr, Kr] identity
+_LMTerms = namedtuple('_LMTerms', 'reg2 reg2_vec reg2_mat eye')
+
+
+def _lm_terms(pb: _Reduced, lam) -> _LMTerms:
+    eye = torch.eye(pb.Kr, dtype=pb.prev.dtype, device=pb.prev.device)
+    if torch.is_tensor(lam):
+        # per row; lam / K in float64, then rounded once, as for a float
+        return _lm_row_terms((lam.to(torch.float64) / pb.K).to(pb.prev.dtype),
+                             eye)
+    reg2 = lam / pb.K                                           # reg_scale^2
+    return _LMTerms(reg2, reg2, reg2, eye)
+
+
+def _lm_row_terms(reg2, eye) -> _LMTerms:
+    return _LMTerms(reg2, reg2[:, None], reg2[:, None, None], eye)
+
+
+def _lm_objective(pb, t, ds, r, c):
+    return ((r * ds[:, None]) ** 2).sum(1) + \
+        t.reg2 * ((c - pb.g_red) ** 2).sum(1)
+
+
+def _lm_normal(ds, r, J):
+    """The scaled normal equations' J^T J [B, Kr, Kr] and J^T r [B, Kr]."""
+    Js = J * ds[:, None, None]
+    return (torch.einsum('btj,btk->bjk', Js, Js),
+            torch.einsum('btj,bt->bj', Js, r * ds[:, None]))
+
+
+def _lm_candidate(pb, t, st: _LMState) -> _LMState:
+    """``st`` with its next candidate: a damped Gauss-Newton step from c,
+    one batched [B, Kr, Kr] solve."""
+    JtJ = st.gram + t.reg2_mat * t.eye[None]
+    rhs = -st.jtr - t.reg2_vec * (st.c - pb.g_red)
+    # solve_ex: no host sync for the error check; a non-finite row
+    # yields a non-finite candidate, which the acceptance test rejects
+    delta = torch.linalg.solve_ex(JtJ + st.mu[:, None, None] * t.eye[None],
+                                  rhs[..., None])[0][..., 0]
+    return st._replace(cand=st.c + delta)
+
+
+def _lm_begin(pb, t, r0, J0) -> _LMState:
+    """The chain before the loop, from the residuals and Jacobian of the
+    global model."""
+    mse0 = (r0 ** 2).sum(1) / pb.n_mask
+    ds = 1.0 / torch.sqrt(2.5 * torch.clamp(mse0, min=1e-30) * pb.n_mask)
+    c = pb.g_red.expand(pb.B, pb.Kr)
+    mu = torch.full((pb.B,), 1e-3, dtype=r0.dtype, device=r0.device)
+    return _lm_candidate(pb, t, _LMState(
+        ds, c, _lm_objective(pb, t, ds, r0, c), *_lm_normal(ds, r0, J0), mu,
+        None))
+
+
+def _lm_step(pb, t, st: _LMState, r, J) -> _LMState:
+    """One iteration's chain, from the residuals and Jacobian at the
+    pending candidate: the candidate is kept only where it lowers the
+    objective (deferred acceptance), then the next one."""
+    obj = _lm_objective(pb, t, st.ds, r, st.cand)
+    better = torch.isfinite(obj) & (obj < st.obj)
+    gram, jtr = _lm_normal(st.ds, r, J)
+    return _lm_candidate(pb, t, _LMState(
+        st.ds, torch.where(better[:, None], st.cand, st.c),
+        torch.where(better, obj, st.obj),
+        torch.where(better[:, None, None], gram, st.gram),
+        torch.where(better[:, None], jtr, st.jtr),
+        torch.clamp(torch.where(better, st.mu * 0.3, st.mu * 10.0),
+                    1e-8, 1e8), None))
+
+
+def _lm_link(pb, t, y, s, st):
+    """One link of the chain from a launch's outputs y [B, T] and s [B, T,
+    Kr]: `_lm_begin` where ``st`` is None, else `_lm_step` from ``st``.
+    Returns the new state and the next launch's coefficients [B, A, F]."""
+    r, J = pb.masked(y, s)
+    st = _lm_begin(pb, t, r, J) if st is None else _lm_step(pb, t, st, r, J)
+    return st, pb.to_full(st.cand)
+
+
+class _LMArena:
+    """Device memory that every captured chain of one device and dtype
+    lays its tensors out in (`take`), each from the start: one flat tensor
+    a dtype, sized for the largest chain. The chains run one at a time and
+    a call fills what it reads first, so they can share it, and the
+    memory held is one chain's. The chains also share one graph memory
+    pool, as nothing in it outlives a replay."""
+
+    # a tensor's first element on the caching allocator's alignment, so
+    # that every kernel sees what it would see on a tensor of its own
+    ALIGN = 512
+
+    def __init__(self, device, sizes: dict):
+        self.flat = {dt: torch.zeros(n, dtype=dt, device=device)
+                     for dt, n in sizes.items()}
+        self.pool = torch.cuda.graph_pool_handle()
+
+    @classmethod
+    def sizes(cls, tensors) -> dict:
+        """The elements a dtype that ``tensors`` take laid out in order."""
+        used = {}
+        for x in tensors:
+            used[x.dtype] = cls._next(used.get(x.dtype, 0), x) + x.numel()
+        return used
+
+    @classmethod
+    def _next(cls, offset: int, x) -> int:
+        step = max(cls.ALIGN // x.element_size(), 1)
+        return -(-offset // step) * step
+
+    def holds(self, sizes: dict) -> bool:
+        return all(dt in self.flat and self.flat[dt].numel() >= n
+                   for dt, n in sizes.items())
+
+    def take(self, tensors) -> list:
+        """Views of this memory shaped as ``tensors``, laid out in order
+        from the start."""
+        used, out = {}, []
+        for x in tensors:
+            off = self._next(used.get(x.dtype, 0), x)
+            used[x.dtype] = off + x.numel()
+            out.append(self.flat[x.dtype][off:off + x.numel()]
+                       .view(x.shape))
+        return out
+
+
+class _LMGraph:
+    """The LM chain of one shape (`_lm_graph_key`) captured as two CUDA
+    graphs, each from the outputs (y, s) of a sensitivity launch to the
+    coefficients of the next (`_lm_link`): the link before the loop and an
+    iteration's. A call replays them between its launches, which stay
+    eager, one call of the launcher each.
+
+    What the graphs read and write lies in an `_LMArena`: copies of the
+    problem's chain inputs (`_Reduced.pinned`) and of a per-row penalty,
+    the launch's output buffers ``ys``, the state (`_LMState`) and the
+    next launch's coefficients. Each of them is written in a call before
+    it is read: the call fills the inputs in place, the launches write
+    their buffers, and each replay overwrites the state and coefficients
+    in place, so that replays chain. ``warm``, the state and coefficients
+    of one eager run of both links on the capturing stream, gives them
+    their shapes."""
+
+    def __init__(self, pb: _Reduced, t: _LMTerms, arena: _LMArena, ys,
+                 warm):
+        names = [n for n in pb.CHAIN_INPUTS if getattr(pb, n) is not None]
+        per_row = torch.is_tensor(t.reg2)
+        views = arena.take([getattr(pb, n) for n in names] +
+                           ([t.reg2] if per_row else []) +
+                           [*ys, warm[1], *warm[0]])
+        self.pb = pb.pinned(dict(zip(names, views)))
+        views = views[len(names):]
+        # the identity is no input and no output, so it is the graph's
+        # own: what lies in the arena, another chain's calls overwrite
+        eye = t.eye.clone()
+        self.t = (_lm_row_terms(views.pop(0), eye) if per_row
+                  else t._replace(eye=eye))
+        self.y, self.s, self.coefs = views[:3]
+        self.state = _LMState(*views[3:])
+        # cuBLAS keeps a workspace for each stream it has run on (32 MiB
+        # on an H100): dropped before the captures, so that they allocate
+        # theirs in the graphs' pool, and again after them, so that only
+        # the graphs hold it, as torch's own graph trees do
+        # (`torch._inductor.cudagraph_trees.clear_cublas_manager`)
+        torch._C._cuda_clearCublasWorkspaces()
+        self.begin = self._capture(None, arena.pool)
+        self.step = self._capture(self.state, arena.pool)
+        torch._C._cuda_clearCublasWorkspaces()
+
+    def _capture(self, st, pool):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool, capture_error_mode='thread_local')
+        try:
+            new, coefs = _lm_link(self.pb, self.t, self.y, self.s, st)
+            for dst, src in zip(self.state, new):
+                dst.copy_(src)
+            self.coefs.copy_(coefs)
+        finally:
+            graph.capture_end()
+        return graph
+
+    def run(self, pb: _Reduced, t: _LMTerms, launch, gn_iters: int):
+        """The loop of `_levenberg_marquardt` on ``pb``: its launches, and
+        a replay after each. Returns each row's best coefficients."""
+        with torch.cuda.device(pb.prev.device):
+            self.pb.refill(pb)
+            if torch.is_tensor(t.reg2):
+                self.t.reg2.copy_(t.reg2)
+            out = (self.y, self.s)
+            launch(pb.to_full(pb.g_red.expand(pb.B, pb.Kr)), out)
+            self.begin.replay()
+            for _ in range(gn_iters):
+                launch(self.coefs, out)
+                self.step.replay()
+            return self.state.c.clone()
+
+
+# The largest Jacobian, B * (T - 1) * Kr elements, whose chain is captured.
+# Up to it a link's issue on the host outlasts its work on the device, by
+# 3-4x at the north star's 1.7 M elements; from ~11 M up the two are even
+# and a graph saves nothing (PERF.md: the probe of issue time against device
+# time a link), while its buffers would hold ~7 bytes an element.
+LM_GRAPH_MAX_JACOBIAN = 1 << 22
+# captured chains kept a device, the least recently used dropped first
+LM_GRAPHS_PER_DEVICE = 4
+# device -> {`_lm_graph_key`: its `_LMGraph`}
+_LM_GRAPHS = {}
+# (device, dtype) -> the `_LMArena` of its chains
+_LM_ARENAS = {}
+
+
+def _lm_graph_key(pb: _Reduced, lam):
+    """What a captured chain depends on besides the values it reads: the
+    dtype, the sizes, a global model per row or not, and the penalty (a
+    float's value is a constant of the graph; a per-row tensor an input).
+    None where the chain is not captured: off the card, or a Jacobian
+    over `LM_GRAPH_MAX_JACOBIAN`."""
+    if pb.prev.device.type != 'cuda' or \
+            pb.B * (pb.T - 1) * pb.Kr > LM_GRAPH_MAX_JACOBIAN:
+        return None
+    return (pb.prev.dtype, pb.B, pb.T, pb.A, pb.F, pb.Kr, pb.per_row,
+            'per row' if torch.is_tensor(lam) else float(lam))
+
+
+def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int,
+                         launch=None):
     """The LM loop over the active coordinates: returns each row's best
     coefficients [B, Kr].
 
@@ -774,56 +1039,76 @@ def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int):
     iteration, which is kept only if it lowers the objective (deferred
     acceptance); the next step comes from a batched [B, Kr, Kr] solve.
 
+    ``launch(coefs [B, A, F], out)``, where given, is the one sensitivity
+    kernel launch that ``resid_jac`` makes, writing (y, s) into the pair
+    ``out``. Then the chain between two launches runs from CUDA graphs
+    (`_LMGraph`) where `_lm_graph_key` allows: a shape's first call
+    captures them after its eager run, and its later calls replay them
+    around the same launches, the same operations on the same values.
+
     The float32 contractions below go through cuBLAS in full float32:
     PyTorch leaves TF32 off for matmuls (torch.backends.cuda.matmul.
     allow_tf32 is False) unless a caller turns it on, and callers of this
     function must not.
+
+    Counts, while a profiler records: 'lm.chains' every link of the chain
+    run (1 + gn_iters a call), 'lm.graph_hits' those replayed from a graph
+    captured in an earlier call, 'lm.graph_captures' the captures.
     """
-    dtype, dev, B, Kr = pb.prev.dtype, pb.prev.device, pb.B, pb.Kr
-    g_red = pb.g_red
-    eye = torch.eye(Kr, dtype=dtype, device=dev)
-    if torch.is_tensor(lam):
-        # per row; lam / K in float64, then rounded once, as for a float
-        reg2 = (lam.to(torch.float64) / pb.K).to(dtype)         # [B]
-        reg2_vec, reg2_mat = reg2[:, None], reg2[:, None, None]
-    else:
-        reg2 = reg2_vec = reg2_mat = lam / pb.K                 # reg_scale^2
-
-    r0, J0 = resid_jac(g_red.expand(B, Kr))
-    mse0 = (r0 ** 2).sum(1) / pb.n_mask
-    ds = 1.0 / torch.sqrt(2.5 * torch.clamp(mse0, min=1e-30) * pb.n_mask)
-
-    def full_obj(r, c):
-        return ((r * ds[:, None]) ** 2).sum(1) + \
-            reg2 * ((c - g_red) ** 2).sum(1)
-
-    def solve_step(r, J, c, mu):
-        Js = J * ds[:, None, None]
-        JtJ = torch.einsum('btj,btk->bjk', Js, Js) + reg2_mat * eye[None]
-        rhs = -torch.einsum('btj,bt->bj', Js, r * ds[:, None]) \
-            - reg2_vec * (c - g_red)
-        # solve_ex: no host sync for the error check; a non-finite row
-        # yields a non-finite candidate, which the acceptance test rejects
-        delta = torch.linalg.solve_ex(JtJ + mu[:, None, None] * eye[None],
-                                      rhs[..., None])[0][..., 0]
-        return c + delta
-
-    c_best = g_red.expand(B, Kr)
-    r_best, J_best = r0, J0
-    obj_best = full_obj(r0, c_best)
-    mu = torch.full((B,), 1e-3, dtype=dtype, device=dev)
-    cand = solve_step(r_best, J_best, c_best, mu)
+    t = _lm_terms(pb, lam)
+    key = _lm_graph_key(pb, lam) if launch is not None else None
+    dev = pb.prev.device
+    graphs = _LM_GRAPHS.get(dev, {})
+    count('lm.chains', 1 + gn_iters)
+    if key in graphs:
+        graphs.move_to_end(key)
+        count('lm.graph_hits', 1 + gn_iters)
+        return graphs[key].run(pb, t, launch, gn_iters)
+    st = _lm_begin(pb, t, *resid_jac(pb.g_red.expand(pb.B, pb.Kr)))
     for _ in range(gn_iters):
-        r_c, J_c = resid_jac(cand)
-        obj_c = full_obj(r_c, cand)
-        better = torch.isfinite(obj_c) & (obj_c < obj_best)
-        c_best = torch.where(better[:, None], cand, c_best)
-        obj_best = torch.where(better, obj_c, obj_best)
-        r_best = torch.where(better[:, None], r_c, r_best)
-        J_best = torch.where(better[:, None, None], J_c, J_best)
-        mu = torch.clamp(torch.where(better, mu * 0.3, mu * 10.0), 1e-8, 1e8)
-        cand = solve_step(r_best, J_best, c_best, mu)
-    return c_best
+        st = _lm_step(pb, t, st, *resid_jac(st.cand))
+    if key is not None:
+        _lm_capture(pb, t, key)
+    return st.c
+
+
+def _lm_capture(pb: _Reduced, t: _LMTerms, key) -> None:
+    """Capture ``pb``'s chain under ``key``, on a side stream after one
+    eager run of both links there. Where the arena of its device and dtype
+    is too small, a larger one replaces it, and the chains laid out in the
+    old one are dropped, to be captured again on their next call."""
+    dev, dtype = pb.prev.device, pb.prev.dtype
+    graphs = _LM_GRAPHS.setdefault(dev, OrderedDict())
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ys = (torch.zeros_like(pb.prev),
+                  pb.prev.new_zeros((pb.B, pb.T, pb.Kr)))
+            st, coefs = _lm_link(pb, t, *ys, None)
+            _lm_link(pb, t, *ys, st)
+            inputs = [getattr(pb, n) for n in pb.CHAIN_INPUTS]
+            need = _LMArena.sizes(
+                [x for x in inputs if x is not None] +
+                ([t.reg2] if torch.is_tensor(t.reg2) else []) +
+                [*ys, coefs, *st])
+            arena = _LM_ARENAS.get((dev, dtype))
+            if arena is None or not arena.holds(need):
+                for k in [k for k in graphs if k[0] == dtype]:
+                    del graphs[k]
+                have = {} if arena is None else \
+                    {dt: x.numel() for dt, x in arena.flat.items()}
+                # the old arena goes before the new one is allocated
+                _LM_ARENAS.pop((dev, dtype), None)
+                del arena
+                arena = _LM_ARENAS[(dev, dtype)] = _LMArena(
+                    dev, {dt: max(n, have.get(dt, 0))
+                          for dt, n in {**have, **need}.items()})
+            graphs[key] = _LMGraph(pb, t, arena, ys, (st, coefs))
+        torch.cuda.current_stream().wait_stream(side)
+    count('lm.graph_captures')
+    while len(graphs) > LM_GRAPHS_PER_DEVICE:
+        graphs.popitem(last=False)
 
 
 @span('predict')
@@ -857,10 +1142,17 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
                   active_idx)
     roll, roll_sens = _rollouts(library, fold)
+    launch = None
+    if fold is None and prev.device.type == 'cuda' and \
+            pb.Kr <= kernel_bounds()['Kr']:
+        def launch(coefs, out):
+            return rollout_with_sens(library, coefs, prev[:, 0], statics,
+                                     arms, dt, pb.active_idx, y_clip=y_clip,
+                                     out=out)
     with span('predict.lm', prev.device):
         c_best = _levenberg_marquardt(
             pb, lambda c: pb.sens_residuals(roll_sens, c, statics, arms, dt,
-                                            y_clip), lam, gn_iters)
+                                            y_clip), lam, gn_iters, launch)
     return pb.predict(roll, c_best, statics, arms, dt, y_clip)
 
 

@@ -277,15 +277,32 @@ def _rollout_cuda(library, coefs, y0, statics, arms, dt, substeps, y_clip):
     return out
 
 
+def _sens_outputs(out, B, T, Kr, dtype, device):
+    """The sensitivity kernel's outputs (y [B, T], sens [B, T, Kr]): new
+    tensors where ``out`` is None, else the pair ``out`` after a check
+    that the kernel can write them as they are."""
+    if out is None:
+        return (torch.empty((B, T), dtype=dtype, device=device),
+                torch.empty((B, T, Kr), dtype=dtype, device=device))
+    for name, x, shape in zip(('y', 'sens'), out, ((B, T), (B, T, Kr))):
+        if x.shape != shape or x.dtype != dtype or x.device != device \
+                or not x.is_contiguous():
+            raise ValueError(f'the {name} buffer is {x.dtype} '
+                             f'{tuple(x.shape)} on {x.device}; expected a '
+                             f'contiguous {dtype} {shape} on {device}')
+    return tuple(out)
+
+
 def _sens_cuda(library, coefs, y0, statics, arms, dt, active_idx, substeps,
-               y_clip):
+               y_clip, out=None):
+    """The sensitivity kernel's launch; ``out``, a pair (y, sens), takes
+    its outputs in place of new tensors."""
     global SENS_LAUNCHES
     ops, (B, T, A, F, S), bstride, table = _checked(library, coefs, y0,
                                                     statics, arms)
     act = _active_table(tuple(active_idx), A, F)
     Kr = len(active_idx)
-    out = torch.empty((B, T), dtype=y0.dtype, device=y0.device)
-    sens = torch.empty((B, T, Kr), dtype=y0.dtype, device=y0.device)
+    out, sens = _sens_outputs(out, B, T, Kr, y0.dtype, y0.device)
     if B == 0 or T == 0:
         return out, sens
     fn = getattr(_kernels(), f'insite_rollout_sens_{_suffix(y0.dtype)}')
@@ -302,15 +319,21 @@ def _sens_cuda(library, coefs, y0, statics, arms, dt, active_idx, substeps,
 
 
 def _sens_in_groups(sens_fn, group: int, library, coefs, y0, statics, arms,
-                    dt, active_idx, substeps, y_clip):
+                    dt, active_idx, substeps, y_clip, out=None):
     """``sens_fn`` over ``active_idx`` in groups of at most ``group``
     coordinates, one call a group: sensitivities of different coordinates
     are independent given the state, so the groups' [B, T, k] blocks are
-    concatenated on the last axis and y is the first group's."""
+    concatenated on the last axis and y is the first group's. ``out``
+    (output buffers) takes one group only."""
     active_idx = tuple(active_idx)
     if len(active_idx) <= group:
+        # `out` goes positionally, and only where given: wraps of the
+        # launcher forward their trailing arguments as they come
         return sens_fn(library, coefs, y0, statics, arms, dt, active_idx,
-                       substeps, y_clip)
+                       substeps, y_clip, *(() if out is None else (out,)))
+    if out is not None:
+        raise ValueError(f'output buffers take at most {group} active '
+                         f'coordinates, one launch; got {len(active_idx)}')
     outs = [sens_fn(library, coefs, y0, statics, arms, dt,
                     active_idx[i:i + group], substeps, y_clip)
             for i in range(0, len(active_idx), group)]
@@ -344,14 +367,19 @@ def batched_rollout(library, coefs, y0, statics, arms, dt,
 
 
 def rollout_with_sens(library, coefs, y0, statics, arms, dt, active_idx,
-                      substeps=STEPS_FOR_DT, y_clip=None):
+                      substeps=STEPS_FOR_DT, y_clip=None, out=None):
     """Rollout plus d y_t / d coefs.flat[active_idx[j]]: returns
     (preds [B, T], sens [B, T, Kr]). active_idx: flat (arm * F + feature)
     coordinates, any number of them: beyond the kernel's bound they take
-    one launch per group of that many."""
+    one launch per group of that many. ``out``, a pair of contiguous CUDA
+    tensors of those shapes, is where the kernel writes them (one launch
+    only); the plain version takes none."""
     if _one_device(coefs, y0, statics, arms).type == 'cpu':
+        if out is not None:
+            raise ValueError('output buffers are for the kernel: CUDA '
+                             'tensors only')
         return rollout_with_sens_plain(library, coefs, y0, statics, arms, dt,
                                        active_idx, substeps, y_clip)
     return _sens_in_groups(_sens_cuda, kernel_bounds()['Kr'], library, coefs,
                            y0, statics, arms, dt, active_idx, substeps,
-                           y_clip)
+                           y_clip, out)
