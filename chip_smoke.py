@@ -7,10 +7,11 @@ card.
 Phases, in order; any failure exits non-zero:
 
 1. device   require CUDA; print the card and its power limit; TF32 off.
-2. build    compile csrc/rollout.cu with nvcc for sm_90a (timed); print
-            each kernel's registers, stack and spills from ptxas, and
-            fail unless ptxas lists all 8 instantiations and no
-            SmallModel one spills or uses a stack.
+2. build    compile csrc/rollout.cu and csrc/qr_reduce.cu with nvcc for
+            sm_90a (timed); print each kernel's registers, stack and
+            spills from ptxas, and fail unless ptxas lists all 16
+            instantiations and no SmallModel one and no register-state
+            QR one (`tsqr_*<Real, 8>`) spills or uses a stack.
 3. kernels  each rollout kernel against its plain PyTorch version on the
             card, f32 and f64, at the north-star shape (B=10,000, T=59,
             A=2, F=7, S=2, Kr=3), at B=2048, T=60, in a 4-arm case
@@ -62,10 +63,23 @@ Phases, in order; any failure exits non-zero:
             floating-point operations of the collapsed recurrence over
             67 TFLOP/s (f32). Timed shapes also get the call time (CUDA
             events, median of 20 calls) of kernel and plain version.
+            In the same profiler session, the QR reduction's TSQR kernels
+            (`ops/qr_reduce.py`, a call is its two launches) at the fit
+            shapes of the north star (its own design, 600,000 rows, F=7,
+            2 arms), the EQ_4 main run (60,000 x 7, 2 arms) and the
+            cancer_sim main run (59,000 x 4, 4 arms), f32, beside the
+            bound (the design read once over 3.35 TB/s against the
+            float64 Givens arithmetic over 34 TFLOP/s), with the call
+            time and, as the yardstick it replaced, cuSOLVER's per-arm QR
+            of weighted copies (`torch.linalg.qr`, which the port no longer
+            calls); then f32 and f64 against numpy's float64 QR of the same
+            problem (each Gram entry within `QR_GRAM_RTOL` of
+            sqrt(G_ii G_jj)), one launch a call, two calls bit-identical.
 4. path     the 10,000-patient EQ_4_D north star (simulate -> discover ->
             INSITE fine-tune), after an untimed warm-up and a check of the
             f32 card path against the f64 CPU path on a small cohort;
-            asserts that the fine-tune went through the kernels.
+            asserts that the fine-tune went through the kernels and the
+            fit through one QR call.
 5. table    the EQ_4 main table through the port's sweep: sindy and insite
             on EQ_4_A..D, one seed, 1,000 / 100 / 100 patients, f32, with
             faults raised (debug mode); asserts 8 rows, the kernel launches
@@ -885,13 +899,30 @@ TOL = {'f32': {'y': (1e-4, 1e-4), 'sens': (1e-3, 1e-3)},
 # the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-KERNEL_NAMES = {'rollout': 'rollout_kernel<', 'sens': 'rollout_sens_kernel<'}
-# every instantiation in csrc/rollout.cu, as ptxas_report labels it: the
-# no-spill gate must see each SmallModel one
+# ... and its float64 rate outside the tensor cores
+PEAK_F64_FLOPS = 34e12
+KERNEL_NAMES = {'rollout': 'rollout_kernel<', 'sens': 'rollout_sens_kernel<',
+                'qr': 'tsqr_'}
+# every instantiation in csrc/rollout.cu and csrc/qr_reduce.cu, as
+# ptxas_report labels it: the no-spill gate must see each SmallModel one
+# and each QR one
+QR_PTXAS_KERNELS = [f'{k}<{r}, {cb}>' for k in ('tsqr_rows_kernel',
+                                                'tsqr_merge_kernel')
+                    for r in ('float', 'double') for cb in (0, 8)]
 PTXAS_KERNELS = [f'{k}<{r}, {m}<{r}>>'
                  for k in ('rollout_kernel', 'rollout_sens_kernel')
                  for r in ('float', 'double')
-                 for m in ('SmallModel', 'GeneralModel')]
+                 for m in ('SmallModel', 'GeneralModel')] + QR_PTXAS_KERNELS
+QR_SOURCE = 'insite_tpu_torch/csrc/qr_reduce.cu'
+# phase 3's QR shapes: (rows, F, arms, the arm's type); the north star's is
+# its own design at N_PATIENTS
+QR_CASES = {'qr_northstar': (600_000, 7, 2, 'float'),
+            'qr_eq4_main_run_n60000_f7_k2': (60_000, 7, 2, 'int64'),
+            'qr_cancer_n59000_f4_k4': (59_000, 4, 4, 'int64')}
+# each Gram entry of the kernels' triangles within this share of
+# sqrt(G_ii G_jj) of numpy's float64 QR's: float64 arithmetic, the
+# triangle rounded to the input's type once
+QR_GRAM_RTOL = {'f32': 1e-5, 'f64': 1e-10}
 
 
 def log(msg):
@@ -972,10 +1003,12 @@ def device_times(jobs, reps=20):
     return out
 
 
-def kernel_times(cases, device):
+def kernel_times(cases, device, extra_jobs=()):
     """Device time of one call and the bound of both kernels, f32, at the
     given shapes: {tag: {'rollout_device_ms', 'rollout_bound_ms',
-    'rollout_bound_by', and the same for 'sens'}}."""
+    'rollout_bound_by', and the same for 'sens'}}; with ``extra_jobs``
+    (jobs of `device_times`, timed in the same session) also {label:
+    device ms} of each under ``'extra'``."""
     import torch
     from insite_tpu_torch.ops import rollout
     bound = rollout.kernel_bounds()['Kr']
@@ -989,8 +1022,8 @@ def kernel_times(cases, device):
         jobs.append(((tag, 'sens'), 'sens',
                      lambda a=a, act=act, clip=clip: rollout.rollout_with_sens(
                          *a, act, y_clip=clip), -(-len(act) // bound)))
-    dev = device_times(jobs)
-    out = {}
+    dev = device_times(jobs + list(extra_jobs))
+    out = {'extra': {job[0]: dev[job[0]] for job in extra_jobs}}
     for tag, case in cases.items():
         t = out[tag] = {}
         for key in ('rollout', 'sens'):
@@ -1038,6 +1071,130 @@ def kernel_bound(case, kernel):
             'bytes' if t_bytes >= t_ops else 'operations')
 
 
+def qr_inputs(tag, dtype, device):
+    """A QR case's kernel inputs on the card (`QR_CASES`): the north star's
+    own design at N_PATIENTS (float arms), else a design of the case's
+    shape with a constant column, ragged validity and int64 arms."""
+    import torch
+    from insite_tpu_torch.harness import northstar
+    N, F, K, arm_type = QR_CASES[tag]
+    if tag == 'qr_northstar':
+        vol, statics, treat, lengths = northstar.simulate_cohort(
+            N_PATIENTS, 0, device=device, dtype=dtype)
+        theta, y, ok, arm = northstar._eq4_design(
+            vol, statics, treat, torch.clamp(lengths - 1, min=2),
+            northstar.STANDARD_DT, library=northstar.LIBRARY, smooth=True,
+            fd_order=4)
+        assert theta.shape == (N, F) and arm.dtype == dtype
+        return dict(theta=theta, y=y, ok=ok, arm=arm), K
+    g = torch.Generator(device=device).manual_seed(N + F)
+    theta = torch.rand((N, F), generator=g, device=device, dtype=dtype)
+    theta[:, 0] = 1.0
+    return dict(theta=theta,
+                y=torch.rand(N, generator=g, device=device, dtype=dtype),
+                ok=torch.rand(N, generator=g, device=device) > 0.2,
+                arm=torch.randint(0, K, (N,), generator=g, device=device)), K
+
+
+def qr_bound(inputs, K):
+    """The least time (ms) the card could take for one QR call: the larger
+    of the bytes it must move (theta, y, the mask and the arms read once,
+    the K triangles written once) over the memory rate, and the float64
+    arithmetic of the Givens rows over the float64 rate: per row included,
+    a multiply-add, a reciprocal and three multiplies a column and two
+    multiply-adds and a multiply an entry above the diagonal. Returns
+    (ms, 'bytes' or 'operations')."""
+    theta = inputs['theta']
+    N, F = theta.shape
+    C = F + 1
+    n_bytes = sum(x.numel() * x.element_size() for x in inputs.values())
+    n_bytes += K * C * C * theta.element_size()
+    rows = int(inputs['ok'].sum())
+    flops = rows * (6 * C + 5 * C * (C - 1) // 2)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def cusolver_qr(inputs, K):
+    """The reduction the kernels replaced, the yardstick only: each arm's
+    weighted copy of [theta | y] through cuSOLVER's QR."""
+    import torch
+    theta, y, ok, arm = (inputs[k] for k in ('theta', 'y', 'ok', 'arm'))
+    out = []
+    for a in range(K):
+        w = torch.sqrt((ok & (arm == a)).to(theta.dtype))
+        A = torch.cat([theta * w[:, None], (y * w)[:, None]], dim=1)
+        out.append(torch.linalg.qr(A, mode='r').R)
+    return out
+
+
+def qr_jobs(device):
+    """The QR cases' inputs (f32) and their `device_times` jobs: one call
+    of `qr_reduce` is its two launches."""
+    import torch
+    from insite_tpu_torch.ops.qr_reduce import qr_reduce
+    cases, jobs = {}, []
+    for tag in QR_CASES:
+        inputs, K = cases[tag] = qr_inputs(tag, torch.float32, device)
+        jobs.append((tag, 'qr', lambda i=inputs, K=K: qr_reduce(
+            i['theta'], i['y'], K, ok=i['ok'], arm=i['arm']), 2))
+    return cases, jobs
+
+
+def run_qr_cases(cases, dev_ms, device):
+    """Each QR case: its device time beside its bound, the call time and
+    cuSOLVER's (CUDA events, median of 20), f32; then f32 and f64 against
+    `qr_reduce_plain` (numpy's float64 QR of the same problem), one
+    launch a call, and two calls bit-identical. Returns {tag: numbers}."""
+    import torch
+    from insite_tpu_torch.ops import qr_reduce as qr
+    out = {}
+    for tag, (inputs, K) in cases.items():
+        bound, by = qr_bound(inputs, K)
+        t = out[tag] = {'device_ms': dev_ms[tag], 'bound_ms': bound,
+                        'bound_by': by}
+
+        def call(i=inputs, K=K):
+            return qr.qr_reduce(i['theta'], i['y'], K, ok=i['ok'],
+                                arm=i['arm'])
+
+        t['ms'] = time_ms(call)
+        t['library_ms'] = time_ms(lambda i=inputs, K=K: cusolver_qr(i, K))
+        log(f'  {tag} f32 QR device time per call (profiler, median of 20) '
+            f'{t["device_ms"]:.4f} ms; bound {bound:.4f} ms ({by}), '
+            f'{100 * bound / t["device_ms"]:.1f} % of it; call '
+            f'{t["ms"]:.4f} ms; cuSOLVER per-arm QR (yardstick) '
+            f'{t["library_ms"]:.4f} ms')
+        for dt_tag, dtype in (('f32', torch.float32),
+                              ('f64', torch.float64)):
+            i = (inputs if dtype == torch.float32 else
+                 qr_inputs(tag, dtype, device)[0])
+            qr.QR_LAUNCHES = 0
+            a = qr.qr_reduce(i['theta'], i['y'], K, ok=i['ok'], arm=i['arm'])
+            b = qr.qr_reduce(i['theta'], i['y'], K, ok=i['ok'], arm=i['arm'])
+            torch.cuda.synchronize()
+            if qr.QR_LAUNCHES != 2 or not torch.equal(a, b):
+                raise AssertionError(f'{tag} {dt_tag}: {qr.QR_LAUNCHES} '
+                                     'calls counted, or two calls differ')
+            ref = qr.qr_reduce_plain(i['theta'], i['y'], K, ok=i['ok'],
+                                     arm=i['arm'])
+            T = a.cpu().numpy().astype(np.float64)
+            g = np.einsum('kij,kil->kjl', T, T)
+            w = np.einsum('kij,kil->kjl', ref, ref)
+            d = np.sqrt(np.einsum('kii->ki', w))
+            err = float((np.abs(g - w) / np.maximum(
+                d[:, :, None] * d[:, None, :], 1e-300)).max())
+            if not np.isfinite(T).all() or err > QR_GRAM_RTOL[dt_tag]:
+                raise AssertionError(f'{tag} {dt_tag}: Gram error {err:.3e}'
+                                     f' > {QR_GRAM_RTOL[dt_tag]}')
+            t[f'gram_err_{dt_tag}'] = err
+            log(f'  {tag} {dt_tag}: Gram error against numpy float64 QR '
+                f'{err:.3e} (limit {QR_GRAM_RTOL[dt_tag]}), 1 launch a '
+                'call, two calls bit-identical')
+    return out
+
+
 def ptxas_report(log_text):
     """Per kernel in nvcc's -Xptxas -v output: (label, registers, stack
     bytes, spill store bytes, spill load bytes)."""
@@ -1052,13 +1209,23 @@ def ptxas_report(log_text):
             frame = tuple(map(int, m.groups()))
         m = re.search(r'Used (\d+) registers', line)
         if m and name and frame and 'kernel' in name:
-            kernel = ('rollout_sens_kernel' if 'rollout_sens_kernel' in name
-                      else 'rollout_kernel')
-            real = 'double' if f'{len(kernel)}{kernel}Id' in name else 'float'
-            model = ('SmallModel' if 'SmallModel' in name
-                     else 'GeneralModel') + f'<{real}>'
-            rows.append((f'{kernel}<{real}, {model}>', int(m.group(1)))
-                        + frame)
+            if 'tsqr_' in name:
+                kernel = ('tsqr_rows_kernel' if 'tsqr_rows_kernel' in name
+                          else 'tsqr_merge_kernel')
+                real = ('double' if f'{len(kernel)}{kernel}Id' in name
+                        else 'float')
+                cb = re.search(rf'{kernel}I[fd]Li(\d+)E', name).group(1)
+                label = f'{kernel}<{real}, {cb}>'
+            else:
+                kernel = ('rollout_sens_kernel'
+                          if 'rollout_sens_kernel' in name
+                          else 'rollout_kernel')
+                real = ('double' if f'{len(kernel)}{kernel}Id' in name
+                        else 'float')
+                model = ('SmallModel' if 'SmallModel' in name
+                         else 'GeneralModel') + f'<{real}>'
+                label = f'{kernel}<{real}, {model}>'
+            rows.append((label, int(m.group(1))) + frame)
             name = frame = None
     return rows
 
@@ -4108,7 +4275,7 @@ def main():
               'run needs an NVIDIA card', file=sys.stderr)
         return 1
     from insite_tpu_torch.harness.northstar import fused_northstar
-    from insite_tpu_torch.ops import build, rollout
+    from insite_tpu_torch.ops import build, qr_reduce, rollout
 
     # 1. device
     device = torch.device('cuda', 0)
@@ -4131,6 +4298,9 @@ def main():
         log(f'  {label}: {regs} registers, {stack} bytes stack, '
             f'{spill_st} / {spill_ld} bytes spill stores / loads')
         if 'SmallModel' in label and (stack or spill_st or spill_ld):
+            raise AssertionError(f'{label} uses a stack or spills')
+        if 'tsqr_' in label and label.endswith(', 8>') and (
+                stack or spill_st or spill_ld):
             raise AssertionError(f'{label} uses a stack or spills')
     if sorted(r[0] for r in report) != sorted(PTXAS_KERNELS):
         raise AssertionError(f'ptxas reported {[r[0] for r in report]}; '
@@ -4165,6 +4335,7 @@ def main():
                         for k in ('coefs', 'y0', 'statics', 'arms')})}
     # phase 13's lam tune: the validation cohort once per grid value
     tune_cases = {'tuning_b700': tuning_case(device)}
+    qr_cases, qr_timing_jobs = qr_jobs(device)
     log('[kernels] device time per call, f32, before any plain version '
         'runs')
     dev_times = kernel_times({'northstar': northstar_case,
@@ -4174,7 +4345,10 @@ def main():
                               **tumor_cases, **sindy_family_cases,
                               **insight_cases, **stacked, **tune_cases,
                               **half_shard},
-                             device)
+                             device, qr_timing_jobs)
+    log('[kernels] the QR reduction\'s TSQR kernels')
+    qr_res = run_qr_cases(qr_cases, dev_times.pop('extra'), device)
+    del qr_cases, qr_timing_jobs
     log('[kernels] kernel vs plain PyTorch version on the card')
     main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
                                 northstar_case, device, timed=True)
@@ -4218,6 +4392,7 @@ def main():
                         device=device)
     launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
                 'sens': rollout.SENS_LAUNCHES}
+    qr_launches_northstar = qr_reduce.QR_LAUNCHES
     peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
     log(f'[path] {N_PATIENTS} patients EQ_4_D: sim+design+QR '
         f'{r["t_sim_design"]:.4f} s | host STLSQ {r["t_stlsq"]:.4f} s | '
@@ -4231,6 +4406,9 @@ def main():
     if launches != {'rollout': 1, 'sens': GN_ITERS + 1}:
         raise AssertionError(f'expected 1 rollout and {GN_ITERS + 1} '
                              f'sensitivity launches, got {launches}')
+    if qr_launches_northstar != 1:
+        raise AssertionError(f'expected 1 QR call, got '
+                             f'{qr_launches_northstar}')
     preds = r['preds']
     if preds.shape != (N_PATIENTS, 59) or not torch.isfinite(preds).all():
         raise AssertionError('predictions are not finite [10000, 59]')
@@ -4421,6 +4599,13 @@ def main():
             'plain_ms_1step_shared_b11800_t59':
                 one_step['times'][f'{key}_plain_ms'],
             **per_shape})
+    kernels.append({
+        'name': 'qr_reduce', 'route': 'cuda', 'source': QR_SOURCE,
+        'replaces': None, 'launches_northstar': qr_launches_northstar,
+        # the reduction it replaced, timed as the yardstick
+        'library_ms': qr_res['qr_northstar']['library_ms'],
+        **{f'{key}_{tag}': v for tag, t in qr_res.items()
+           for key, v in t.items()}})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

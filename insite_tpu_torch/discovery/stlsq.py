@@ -1,10 +1,10 @@
 """Sequentially-thresholded least squares on a QR-reduced problem.
 
 The N-row reduction runs on the device (`_qr_reduce`, a QR of the weighted
-feature matrix); only the F x (F+1) triangle goes to the host, where the
-tiny STLSQ thresholding iteration runs in float64 numpy
-(`stlsq_from_qr`), with the semantics of pysindy's STLSQ plus the unbias
-refit.
+feature matrix; `_qr_reduce_arms`, every arm's from one pass over the
+design); only the F x (F+1) triangles go to the host, where the tiny STLSQ
+thresholding iteration runs in float64 numpy (`stlsq_from_qr`), with the
+semantics of pysindy's STLSQ plus the unbias refit.
 
 The vectorized seed columns take `stlsq`, the JAX package's masked-ridge
 form (a relative ridge floor, 20 fixed iterations), batched over seeds:
@@ -26,7 +26,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from insite_tpu_torch.ops.qr_reduce import qr_reduce
 from insite_tpu_torch.utils.profiling import span, to_device, to_host
+
+
+def _host_triangle(theta, y, sample_weight=None):
+    """numpy's LAPACK QR of the weighted ``[theta | y]`` on the host, in
+    theta's dtype: R [F + 1, F + 1] (zero rows below N)."""
+    if sample_weight is not None:
+        w = torch.sqrt(sample_weight.to(theta.dtype))
+        theta = theta * w[:, None]
+        y = y * w
+    A = torch.cat([theta, y[:, None]], dim=1).numpy()
+    R = np.linalg.qr(A, mode='r')
+    if len(R) < A.shape[1]:
+        R = np.concatenate([R, np.zeros((A.shape[1] - len(R), A.shape[1]),
+                                        R.dtype)])
+    return torch.from_numpy(R)
 
 
 def _qr_reduce(theta: torch.Tensor, y: torch.Tensor, sample_weight=None):
@@ -37,24 +53,40 @@ def _qr_reduce(theta: torch.Tensor, y: torch.Tensor, sample_weight=None):
     so the '1'/'u0'/'u1'/'u0 u1' block is nearly rank one); QR keeps the
     error at eps * cond(Theta). R is unique up to the sign of each row.
 
-    On the card the QR is cuSOLVER's; on the host it is numpy's LAPACK,
-    whose factorization is the JAX package's host QR bit for bit (torch's
-    CPU build links another LAPACK), so the discovered coefficients and
-    their printed equation match the reference's exactly in float64.
+    On the card the QR is the TSQR kernel's (`ops.qr_reduce`, one arm,
+    float64 arithmetic); on the host it is numpy's LAPACK, whose
+    factorization is the JAX package's host QR bit for bit (torch's CPU
+    build links another LAPACK), so the discovered coefficients and their
+    printed equation match the reference's exactly in float64.
     The reduction is the span 'fit.qr', timed on the device too.
     """
     with span('fit.qr', theta.device):
-        if sample_weight is not None:
-            w = torch.sqrt(sample_weight.to(theta.dtype))
-            theta = theta * w[:, None]
-            y = y * w
-        A = torch.cat([theta, y[:, None]], dim=1)
-        if A.device.type == 'cpu':
-            R = torch.from_numpy(np.linalg.qr(A.numpy(), mode='r'))
+        if theta.device.type == 'cpu':
+            R = _host_triangle(theta, y, sample_weight)
         else:
-            R = torch.linalg.qr(A, mode='r').R
+            w = (None if sample_weight is None else
+                 sample_weight.to(theta.dtype).contiguous())
+            R = qr_reduce(theta.contiguous(), y.contiguous(), weight=w)[0]
         F = theta.shape[-1]
         return R[:F, :F], R[:F, F]
+
+
+def _qr_reduce_arms(theta, y, ok, arm, n_arms: int):
+    """Each arm's `_qr_reduce` from one reduction: the triangles
+    ``[R_k | Q_k^T y_k]`` [n_arms, F + 1, F + 1] (R_k = [k, :F, :F],
+    Q_k^T y_k = [k, :F, F]) of the rows with ``ok`` and ``arm == k``
+    (``arm`` None: every ok row, one arm). On the card one call of the
+    TSQR kernels reads the design once for every arm; on the host each
+    arm is `_qr_reduce`'s LAPACK QR with the arm's 0/1 weight, bit for bit.
+    The span 'fit.qr'."""
+    with span('fit.qr', theta.device):
+        if theta.device.type == 'cpu':
+            return torch.stack([_host_triangle(
+                theta, y, ok if arm is None else ok & (arm == a))
+                for a in range(n_arms)])
+        return qr_reduce(theta.contiguous(), y.contiguous(), n_arms,
+                         ok=ok.contiguous(),
+                         arm=None if arm is None else arm.contiguous())
 
 
 def _qr_reduce_sharded(thetas, ys, sample_weights=None):

@@ -5,9 +5,10 @@ Stages, each a span of the program's tracer (`utils/profiling.py`) whose
 host duration is the stage's time:
 
   sim+design+QR  simulate the cohort (span 'collection'), build the
-                 smoothed-finite-difference design matrix and reduce each
-                 arm by QR on the device (span 'fit', the QR 'fit.qr');
-                 only two F x (F+1) triangles go to the host,
+                 smoothed-finite-difference design matrix and reduce both
+                 arms by QR on the device in one pass over it (span 'fit',
+                 the QR 'fit.qr'); only the two (F+1) x (F+1) triangles go
+                 to the host, in one read,
   STLSQ          the F x F thresholding iteration on the host in float64
                  (span 'fit', the iteration 'fit.stlsq'),
   fine-tune      the Levenberg-Marquardt loop (gn_iters + 1 launches of the
@@ -33,7 +34,7 @@ import torch
 from insite_tpu_torch.core.constants import MAX_VALUE, STANDARD_DT
 from insite_tpu_torch.core.dtypes import resolve_float
 from insite_tpu_torch.discovery.library import PolynomialLibrary
-from insite_tpu_torch.discovery.stlsq import _qr_reduce, stlsq_from_qr
+from insite_tpu_torch.discovery.stlsq import _qr_reduce_arms, stlsq_from_qr
 from insite_tpu_torch.models.sindy import (_eq4_design,
                                            check_rollout_backend,
                                            insite_gn_finetune_predict,
@@ -74,14 +75,14 @@ def simulate_cohort(n: int, seed: int, equation_name: str = 'EQ_4_D',
 @span('fit')
 def design_qr(cohort, library=LIBRARY):
     """EQ_4 fit semantics (offset 1, smoothed 4th-order finite differences)
-    and the per-arm QR reduction: returns [(R, Q^T y)] for arms 0 and 1."""
+    and the per-arm QR reduction: returns the triangles
+    ``[R_a | Q_a^T y_a]`` [2, F + 1, F + 1] of arms 0 and 1."""
     vol, statics, treat, lengths = cohort
     eff_len = torch.clamp(lengths - 1, min=2)
     theta, y, ok, arm = _eq4_design(vol, statics, treat, eff_len,
                                     STANDARD_DT, library=library,
                                     smooth=True, fd_order=4)
-    return [_qr_reduce(theta, y, (ok & (arm == a)).to(theta.dtype))
-            for a in range(2)]
+    return _qr_reduce_arms(theta, y, ok, arm, 2)
 
 
 def _factual_rmse(preds, vol, lengths):
@@ -145,15 +146,15 @@ def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
     finetune_fn = _finetune_fn(rollout_backend, device)
     seq_length = vol.shape[1]
     with span('fit') as sim_design:
-        triangles = [(to_host(R).numpy(), to_host(qty).numpy())
-                     for R, qty in design_qr(cohort)]
+        triangles = to_host(design_qr(cohort)).numpy()
+    F = triangles.shape[-1] - 1
 
     with span('fit') as stlsq:
         # cast to the compute dtype, as the JAX package does
         coefs = np.stack([
-            stlsq_from_qr(R, qty, threshold, alpha,
+            stlsq_from_qr(t[:F, :F], t[:F, F], threshold, alpha,
                           max_iter=max_stlsq_iter)[0]
-            for R, qty in triangles]).astype(
+            for t in triangles]).astype(
                 torch.empty((), dtype=dtype).numpy().dtype)
 
     active_idx = tuple(int(i) for i in

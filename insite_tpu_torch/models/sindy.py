@@ -57,7 +57,8 @@ from insite_tpu_torch.core.dtypes import resolve_float
 from insite_tpu_torch.discovery.differentiate import (
     finite_difference, savgol_smooth, smoothed_finite_difference)
 from insite_tpu_torch.discovery.library import PolynomialLibrary
-from insite_tpu_torch.discovery.stlsq import stlsq_hostsolve
+from insite_tpu_torch.discovery.stlsq import (_qr_reduce_arms,
+                                              stlsq_from_qr)
 from insite_tpu_torch.discovery.wsindy import (weak_candidates_host,
                                                weak_select_host, weak_system,
                                                weak_system_segments)
@@ -365,14 +366,18 @@ class SINDyRegressor(CausalEstimator):
         return ok if self.cfg.joint_model else ok & (arm == a)
 
     def _stlsq_per_arm(self, theta, xdot, ok, arm):
-        """One STLSQ per arm over the samples of that arm: [A, F]."""
+        """One STLSQ per arm over the samples of that arm: [A, F]. Every
+        arm's QR reduction comes from one call (`_qr_reduce_arms`) and one
+        read to the host."""
         cfg = self.cfg
-        return np.stack([stlsq_hostsolve(theta, xdot, cfg.sindy_threshold,
-                                         cfg.sindy_alpha,
-                                         sample_weight=self._arm_weight(
-                                             ok, arm, a),
-                                         max_iter=cfg.max_stlsq_iter)[0]
-                         for a in range(self._n_arms)])
+        triangles = to_host(_qr_reduce_arms(
+            theta, xdot, ok, None if cfg.joint_model else arm,
+            self._n_arms)).numpy()
+        F = theta.shape[-1]
+        return np.stack([stlsq_from_qr(t[:F, :F], t[:F, F],
+                                       cfg.sindy_threshold, cfg.sindy_alpha,
+                                       max_iter=cfg.max_stlsq_iter)[0]
+                         for t in triangles])
 
     def _weak_solve_arms(self, systems, design):
         """Per arm, the candidate weak solves and the strong-form
