@@ -1359,6 +1359,7 @@ def model_case(model, ds, seed=None, rows=slice(None)):
     coefficients and the per-step treatment inputs for the plain joint
     versions."""
     import torch
+    from insite_tpu_torch.models.sindy import support
     from insite_tpu_torch.ops.joint_fold import combination_index
     prev, statics, arms, _ = model._unscaled_arrays(ds)
     prev, statics, arms = prev[rows], statics[rows], arms[rows]
@@ -1368,7 +1369,7 @@ def model_case(model, ds, seed=None, rows=slice(None)):
         coefs = coefs * (1 + 0.05 * rng.randn(len(prev), *coefs.shape[1:]))
     case = dict(library=model.library, coefs=coefs, y0=prev[:, 0],
                 statics=statics, arms=arms, dt=model.dt,
-                active_idx=model._active_idx(), y_clip=model._y_clip())
+                active_idx=support(model.coefs), y_clip=model._y_clip())
     fold = model._fold
     if fold is None:
         return case
@@ -1412,6 +1413,7 @@ def family_cases(device):
     - the recovery's validation cohort on EQ_4_D (B=100, T=59);
     - 4 arms x the degree-4 library with 100 active coordinates, which go
       through the sensitivity kernel in two groups."""
+    from insite_tpu_torch.models.sindy import support
     cases = {}
     for name, short, n_arms in (('cancer_sim', 'cancer_sim', 4),
                                 ('EQ_4_D', 'eq4d', 2)):
@@ -1436,8 +1438,8 @@ def family_cases(device):
     cases['degree4_chunk_1step_b2048_t59'] = model_case(
         model, coll.test_cf_one_step, seed=12, rows=chunk)
     log(f'  EQ_4_D degree-4 chunk: F={model.coefs.shape[1]}, Kr='
-        f'{len(model._active_idx())}: {model.global_equation_string}')
-    assert model.coefs.shape[1] == 35 and model._active_idx()
+        f'{len(support(model.coefs))}: {model.global_equation_string}')
+    assert model.coefs.shape[1] == 35 and support(model.coefs)
     coll, model = fitted_model('EQ_4_D', device)
     cases['recovery_val_b100_t59'] = model_case(model, coll.val_f, seed=13)
     cases['split_a4_f35_kr100_b10000_t59'] = split_case(N_PATIENTS, 59, 10)
@@ -1706,7 +1708,7 @@ def stage_timer(records, device):
     from insite_tpu_torch.models.edct import EDCT
     from insite_tpu_torch.models.msm import MSM
     from insite_tpu_torch.models.nn.training import BRStage
-    from insite_tpu_torch.models.sindy import SINDyRegressor
+    from insite_tpu_torch.models.sindy import SINDyRegressor, support
     from insite_tpu_torch.ops import rollout
     # ct's, crn's and edct's 1-step predictions (crn's and edct's: their
     # encoder's) go through BRStage.get_predictions; rmsn's decoder
@@ -1743,7 +1745,7 @@ def stage_timer(records, device):
                 # the fitted support, Kr, and the coordinates a sensitivity
                 # call hands the kernel (the joint model: the folded ones)
                 model = args[0]
-                active = model._active_idx()
+                active = support(model.coefs)
                 records[-1]['kr'] = records[-1]['kr_kernel'] = len(active)
                 if model._fold is not None and active:
                     records[-1]['kr_kernel'] = len(

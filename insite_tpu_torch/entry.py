@@ -124,7 +124,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         vectorized_ct_sweep, vectorized_gnet_sweep)
     from insite_tpu_torch.models.ct import CTConfig, CTNetwork
     from insite_tpu_torch.models.nn.training import bases_on, seeded_net
-    from insite_tpu_torch.models.sindy import insite_finetune_predict
+    from insite_tpu_torch.models.sindy import (insite_finetune_predict,
+                                               support)
     from insite_tpu_torch.ops.rollout import rollout_with_sens
     from insite_tpu_torch.parallel import (batch_mesh, gather_rows, row_mask,
                                            shard_rows)
@@ -159,7 +160,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
 
     # 2. the sharded INSITE fine-tune and rollout
     t0 = perf_counter()
-    active = tuple(int(i) for i in np.flatnonzero(np.abs(coefs) > 1e-3))
+    active = support(coefs)
     parts = [insite_finetune_predict(
         lib, torch.tensor(coefs, dtype=f32, device=p.device), p, s, a, ln,
         DT, 10.0, projection_horizon=1, bfgs_maxiter=8,

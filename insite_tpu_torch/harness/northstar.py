@@ -38,7 +38,8 @@ from insite_tpu_torch.discovery.stlsq import _qr_reduce_arms, stlsq_from_qr
 from insite_tpu_torch.models.sindy import (_eq4_design,
                                            check_rollout_backend,
                                            insite_gn_finetune_predict,
-                                           insite_gn_finetune_predict_jvp)
+                                           insite_gn_finetune_predict_jvp,
+                                           support)
 from insite_tpu_torch.sim import pkpd
 from insite_tpu_torch.utils.profiling import span, to_device, to_host
 
@@ -157,8 +158,7 @@ def discover_and_finetune(cohort, threshold: float = 0.1, alpha: float = 0.5,
             for t in triangles]).astype(
                 torch.empty((), dtype=dtype).numpy().dtype)
 
-    active_idx = tuple(int(i) for i in
-                       np.flatnonzero(np.abs(coefs).reshape(-1) > 1e-3))
+    active_idx = support(coefs)
     prev = vol[:, :-1]
     arms = treat[:, :seq_length - 1].to(torch.int32)
     coefs_t = to_device(coefs, device, dtype)

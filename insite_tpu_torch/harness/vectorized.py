@@ -9,6 +9,8 @@ its own global model (F <= 7 features an arm), every seed's test rows are
 concatenated into one batch whose per-row coefficient table gives each row
 its own seed's model, and the fine-tune and the rollouts run once for the
 whole column, through the same two kernels as the standard path. The
+fine-tune moves the union of the seeds' supports (`models.sindy.support`;
+an empty union is one rollout, as in `insite_gn_finetune_predict`). The
 metrics are then taken per seed.
 
 EQ_4 cohorts are drawn as `PkpdDatasetCollection` draws its subsets (a
@@ -41,10 +43,10 @@ from insite_tpu_torch.discovery.library import PolynomialLibrary
 from insite_tpu_torch.discovery.stlsq import stlsq
 from insite_tpu_torch.discovery.wsindy import weak_sindy_fit_select
 from insite_tpu_torch.harness.results import ci
-from insite_tpu_torch.models.sindy import (SINDyConfig, _empty_support_predict,
-                                           _eq4_design, _tumor_design,
+from insite_tpu_torch.models.sindy import (SINDyConfig, _eq4_design,
+                                           _tumor_design,
                                            insite_gn_finetune_predict,
-                                           wsindy_grid)
+                                           support, wsindy_grid)
 from insite_tpu_torch.ops.rollout import batched_rollout
 from insite_tpu_torch.parallel import seed_blocks
 from insite_tpu_torch.sim import pkpd
@@ -351,36 +353,14 @@ def _discover(cohorts, library, n_arms, eq4, method, threshold, alpha, dt):
     return coefs
 
 
-def support_union(coefs) -> tuple:
-    """The flat (arm * F + feature) coordinates where any of the models
-    ``coefs`` [S, A, F] (a tensor or numpy) exceeds 1e-3."""
-    return tuple(int(i) for i in np.flatnonzero(
-        (np.abs(np.asarray(coefs)) > 1e-3).any(axis=0)))
-
-
-def _finetune(library, coefs_rows, prev, statics, arms, lengths, dt, lam,
-              ph, gn_iters, y_clip, union):
-    """The INSITE fine-tune of rows that each carry their own seed's global
-    model, over ``union``, the union of the column's supports
-    (`_empty_support_predict` when that is empty). Returns (preds,
-    fine-tuned coefs [R, A, F])."""
-    if not union:
-        return _empty_support_predict(library, coefs_rows, prev, statics,
-                                      arms, lengths, dt, ph, y_clip)
-    return insite_gn_finetune_predict(library, coefs_rows, prev, statics,
-                                      arms, lengths, dt, lam=lam,
-                                      projection_horizon=ph,
-                                      gn_iters=gn_iters, y_clip=y_clip,
-                                      active_idx=union)
-
-
 def _predict(library, coefs, rows, arms, lengths, statics, dt, *, insite,
              lam, ph, gn_iters, y_clip, union, group=None):
     """Predictions [R, W-1] of the stacked rows of S seeds (seed-major,
     R / S rows a seed), each seed's rows with its own model ``coefs``
     [S, A, F]. INSITE fine-tunes each row over its first lengths - ``ph``
-    steps, in the coordinates ``union``; with ``group`` = P it fine-tunes
-    the first of every P consecutive rows (the branches or plans of one
+    steps, in the coordinates ``union`` (the union of the column's
+    supports, which may be empty); with ``group`` = P it fine-tunes the
+    first of every P consecutive rows (the branches or plans of one
     prefix) and rolls all P out with that row's model."""
     S = coefs.shape[0]
     prev = rows[:, :-1]
@@ -388,18 +368,19 @@ def _predict(library, coefs, rows, arms, lengths, statics, dt, *, insite,
     if not insite:
         return batched_rollout(library, coefs.repeat_interleave(
             per_seed, dim=0), prev[:, 0], statics, arms, dt, y_clip=y_clip)
+    kw = dict(lam=lam, projection_horizon=ph, gn_iters=gn_iters,
+              y_clip=y_clip, active_idx=union)
     if group is None:
-        return _finetune(library, coefs.repeat_interleave(per_seed, dim=0),
-                         prev, statics, arms, lengths, dt, lam, ph,
-                         gn_iters, y_clip, union)[0]
+        return insite_gn_finetune_predict(
+            library, coefs.repeat_interleave(per_seed, dim=0), prev,
+            statics, arms, lengths, dt, **kw)[0]
 
     def first(x):
         return x.reshape(-1, group, *x.shape[1:])[:, 0]
 
-    _, coefs_pref = _finetune(
+    _, coefs_pref = insite_gn_finetune_predict(
         library, coefs.repeat_interleave(per_seed // group, dim=0),
-        first(prev), first(statics), first(arms), first(lengths), dt, lam,
-        ph, gn_iters, y_clip, union)
+        first(prev), first(statics), first(arms), first(lengths), dt, **kw)
     return batched_rollout(library, coefs_pref.repeat_interleave(group,
                                                                  dim=0),
                            prev[:, 0], statics, arms, dt, y_clip=y_clip)
@@ -476,7 +457,7 @@ def evaluate_column(cohorts, coefs_np, *, family: str, method: str,
     coefs = to_device(coefs_np, dev, dtype)
     kw = dict(insite=(method == 'insite'), lam=lam, gn_iters=gn_iters,
               y_clip=y_clip,
-              union=support_union(coefs_np) if union is None else union)
+              union=support(coefs_np) if union is None else union)
 
     rows, arms, lengths, statics, valid = _stack(cohorts, 'one_step')
     preds = _predict(library, coefs, rows, arms, lengths, statics, dt, ph=1,
@@ -564,7 +545,7 @@ def vectorized_eq4_sweep(equation_str: str, n_seeds: int = 10,
     coefs = [discover_column(c, family='eq4', method=method,
                              threshold=threshold, alpha=alpha)
              for c in cohorts]
-    union = support_union(np.concatenate(coefs))
+    union = support(np.concatenate(coefs))
     parts = [evaluate_column(c, k, family='eq4', method=method, lam=lam,
                              projection_horizon=projection_horizon,
                              gn_iters=gn_iters,

@@ -11,15 +11,18 @@ batch stride of 0). INSITE then fine-tunes the active coefficients per
 patient: a damped Gauss-Newton (Levenberg-Marquardt) loop over the whole
 cohort at once, whose residual Jacobian comes from the
 rollout-with-sensitivities kernel, one launch per iteration, followed by
-one launch of the rollout kernel for the predictions (on the card, where
-the problem is small enough that issuing the loop's small operations takes
-longer than running them, the chain of them between two launches replays
-from CUDA graphs); or, with
+one launch of the rollout kernel for the predictions; or, with
 ``insite_solver='bfgs'``, a lock-step batched BFGS whose every objective
 and gradient evaluation is one launch of the same sensitivity kernel.
 ``rollout_backend='xla'`` runs no kernel: the Levenberg-Marquardt Jacobian
 then comes from forward-mode autodiff through the plain rollout, and every
 rollout is the plain version.
+
+The fine-tunes move the coordinates `support` gives of the host global
+model, and an empty support is one rollout. One loop, `_lm_loop`, runs
+the Levenberg-Marquardt chain on every path; on the card, where issuing a
+link's small operations takes longer than running them, the links between
+two launches replay from CUDA graphs.
 
 Two ablations: ``cfg.ablation_more_complex_basis_functions`` takes the
 full degree-4 library (its fine-tune goes through in chunks of 2048 rows),
@@ -482,12 +485,6 @@ class SINDyRegressor(CausalEstimator):
         preds = self._on_mesh(run, prev, statics, arms)
         return self._scaled_numpy(preds, lengths, dataset)
 
-    def _active_idx(self) -> tuple:
-        """The flat (arm * F + feature) coordinates with |global coef| >
-        1e-3: the coordinates the fine-tune moves."""
-        return tuple(int(i) for i in
-                     np.flatnonzero(np.abs(self.coefs).reshape(-1) > 1e-3))
-
     def _fine_tune(self, dataset, projection_horizon: int, lam_grid=None):
         """Run the per-patient fine-tune; returns (preds [N, T],
         per-patient coefs [N, A, F]) on the device.
@@ -521,15 +518,10 @@ class SINDyRegressor(CausalEstimator):
                 for x in (prev, statics, arms, lengths))
             lam = to_device(lam_grid, prev.device,
                             torch.float64).repeat_interleave(n_rows)
-        active_idx = self._active_idx()
+        active_idx = support(self.coefs)
 
         def solve(prev_c, statics_c, arms_c, lengths_c, lam_c):
             coefs = self._tensor(self.coefs).to(prev_c.device)
-            if not active_idx:
-                return _empty_support_predict(
-                    self.library, coefs, prev_c, statics_c, arms_c,
-                    lengths_c, self.dt, projection_horizon, self._y_clip(),
-                    fold=self._fold, plain=self._plain)
             args = (self.library, coefs, prev_c, statics_c, arms_c,
                     lengths_c, self.dt)
             kw = dict(lam=lam_c, projection_horizon=projection_horizon,
@@ -624,23 +616,6 @@ def _rollouts(library, fold: Optional[JointFold] = None,
         partial(rollout_with_sens, library)
 
 
-def _empty_support_predict(library, global_coefs, prev, statics, arms,
-                           lengths, dt, projection_horizon: int,
-                           y_clip=None, fold=None, plain=False):
-    """The fine-tune when no global coefficient exceeds 1e-3: nothing can
-    move, so rows longer than the horizon roll out the masked global model
-    ``global * (|global| > 1e-3)`` and the others the full global model,
-    in one rollout. global_coefs [A, F], or [B, A, F] per row. Returns
-    (preds [B, T], coefs [B, A, F])."""
-    g = global_coefs if global_coefs.ndim == 3 else global_coefs[None]
-    masked = g * (g.abs() > 1e-3)
-    skip = (lengths <= projection_horizon)[:, None, None]
-    coefs = torch.where(skip, g, masked)
-    roll, _ = _rollouts(library, fold, plain)
-    preds = roll(coefs, prev[:, 0], statics, arms, dt, y_clip=y_clip)
-    return preds, coefs
-
-
 def _eq4_design(vol_j, statics, arms01, eff_len, dt, library,
                 smooth=True, fd_order=4, joint=False):
     """EQ_4 design-matrix build: derivative estimate, feature matrix and
@@ -695,6 +670,18 @@ def _tumor_design(vol_j, statics, arms_idx, lengths, dt, library,
             arm)
 
 
+SUPPORT_THRESHOLD = 1e-3
+
+
+def support(coefs) -> tuple:
+    """The flat (arm * F + feature) coordinates the INSITE fine-tune moves,
+    |coef| > `SUPPORT_THRESHOLD`, of host numpy global models [A, F], or
+    their union over the models of [S, A, F]."""
+    above = np.abs(coefs) > SUPPORT_THRESHOLD
+    return tuple(int(i) for i in np.flatnonzero(
+        above.reshape(-1, *above.shape[-2:]).any(axis=0)))
+
+
 class _Reduced:
     """What every INSITE fine-tune shares: the problem in the Kr active
     coordinates, the one-step prefix each row is fitted on, and the rows
@@ -702,20 +689,16 @@ class _Reduced:
 
     global_coefs [A, F], or [B, A, F] a global model per row (the
     vectorized seed columns: each row its own seed's), with active_idx the
-    union of the rows' supports; prev [B, T] observed y[0..T-1]; lengths
-    [B]. A row fits its first ``lengths - projection_horizon`` one-step
-    errors; a row with ``lengths <= projection_horizon`` (``skip``) is not
-    fine-tuned and rolls out the full unmasked global model. With a global
-    model per row, a row moves only its own support, and a row whose
-    support is empty rolls out its masked global model, as
-    `_empty_support_predict` gives.
+    union of the rows' supports (`support`, which may be empty); prev
+    [B, T] observed y[0..T-1]; lengths [B]. A row fits its first
+    ``lengths - projection_horizon`` one-step errors; a row with ``lengths
+    <= projection_horizon`` (``skip``) is not fine-tuned and rolls out the
+    full unmasked global model, the others a model masked to the support.
+    With a global model per row, a row moves only its own support.
     """
 
     def __init__(self, global_coefs, prev, lengths, projection_horizon,
                  active_idx):
-        if len(active_idx) == 0:
-            raise ValueError('the fine-tune needs at least one active '
-                             'coefficient')
         dev, dtype = prev.device, prev.dtype
         self.prev = prev
         self.per_row = global_coefs.ndim == 3
@@ -726,10 +709,11 @@ class _Reduced:
         self.A, self.F = g_rows.shape[1:]
         self.K = self.A * self.F
         self.active_idx = tuple(active_idx)
-        self.act = to_device(active_idx, dev)
+        self.act = to_device(active_idx, dev, torch.int64)
         self.Kr = len(active_idx)
         self.B, self.T = prev.shape
-        self.sparse_flat = (g_rows.abs() > 1e-3).to(dtype).reshape(-1, self.K)
+        self.sparse_flat = (g_rows.abs() > SUPPORT_THRESHOLD).to(
+            dtype).reshape(-1, self.K)
         self.g_red = g_rows.reshape(-1, self.K)[:, self.act]     # [1|B, Kr]
         # each row's own support among the union's coordinates
         self.own = (self.sparse_flat[:, self.act] > 0 if self.per_row
@@ -762,12 +746,6 @@ class _Reduced:
             J = torch.where(self.own[:, None, :], J, 0.0)
         return self.residuals(y), J
 
-    def sens_residuals(self, roll_sens, c_red, statics, arms, dt, y_clip):
-        """`masked` of one rollout with sensitivities at c_red [B, Kr]."""
-        return self.masked(*roll_sens(self.to_full(c_red), self.prev[:, 0],
-                                      statics, arms, dt, self.active_idx,
-                                      y_clip=y_clip))
-
     # what the LM chain reads of the problem besides its sizes
     CHAIN_INPUTS = ('prev', 'prefix', 'n_mask', 'g_red', 'sparse_flat',
                     'act', 'own')
@@ -792,7 +770,7 @@ class _Reduced:
     def predict(self, roll, c_red, statics, arms, dt, y_clip):
         """Every row's model and its rollout: (preds [B, T], coefs [B, A,
         F]). Skip rows roll out the FULL unmasked global model: to_full
-        drops retained sub-threshold (|coef| <= 1e-3) entries."""
+        drops retained entries at or below `SUPPORT_THRESHOLD`."""
         coefs = torch.where(self.skip[:, None], self.g_red, c_red)
         coefs_full = torch.where(self.skip[:, None, None], self.g_rows,
                                  self.to_full(coefs))
@@ -880,13 +858,29 @@ def _lm_step(pb, t, st: _LMState, r, J) -> _LMState:
                     1e-8, 1e8), None))
 
 
-def _lm_link(pb, t, y, s, st):
-    """One link of the chain from a launch's outputs y [B, T] and s [B, T,
-    Kr]: `_lm_begin` where ``st`` is None, else `_lm_step` from ``st``.
-    Returns the new state and the next launch's coefficients [B, A, F]."""
-    r, J = pb.masked(y, s)
+def _lm_link(pb, t, st, outputs: list):
+    """One link of the chain from an evaluation's outputs [y [B, T], s [B,
+    T, Kr]]: `_lm_begin` where ``st`` is None, else `_lm_step` from
+    ``st``. Returns the new state and the next evaluation's coefficients
+    [B, A, F]. Empties ``outputs`` once they are masked, so that the
+    step's peak memory holds no [B, T, Kr] tensor beyond its Jacobian."""
+    r, J = pb.masked(*outputs)
+    outputs.clear()
     st = _lm_begin(pb, t, r, J) if st is None else _lm_step(pb, t, st, r, J)
     return st, pb.to_full(st.cand)
+
+
+def _lm_loop(pb, evaluate, link, gn_iters: int, out=None):
+    """The chain's one loop: 1 + gn_iters evaluations, the first at the
+    global model, each followed by ``link`` (`_lm_link`, or a graph's
+    replay of it) from its outputs to the next coefficients. Returns the
+    last state and coefficients."""
+    st, coefs = None, pb.to_full(pb.g_red.expand(pb.B, pb.Kr))
+    for _ in range(1 + gn_iters):
+        outputs = list(evaluate(coefs, out))
+        del coefs               # the evaluated model is not held in the link
+        st, coefs = link(st, outputs)
+    return st, coefs
 
 
 class _LMArena:
@@ -939,8 +933,8 @@ class _LMGraph:
     """The LM chain of one shape (`_lm_graph_key`) captured as two CUDA
     graphs, each from the outputs (y, s) of a sensitivity launch to the
     coefficients of the next (`_lm_link`): the link before the loop and an
-    iteration's. A call replays them between its launches, which stay
-    eager, one call of the launcher each.
+    iteration's. A call runs `_lm_loop` with a replay for each link, so
+    its launches stay eager, one call of the launcher each.
 
     What the graphs read and write lies in an `_LMArena`: copies of the
     problem's chain inputs (`_Reduced.pinned`) and of a per-row penalty,
@@ -982,7 +976,7 @@ class _LMGraph:
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool, capture_error_mode='thread_local')
         try:
-            new, coefs = _lm_link(self.pb, self.t, self.y, self.s, st)
+            new, coefs = _lm_link(self.pb, self.t, st, [self.y, self.s])
             for dst, src in zip(self.state, new):
                 dst.copy_(src)
             self.coefs.copy_(coefs)
@@ -990,20 +984,22 @@ class _LMGraph:
             graph.capture_end()
         return graph
 
-    def run(self, pb: _Reduced, t: _LMTerms, launch, gn_iters: int):
-        """The loop of `_levenberg_marquardt` on ``pb``: its launches, and
-        a replay after each. Returns each row's best coefficients."""
+    def run(self, pb: _Reduced, t: _LMTerms, evaluate, gn_iters: int):
+        """The loop of `_levenberg_marquardt` on ``pb``: each launch writes
+        the graphs' buffers, and a replay follows it. Returns each row's
+        best coefficients."""
         with torch.cuda.device(pb.prev.device):
             self.pb.refill(pb)
             if torch.is_tensor(t.reg2):
                 self.t.reg2.copy_(t.reg2)
-            out = (self.y, self.s)
-            launch(pb.to_full(pb.g_red.expand(pb.B, pb.Kr)), out)
-            self.begin.replay()
-            for _ in range(gn_iters):
-                launch(self.coefs, out)
-                self.step.replay()
-            return self.state.c.clone()
+            st, _ = _lm_loop(pb, evaluate, self._replay, gn_iters,
+                             (self.y, self.s))
+            return st.c.clone()
+
+    def _replay(self, st, outputs):
+        """The link from the buffers the launch wrote, in place."""
+        (self.begin if st is None else self.step).replay()
+        return self.state, self.coefs
 
 
 # The largest Jacobian, B * (T - 1) * Kr elements, whose chain is captured.
@@ -1033,23 +1029,24 @@ def _lm_graph_key(pb: _Reduced, lam):
             'per row' if torch.is_tensor(lam) else float(lam))
 
 
-def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int,
-                         launch=None):
+def _levenberg_marquardt(pb: _Reduced, evaluate, lam, gn_iters: int,
+                         capture: bool = False):
     """The LM loop over the active coordinates: returns each row's best
     coefficients [B, Kr].
 
     Objective (the reference's f_to_min_func):
         prefix_mse(c) / (2.5 * prefix_mse(c_global)) + lam * mean((c - g)^2)
-    ``resid_jac(c_red) -> (r, J)`` evaluates the pending candidate once an
-    iteration, which is kept only if it lowers the objective (deferred
-    acceptance); the next step comes from a batched [B, Kr, Kr] solve.
+    ``evaluate(coefs [B, A, F], out=None) -> (y, s)``, a rollout and its
+    sensitivities, evaluates the pending candidate once an iteration,
+    which is kept only if it lowers the objective (deferred acceptance);
+    the next step comes from a batched [B, Kr, Kr] solve.
 
-    ``launch(coefs [B, A, F], out)``, where given, is the one sensitivity
-    kernel launch that ``resid_jac`` makes, writing (y, s) into the pair
-    ``out``. Then the chain between two launches runs from CUDA graphs
-    (`_LMGraph`) where `_lm_graph_key` allows: a shape's first call
-    captures them after its eager run, and its later calls replay them
-    around the same launches, the same operations on the same values.
+    ``capture``: the evaluation is one sensitivity kernel launch, writing
+    (y, s) into the pair ``out`` where given. Then the chain between two
+    launches runs from CUDA graphs (`_LMGraph`) where `_lm_graph_key`
+    allows: a shape's first call captures them after its eager run, and
+    its later calls replay them around the same launches, the same
+    operations on the same values.
 
     The float32 contractions below go through cuBLAS in full float32:
     PyTorch leaves TF32 off for matmuls (torch.backends.cuda.matmul.
@@ -1061,17 +1058,14 @@ def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int,
     captured in an earlier call, 'lm.graph_captures' the captures.
     """
     t = _lm_terms(pb, lam)
-    key = _lm_graph_key(pb, lam) if launch is not None else None
-    dev = pb.prev.device
-    graphs = _LM_GRAPHS.get(dev, {})
+    key = _lm_graph_key(pb, lam) if capture else None
+    graphs = _LM_GRAPHS.get(pb.prev.device, {})
     count('lm.chains', 1 + gn_iters)
     if key in graphs:
         graphs.move_to_end(key)
         count('lm.graph_hits', 1 + gn_iters)
-        return graphs[key].run(pb, t, launch, gn_iters)
-    st = _lm_begin(pb, t, *resid_jac(pb.g_red.expand(pb.B, pb.Kr)))
-    for _ in range(gn_iters):
-        st = _lm_step(pb, t, st, *resid_jac(st.cand))
+        return graphs[key].run(pb, t, evaluate, gn_iters)
+    st, _ = _lm_loop(pb, evaluate, partial(_lm_link, pb, t), gn_iters)
     if key is not None:
         _lm_capture(pb, t, key)
     return st.c
@@ -1079,9 +1073,10 @@ def _levenberg_marquardt(pb: _Reduced, resid_jac, lam, gn_iters: int,
 
 def _lm_capture(pb: _Reduced, t: _LMTerms, key) -> None:
     """Capture ``pb``'s chain under ``key``, on a side stream after one
-    eager run of both links there. Where the arena of its device and dtype
-    is too small, a larger one replaces it, and the chains laid out in the
-    old one are dropped, to be captured again on their next call."""
+    eager run of both links there (`_lm_loop` of one iteration over zero
+    buffers). Where the arena of its device and dtype is too small, a
+    larger one replaces it, and the chains laid out in the old one are
+    dropped, to be captured again on their next call."""
     dev, dtype = pb.prev.device, pb.prev.dtype
     graphs = _LM_GRAPHS.setdefault(dev, OrderedDict())
     with torch.cuda.device(dev):
@@ -1090,8 +1085,8 @@ def _lm_capture(pb: _Reduced, t: _LMTerms, key) -> None:
         with torch.cuda.stream(side):
             ys = (torch.zeros_like(pb.prev),
                   pb.prev.new_zeros((pb.B, pb.T, pb.Kr)))
-            st, coefs = _lm_link(pb, t, *ys, None)
-            _lm_link(pb, t, *ys, st)
+            st, coefs = _lm_loop(pb, lambda coefs, out: ys,
+                                 partial(_lm_link, pb, t), 1)
             inputs = [getattr(pb, n) for n in pb.CHAIN_INPUTS]
             need = _LMArena.sizes(
                 [x for x in inputs if x is not None] +
@@ -1133,8 +1128,10 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     `_Reduced`); prev [B, T] observed y[0..T-1]; statics [B, S]; arms
     [B, T]; lengths [B]; lam a float, or a [B] tensor, a penalty per row
     (the lam grid's rows stacked); active_idx: the flat (arm * F +
-    feature) coordinates with |global coef| > 1e-3. Returns (preds [B, T],
-    coefs [B, A, F]).
+    feature) coordinates to move, `support` of the global models. Returns
+    (preds [B, T], coefs [B, A, F]). An empty ``active_idx`` moves
+    nothing: one rollout at the global model, no loop, no sensitivity
+    launch, no span 'predict.lm'.
 
     With ``fold`` (a `JointFold` of ``library``) the model is the joint
     one: global_coefs [1, F_joint], arms the combination index per step,
@@ -1147,17 +1144,20 @@ def insite_gn_finetune_predict(library, global_coefs, prev, statics, arms,
     pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
                   active_idx)
     roll, roll_sens = _rollouts(library, fold)
-    launch = None
-    if fold is None and prev.device.type == 'cuda' and \
-            pb.Kr <= kernel_bounds()['Kr']:
-        def launch(coefs, out):
-            return rollout_with_sens(library, coefs, prev[:, 0], statics,
-                                     arms, dt, pb.active_idx, y_clip=y_clip,
-                                     out=out)
+    if not pb.Kr:
+        return pb.predict(roll, pb.g_red, statics, arms, dt, y_clip)
+    # the graphs' buffers take one kernel launch: not a fold's, nor plain
+    capture = fold is None and prev.device.type == 'cuda' and \
+        pb.Kr <= kernel_bounds()['Kr']
+
+    def evaluate(coefs, out=None):
+        buffers = {} if out is None else {'out': out}
+        return roll_sens(coefs, prev[:, 0], statics, arms, dt,
+                         pb.active_idx, y_clip=y_clip, **buffers)
+
     with span('predict.lm', prev.device):
-        c_best = _levenberg_marquardt(
-            pb, lambda c: pb.sens_residuals(roll_sens, c, statics, arms, dt,
-                                            y_clip), lam, gn_iters, launch)
+        c_best = _levenberg_marquardt(pb, evaluate, lam, gn_iters,
+                                      capture=capture)
     return pb.predict(roll, c_best, statics, arms, dt, y_clip)
 
 
@@ -1178,25 +1178,25 @@ def insite_gn_finetune_predict_jvp(library, global_coefs, prev, statics,
     pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
                   active_idx)
     roll, _ = _rollouts(library, fold, plain=True)
+    if not pb.Kr:
+        return pb.predict(roll, pb.g_red, statics, arms, dt, y_clip)
 
-    def data_residuals(c_red):
-        y = roll(pb.to_full(c_red), prev[:, 0], statics, arms, dt,
-                 y_clip=y_clip)
-        return pb.residuals(y)
+    def rollout(c_red):
+        return roll(pb.to_full(c_red), prev[:, 0], statics, arms, dt,
+                    y_clip=y_clip)
 
     tangents = torch.eye(pb.Kr, dtype=prev.dtype, device=prev.device)[
         :, None, :].expand(pb.Kr, pb.B, pb.Kr)
 
-    def resid_jac(c_red):
-        r, Jt = torch.func.vmap(lambda v: torch.func.jvp(
-            data_residuals, (c_red,), (v,)))(tangents)
-        J = Jt.permute(1, 2, 0)                                 # [B, T-1, Kr]
-        if pb.per_row:
-            J = torch.where(pb.own[:, None, :], J, 0.0)
-        return r[0], J
+    def evaluate(coefs, out=None):
+        # the masked model's active coordinates: to_full maps them back
+        c_red = coefs.reshape(pb.B, pb.K)[:, pb.act]
+        y, s = torch.func.vmap(lambda v: torch.func.jvp(
+            rollout, (c_red,), (v,)))(tangents)
+        return y[0], s.permute(1, 2, 0)                         # [B, T, Kr]
 
     with span('predict.lm', prev.device):
-        c_best = _levenberg_marquardt(pb, resid_jac, lam, gn_iters)
+        c_best = _levenberg_marquardt(pb, evaluate, lam, gn_iters)
     return pb.predict(roll, c_best, statics, arms, dt, y_clip)
 
 
@@ -1243,10 +1243,13 @@ def insite_finetune_predict(library, global_coefs, prev, statics, arms,
     kernels (``rollout_backend='xla'``). Arguments otherwise as
     `insite_gn_finetune_predict` (a [B] ``lam``, per-row globals and
     ``fold`` included). Returns (preds [B, T], coefs [B, A, F], the
-    `BFGSResult` of the reduced problem)."""
+    `BFGSResult` of the reduced problem; None for an empty ``active_idx``,
+    which runs no BFGS and rolls out the global model)."""
     pb = _Reduced(global_coefs, prev, lengths, projection_horizon,
                   active_idx)
     roll, roll_sens = _rollouts(library, fold, plain)
+    if not pb.Kr:
+        return (*pb.predict(roll, pb.g_red, statics, arms, dt, y_clip), None)
     if torch.is_tensor(lam):
         lam = lam.to(prev.dtype)
         lam_col = lam[:, None]
@@ -1256,7 +1259,8 @@ def insite_finetune_predict(library, global_coefs, prev, statics, arms,
 
     def fun_and_grad(c_red):
         nonlocal nc
-        r, J = pb.sens_residuals(roll_sens, c_red, statics, arms, dt, y_clip)
+        r, J = pb.masked(*roll_sens(pb.to_full(c_red), prev[:, 0], statics,
+                                    arms, dt, pb.active_idx, y_clip=y_clip))
         mse = (r * r).sum(1) / pb.n_mask
         if nc is None:
             # the first evaluation is at the global model

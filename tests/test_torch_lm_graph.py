@@ -1,8 +1,9 @@
 """The Levenberg-Marquardt fine-tune's chain (`models/sindy.py`): the same
 arithmetic as the loop it replaced, bit for bit, on every path; its
 counters; the sensitivity launcher's output buffers; the reader of
-`lm_graph_hit_pct`; and, on a card, the chain replayed from CUDA graphs
-against the eager loop on the same tensors.
+`lm_graph_hit_pct`; the support rule and the fine-tunes of an empty
+support, which run no chain; and, on a card, the chain replayed from CUDA
+graphs against the eager loop on the same tensors.
 
 This file imports no JAX, so the card-side tests run where JAX is absent:
 
@@ -17,8 +18,10 @@ from benchmark import cell as cells
 from benchmark.metrics import _program
 from insite_tpu_torch.discovery.library import PolynomialLibrary
 from insite_tpu_torch.models import sindy
-from insite_tpu_torch.models.sindy import (insite_gn_finetune_predict,
-                                           insite_gn_finetune_predict_jvp)
+from insite_tpu_torch.models.sindy import (insite_finetune_predict,
+                                           insite_gn_finetune_predict,
+                                           insite_gn_finetune_predict_jvp,
+                                           support)
 from insite_tpu_torch.ops import rollout
 from insite_tpu_torch.utils import profiling
 
@@ -76,9 +79,26 @@ def old_levenberg_marquardt(pb, resid_jac, lam, gn_iters):
     return c_best
 
 
-def support(coefs):
-    return tuple(int(i) for i in
-                 np.flatnonzero(np.abs(np.asarray(coefs)).reshape(-1) > 1e-3))
+def old_jvp_resid_jac(pb, args):
+    """The jvp path's evaluation as it was before it joined the other
+    paths' masking step: forward-mode autodiff through the residuals, the
+    coordinates outside a row's own support zeroed, (r, J) at c [B, Kr]."""
+    library, _, prev, statics, arms, _, dt, _ = args
+    tangents = torch.eye(pb.Kr, dtype=prev.dtype)[:, None, :].expand(
+        pb.Kr, pb.B, pb.Kr)
+
+    def residuals(c):
+        return pb.residuals(rollout.batched_rollout_plain(
+            library, pb.to_full(c), prev[:, 0], statics, arms, dt))
+
+    def resid_jac(c):
+        r, Jt = torch.func.vmap(lambda v: torch.func.jvp(
+            residuals, (c,), (v,)))(tangents)
+        J = Jt.permute(1, 2, 0)
+        if pb.per_row:
+            J = torch.where(pb.own[:, None, :], J, 0.0)
+        return r[0], J
+    return resid_jac
 
 
 def small_problem(per_row: bool, dtype, B=8, T=14, seed=0):
@@ -91,7 +111,7 @@ def small_problem(per_row: bool, dtype, B=8, T=14, seed=0):
     if per_row:
         g = base[None] * (1 + 0.1 * rng.randn(B, 1, 1))
         g[::3, 1, 1] = 0.0
-        act = support(np.abs(g).max(0))
+        act = support(g)
         lam = torch.as_tensor(np.resize([0.1, 1.0, 10.0], B), dtype=dtype)
     else:
         g, act, lam = base, support(base), 10.0
@@ -119,10 +139,16 @@ def test_eager_chain_equals_the_old_loop_bit_for_bit(monkeypatch, fine_tune,
                                                      dtype, per_row):
     args, kw = small_problem(per_row, dtype)
     preds, coefs = fine_tune(*args, **kw)
+
+    def resid_jac(pb, evaluate):
+        if fine_tune is insite_gn_finetune_predict_jvp:
+            return old_jvp_resid_jac(pb, args)
+        return lambda c: pb.masked(*evaluate(pb.to_full(c)))
+
     monkeypatch.setattr(sindy, '_levenberg_marquardt',
-                        lambda pb, resid_jac, lam, gn_iters, *_:
-                        old_levenberg_marquardt(pb, resid_jac, lam,
-                                                gn_iters))
+                        lambda pb, evaluate, lam, gn_iters, **_:
+                        old_levenberg_marquardt(pb, resid_jac(pb, evaluate),
+                                                lam, gn_iters))
     ref_preds, ref_coefs = fine_tune(*args, **kw)
     assert not torch.equal(coefs[0], args[1][0] if per_row else args[1])
     assert torch.equal(preds, ref_preds) and torch.equal(coefs, ref_coefs)
@@ -223,6 +249,71 @@ def test_buffers_reach_the_launcher_positionally_and_only_where_given():
 
 
 # ---------------------------------------------------------------------------
+# the support rule and the empty support
+
+def test_support_is_the_union_of_the_coordinates_above_the_threshold():
+    g = np.zeros((3, 2, 7))
+    g[0, 0, 4], g[1, 1, 2] = -1.0, 2e-3
+    g[2, 1, 5], g[2, 0, 0] = sindy.SUPPORT_THRESHOLD, -1.1e-3
+    assert support(g[0]) == (4,)
+    assert support(g[2]) == (0,)            # at the threshold is out
+    assert support(g) == (0, 4, 9)          # arm * F + feature
+    assert support(np.zeros((2, 7))) == ()
+    assert all(type(i) is int for i in support(g))
+
+
+EMPTY_SUPPORT = [
+    pytest.param(insite_gn_finetune_predict, 'cpu', id='lm-cpu'),
+    pytest.param(insite_gn_finetune_predict_jvp, 'cpu', id='lm-jvp-cpu'),
+    pytest.param(insite_finetune_predict, 'cpu', id='bfgs-cpu'),
+    pytest.param(insite_gn_finetune_predict, 'cuda', id='lm-kernels-cuda',
+                 marks=pytest.mark.cuda)]
+
+
+@pytest.mark.parametrize('fine_tune, device', EMPTY_SUPPORT)
+@pytest.mark.parametrize('per_row', [False, True])
+def test_an_empty_support_rolls_out_the_global_model_and_runs_no_chain(
+        request, monkeypatch, tmp_path, fine_tune, device, per_row):
+    """Every coefficient at or below the threshold: the skip rows roll out
+    the global model and the others the masked one, all zeros, in one
+    rollout; no sensitivity is evaluated, no link counted, and the span
+    'predict.lm' never opens. BFGS returns None for its result."""
+    if device == 'cuda':
+        device = request.getfixturevalue('cuda')
+    args, kw = small_problem(per_row, torch.float64)
+    args = [x.to(device) if torch.is_tensor(x) else x for x in args]
+    args[1] = args[1] * 5e-4
+    g = args[1]
+    assert support(g.cpu().numpy()) == ()
+    kw = dict(projection_horizon=kw['projection_horizon'], active_idx=())
+
+    def no_sensitivities(*a, **k):
+        raise AssertionError('a sensitivity evaluation')
+
+    monkeypatch.setattr(sindy, 'rollout_with_sens', no_sensitivities)
+    monkeypatch.setattr(sindy, 'rollout_with_sens_plain', no_sensitivities)
+    rollout.reset_launch_counts()
+    with profiling.trace(tmp_path):
+        out = fine_tune(*args, **kw)
+    totals = profiling.totals()
+    assert totals['predict']['calls'] == 1 and 'predict.lm' not in totals
+    assert not [k for k in totals if k.startswith('lm.')]
+    if fine_tune is insite_finetune_predict:
+        assert len(out) == 3 and out[2] is None
+    preds, coefs = out[:2]
+    skip = (args[5] <= kw['projection_horizon'])[:, None, None]
+    want = torch.where(skip, g if per_row else g[None], 0.0)
+    ref = rollout.batched_rollout_plain(LIBRARY, want, args[2][:, 0],
+                                        args[3], args[4], args[6])
+    assert torch.equal(coefs, want)
+    if device == 'cpu':
+        assert torch.equal(preds, ref)
+    else:
+        assert rollout.SENS_LAUNCHES == 0 and rollout.ROLLOUT_LAUNCHES == 1
+        torch.testing.assert_close(preds, ref, rtol=1e-10, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
 # on a CUDA card (skipped without one: the chain is captured only there)
 
 @pytest.fixture
@@ -267,7 +358,7 @@ def per_row_call(device, dtype, seed, B=700):
     return ((LIBRARY, torch.as_tensor(g, dtype=dtype, device=device), prev,
              statics, arms, lengths, 1 / 6, lam),
             dict(projection_horizon=1, gn_iters=12,
-                 active_idx=support(np.abs(g).max(0))))
+                 active_idx=support(g)))
 
 
 def eager(monkeypatch, call):

@@ -11,7 +11,8 @@ from insite_tpu.discovery.library import PolynomialLibrary as JaxLibrary
 from insite_tpu.harness.northstar import _sim_design_qr
 from insite_tpu.harness.northstar import fused_northstar as jax_northstar
 from insite_tpu_torch.harness.northstar import (discover_and_finetune,
-                                                fused_northstar)
+                                                fused_northstar,
+                                                simulate_cohort)
 
 N, SEED = 120, 0
 TIMINGS = ('t_sim_design', 't_stlsq', 't_finetune', 't_metric', 'total')
@@ -46,3 +47,15 @@ def test_own_pipeline_end_to_end_on_cpu():
     assert r['rmse_orig'] < 0.2               # INSITE-level factual fit (%)
     for k in TIMINGS:
         assert r[k] >= 0.0
+
+
+def test_a_fit_with_no_support_still_predicts():
+    """A threshold that removes every coefficient: the fine-tune has
+    nothing to move, so every row rolls out the zero model, which keeps
+    its first observation."""
+    cohort = simulate_cohort(40, SEED, device='cpu', dtype=torch.float64)
+    r = discover_and_finetune(cohort, threshold=1e9, projection_horizon=1)
+    assert not r['coefs'].any()
+    prev = cohort[0][:, :-1]
+    assert torch.equal(r['preds'], prev[:, :1].expand_as(prev))
+    assert np.isfinite(r['rmse_orig']) and np.isfinite(r['rmse_all'])

@@ -23,7 +23,8 @@ from insite_tpu_torch import convert
 from insite_tpu_torch.data.collection import SUBSETS, make_collection
 from insite_tpu_torch.discovery.stlsq import stlsq_from_qr
 from insite_tpu_torch.harness.config import model_dataset_name
-from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+from insite_tpu_torch.models.sindy import (SINDyConfig, SINDyRegressor,
+                                           support)
 
 F64 = dict(device='cpu', dtype=torch.float64)
 SIZES = {'train': 40, 'val': 4, 'test': 2}
@@ -73,7 +74,7 @@ def test_regressor_matches_jax_f64(pristine, name, insite):
     np.testing.assert_allclose(n_step, n_step_r, rtol=rtol)
     assert n_step.shape == (5,)
     if insite:
-        assert len(model._active_idx()) > 4    # beyond the register model
+        assert len(support(model.coefs)) > 4   # beyond the register model
 
 
 def test_rank_deficient_unbias_takes_the_minimum_norm_solution():

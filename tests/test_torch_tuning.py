@@ -23,7 +23,8 @@ from insite_tpu_torch.data.collection import SUBSETS
 from insite_tpu_torch.harness import runner, tuning
 from insite_tpu_torch.harness.config import RunConfig, model_dataset_name
 from insite_tpu_torch.models.sindy import (SINDyConfig, SINDyRegressor,
-                                           insite_gn_finetune_predict)
+                                           insite_gn_finetune_predict,
+                                           support)
 from insite_tpu_torch.ops import rollout
 
 F64 = dict(device='cpu', dtype=torch.float64)
@@ -102,7 +103,7 @@ def test_tune_insite_lam_matches_jax(name, extra):
     assert best == jax_best == model.cfg.lam == jax_model.cfg.lam
     assert all(np.isfinite(v) for v in scores.values())
     if 'sindy_threshold' in extra:
-        assert not model._active_idx()
+        assert not support(model.coefs)
         assert len(set(scores.values())) == 1 and best == 0.0
 
 
@@ -140,7 +141,7 @@ def test_per_row_lam_of_equal_values_is_the_scalar_path(dtype):
                                     else x
                                     for x in model._rollout_args(val_f))
     kw = dict(projection_horizon=1, gn_iters=12,
-              active_idx=model._active_idx())
+              active_idx=support(model.coefs))
     coefs = torch.as_tensor(model.coefs, dtype=dtype)
     args = (model.library, coefs, prev, statics, arms, lengths, model.dt)
     p_s, c_s = insite_gn_finetune_predict(*args, lam=10.0, **kw)

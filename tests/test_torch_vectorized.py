@@ -37,8 +37,8 @@ from insite_tpu_torch.harness import runner, vectorized
 from insite_tpu_torch.harness.config import RunConfig
 from insite_tpu_torch.harness.logging_utils import create_logger_in_process
 from insite_tpu_torch.harness.results import rows_from_log
-from insite_tpu_torch.models.sindy import (_empty_support_predict,
-                                           insite_gn_finetune_predict)
+from insite_tpu_torch.models.sindy import (insite_gn_finetune_predict,
+                                           support)
 
 F64 = dict(device='cpu', dtype=torch.float64)
 N_TRAIN, N_TEST, T, PH = 40, 2, 60, 5
@@ -155,7 +155,8 @@ def test_weak_sindy_fit_select_matches_jax():
 def test_per_row_finetune_equals_one_finetune_per_seed():
     """Three seeds' rows in one fine-tune over the union of their supports
     (seed 2's empty: every coefficient at or below 1e-3) against each seed
-    fine-tuned alone over its own support."""
+    fine-tuned alone over its own support (seed 2's fine-tune of an empty
+    support)."""
     rng = np.random.RandomState(0)
     lib = PolynomialLibrary(n_inputs=3)
     models = np.zeros((3, 2, 7))
@@ -176,23 +177,17 @@ def test_per_row_finetune_equals_one_finetune_per_seed():
     args = [t64(x) for x in (prev, statics)] + \
         [t64(arms, torch.int32), t64(lengths, torch.int64)]
     rows = t64(np.repeat(models, n, axis=0))
-    union = tuple(int(i) for i in np.flatnonzero(
-        (np.abs(models) > 1e-3).any(0).reshape(-1)))
+    union = support(models)
     preds, coefs = insite_gn_finetune_predict(
         lib, rows, *args, 1 / 6, lam=10.0, projection_horizon=3,
         active_idx=union)
     for s in range(3):
         take = slice(s * n, (s + 1) * n)
         g = t64(models[s])
-        own = tuple(int(i) for i in np.flatnonzero(
-            np.abs(models[s]).reshape(-1) > 1e-3))
         part = [x[take] for x in args]
-        if own:
-            ref_p, ref_c = insite_gn_finetune_predict(
-                lib, g, *part, 1 / 6, lam=10.0, projection_horizon=3,
-                active_idx=own)
-        else:
-            ref_p, ref_c = _empty_support_predict(lib, g, *part, 1 / 6, 3)
+        ref_p, ref_c = insite_gn_finetune_predict(
+            lib, g, *part, 1 / 6, lam=10.0, projection_horizon=3,
+            active_idx=support(models[s]))
         np.testing.assert_allclose(preds[take], ref_p, rtol=1e-10,
                                    atol=1e-12)
         np.testing.assert_allclose(coefs[take], ref_c, rtol=1e-10,
