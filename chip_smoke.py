@@ -7,11 +7,12 @@ card.
 Phases, in order; any failure exits non-zero:
 
 1. device   require CUDA; print the card and its power limit; TF32 off.
-2. build    compile csrc/rollout.cu and csrc/qr_reduce.cu with nvcc for
-            sm_90a (timed); print each kernel's registers, stack and
-            spills from ptxas, and fail unless ptxas lists all 16
-            instantiations and no SmallModel one and no register-state
-            QR one (`tsqr_*<Real, 8>`) spills or uses a stack.
+2. build    compile csrc/rollout.cu, csrc/qr_reduce.cu and
+            csrc/tumor_sim.cu with nvcc for sm_90a (timed); print each
+            kernel's registers, stack and spills from ptxas, and fail
+            unless ptxas lists all 20 instantiations and no SmallModel
+            one, no register-state QR one (`tsqr_*<Real, 8>`) and no
+            tumour one spills or uses a stack.
 3. kernels  each rollout kernel against its plain PyTorch version on the
             card, f32 and f64, at the north-star shape (B=10,000, T=59,
             A=2, F=7, S=2, Kr=3), at B=2048, T=60, in a 4-arm case
@@ -75,6 +76,18 @@ Phases, in order; any failure exits non-zero:
             calls); then f32 and f64 against numpy's float64 QR of the same
             problem (each Gram entry within `QR_GRAM_RTOL` of
             sqrt(G_ii G_jj)), one launch a call, two calls bit-identical.
+            In the same session, the tumour simulator's day-loop kernels
+            (`ops/tumor_sim.py`, a call is one launch) at the main path's
+            shapes (`TUMOR_CASES`: the factual core at B=1,000, T=60, a
+            training cohort; the counterfactual one at B=100, T=60 with
+            noise T+5, a test cohort; window 15, lag 0, cancer_sim's
+            parameters), f32, beside the bound (the bytes over 3.35 TB/s),
+            with the call time and the Python day loop's it replaced; then
+            f32 and f64 against that loop on the same tensors (f64: every
+            value within 1e-12 and every decision equal; f32: values
+            within 1e-5, decisions parting only at draws within 1e-5 of
+            their probability or threshold), one launch a call, two calls
+            bit-identical.
 4. path     the 10,000-patient EQ_4_D north star (simulate -> discover ->
             INSITE fine-tune), after an untimed warm-up and a check of the
             f32 card path against the f64 CPU path on a small cohort;
@@ -92,7 +105,8 @@ Phases, in order; any failure exits non-zero:
             on cancer_sim and EQ_5_A..D, seed 0, 1,000 / 100 / 100, f32,
             debug mode; asserts 10 rows, the launches of the path (20
             rollout; 130 sensitivity unless a fit has an empty support,
-            which it then names), every 1-step and 6-step RMSE within 1 %
+            which it then names; 40 tumour-simulator kernel launches, four
+            a run's collection), every 1-step and 6-step RMSE within 1 %
             of the JAX package's at the same seed (`TUMOR_REF`), and insite
             below sindy at 1 step on every dataset; prints each run's stage
             times, peak device memory and fitted Kr. Then one cancer_sim
@@ -902,17 +916,22 @@ PEAK_F32_FLOPS = 67e12
 # ... and its float64 rate outside the tensor cores
 PEAK_F64_FLOPS = 34e12
 KERNEL_NAMES = {'rollout': 'rollout_kernel<', 'sens': 'rollout_sens_kernel<',
-                'qr': 'tsqr_'}
-# every instantiation in csrc/rollout.cu and csrc/qr_reduce.cu, as
-# ptxas_report labels it: the no-spill gate must see each SmallModel one
-# and each QR one
+                'qr': 'tsqr_', 'tumor_factual': 'tumor_factual_kernel<',
+                'tumor_cf_factual': 'tumor_cf_factual_kernel<'}
+# every instantiation in csrc/rollout.cu, csrc/qr_reduce.cu and
+# csrc/tumor_sim.cu, as ptxas_report labels it: the no-spill gate must see
+# each SmallModel one, each QR one and each tumour one
 QR_PTXAS_KERNELS = [f'{k}<{r}, {cb}>' for k in ('tsqr_rows_kernel',
                                                 'tsqr_merge_kernel')
                     for r in ('float', 'double') for cb in (0, 8)]
+TUMOR_PTXAS_KERNELS = [f'{k}<{r}>' for k in ('tumor_factual_kernel',
+                                             'tumor_cf_factual_kernel')
+                       for r in ('float', 'double')]
 PTXAS_KERNELS = [f'{k}<{r}, {m}<{r}>>'
                  for k in ('rollout_kernel', 'rollout_sens_kernel')
                  for r in ('float', 'double')
-                 for m in ('SmallModel', 'GeneralModel')] + QR_PTXAS_KERNELS
+                 for m in ('SmallModel', 'GeneralModel')] + \
+    QR_PTXAS_KERNELS + TUMOR_PTXAS_KERNELS
 QR_SOURCE = 'insite_tpu_torch/csrc/qr_reduce.cu'
 # phase 3's QR shapes: (rows, F, arms, the arm's type); the north star's is
 # its own design at N_PATIENTS
@@ -923,6 +942,21 @@ QR_CASES = {'qr_northstar': (600_000, 7, 2, 'float'),
 # sqrt(G_ii G_jj) of numpy's float64 QR's: float64 arithmetic, the
 # triangle rounded to the input's type once
 QR_GRAM_RTOL = {'f32': 1e-5, 'f64': 1e-10}
+TUMOR_SOURCE = 'insite_tpu_torch/csrc/tumor_sim.cu'
+# phase 3's tumour-simulator shapes, by kernel: (core, B, noise length) at
+# T = TUMOR_T, window TUMOR_WINDOW, lag 0, cancer_sim's parameters: a
+# training cohort of the cancer main run and of each column seed, and a
+# test cohort, whose noise is T + TUMOR_PH long
+TUMOR_T, TUMOR_PH, TUMOR_WINDOW = 60, 5, 15
+TUMOR_CASES = {'tumor_factual': ('factual', 1_000, TUMOR_T),
+               'tumor_cf_factual': ('cf_factual', 100, TUMOR_T + TUMOR_PH)}
+# the kernels against the Python loops on the same tensors, as
+# tests/test_torch_tumor_kernel.py holds them: values within this rtol on
+# the days before a patient's decisions part; in f64 no decision parts, in
+# f32 one may only where its draw lies within TUMOR_TIE of its probability
+# or threshold
+TUMOR_SIM_RTOL = {'f32': 1e-5, 'f64': 1e-12}
+TUMOR_TIE = 1e-5
 
 
 def log(msg):
@@ -1195,6 +1229,213 @@ def run_qr_cases(cases, dev_ms, device):
     return out
 
 
+def tumor_inputs(tag, dtype, device):
+    """A tumour case's kernel inputs on the card (`TUMOR_CASES`): the ten
+    parameter arrays in `PARAM_KEYS` order and the four draws, from one
+    seed, so the f32 and the f64 case hold the same numbers."""
+    import torch
+    from insite_tpu_torch.sim import cancer, tumor
+    _, B, noise_len = TUMOR_CASES[tag]
+    rs = np.random.RandomState(B + noise_len)
+    params = cancer.generate_params(B, 2.0, 2.0, TUMOR_WINDOW, 0, rs)
+    rvs = {'noise': 0.01 * rs.randn(B, noise_len),
+           'recovery': rs.rand(B, TUMOR_T), 'chemo_rv': rs.rand(B, TUMOR_T),
+           'radio_rv': rs.rand(B, TUMOR_T)}
+    p = cancer.device_params(params, device, dtype)
+    return ([p[k] for k in tumor.PARAM_KEYS],
+            {k: torch.as_tensor(v, dtype=dtype, device=device)
+             for k, v in rvs.items()})
+
+
+def tumor_jobs(device):
+    """The tumour cases' inputs (f32) and their `device_times` jobs: one
+    call is one launch."""
+    import torch
+    from insite_tpu_torch.ops import tumor_sim
+    cases, jobs = {}, []
+    for tag, (core, _, _) in TUMOR_CASES.items():
+        p, rvs = cases[tag] = tumor_inputs(tag, torch.float32, device)
+        jobs.append((tag, tag, lambda f=getattr(tumor_sim, core), p=p,
+                     r=rvs: f(p, r, TUMOR_T, TUMOR_WINDOW, 0), 1))
+    return cases, jobs
+
+
+def tumor_bound(params, rvs, out, core):
+    """The least time (ms) one call could take: the bytes it must move over
+    the memory rate. It reads the ten parameters and the draws' columns its
+    days read (1 .. T - 2 of each for the factual core; noise 1 .. T - 1
+    and the others 0 .. T - 2 for the counterfactual one) and writes every
+    output once. Its arithmetic, ~30 operations a patient a day, is three
+    orders below the bytes' time. Returns (ms, 'bytes')."""
+    B = params[0].shape[0]
+    size = params[0].element_size()
+    days = TUMOR_T - 2 if core == 'factual' else TUMOR_T - 1
+    n_bytes = size * (len(params) * B + len(rvs) * B * days)
+    n_bytes += sum(x.numel() * x.element_size() for x in out.values())
+    return 1e3 * n_bytes / PEAK_BYTES_PER_S, 'bytes'
+
+
+def tumor_parting(core, got, want, rvs, params):
+    """Per patient, the first day on which a decision of the kernel
+    (``got``) and the loop (``want``) parts (the number of days where none
+    does), after asserting that each parting decision's draw lies within
+    `TUMOR_TIE` of its probability or threshold as the loop has them.
+    Factual decisions: the applications and the death and recovery flags;
+    counterfactual: the applications and the stop, the day before
+    ``active`` turns false. All arguments are host numpy arrays."""
+    from insite_tpu_torch.sim import tumor
+    thr = tumor.TUMOUR_DEATH_THRESHOLD
+
+    def stop_margin(v, draw, rules):
+        # death: the volume against the threshold; recovery: the draw
+        # against exp(-v * cell density)
+        return min({'death': abs(thr - v) / thr,
+                    'recovery': abs(draw - np.exp(
+                        -float(v) * tumor.TUMOUR_CELL_DENSITY))}[r]
+                   for r in rules)
+
+    if core == 'factual':
+        names = ('chemo_application', 'radio_application', 'death_flags',
+                 'recovery_flags')
+        sides = (got, want)
+    else:
+        names = ('chemo_application', 'radio_application', 'stop')
+        sides = [dict(x, stop=np.pad(x['active'][:, 1:] !=
+                                     x['active'][:, :-1], ((0, 0), (0, 1))))
+                 for x in (got, want)]
+    g, w = sides
+    days = w[names[0]].shape[1]
+    differs = np.zeros(w[names[0]].shape, bool)
+    for k in names:
+        differs |= g[k] != w[k]
+    upto = np.where(differs.any(1), differs.argmax(1), days)
+    for b in np.flatnonzero(upto < days):
+        d = upto[b]
+        if core == 'factual':
+            probs = {c: w[f'{c}_probabilities'][b, d]
+                     for c in ('chemo', 'radio')}
+        else:
+            # the loop's window: volumes [max(d - window - lag, 0), d - lag]
+            first = max(d - TUMOR_WINDOW, 0)
+            v = w['volumes'][b, first:d + 1].astype(float)
+            metric = ((v / (4.0 / 3.0 * np.pi)) ** (1.0 / 3.0) * 2.0).mean()
+            probs = {c: 1.0 / (1.0 + np.exp(
+                -params[8 + i][b] * (metric - params[6 + i][b])))
+                for i, c in enumerate(('chemo', 'radio'))}
+        margins = {f'{c}_application': abs(rvs[f'{c}_rv'][b, d] - probs[c])
+                   for c in ('chemo', 'radio')}
+        for k in names[2:]:
+            stayed = g if not g[k][b, d] else w
+            vol = (stayed['cancer_volume'][b, d] if core == 'factual' else
+                   stayed['volumes'][b, d + 1])
+            rules = {'death_flags': ('death',),
+                     'recovery_flags': ('recovery',)}.get(
+                         k, ('death', 'recovery'))
+            margins[k] = stop_margin(vol, rvs['recovery'][b, d], rules)
+        for k in names:
+            if g[k][b, d] != w[k][b, d] and not margins[k] < TUMOR_TIE:
+                raise AssertionError(f'{core}: patient {b} day {d}: {k} '
+                                     f'parts {margins[k]:.3e} from its '
+                                     f'threshold (>= {TUMOR_TIE})')
+    return upto
+
+
+def tumor_value_error(core, got, want, upto):
+    """The largest relative difference of a value output on each patient's
+    days before its decisions part; the decisions (and, for patients that
+    never part, the lengths) must be equal there."""
+    decisions = ('chemo_application', 'radio_application', 'death_flags',
+                 'recovery_flags', 'active')
+    days = want['chemo_application'].shape[1]
+    err = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f'{core} {k}: {g.dtype} {g.shape} against '
+                                 f'the loop\'s {w.dtype} {w.shape}')
+        if w.ndim == 1:
+            g, w = g[upto == days], w[upto == days]
+        else:
+            shift = 1 if k == 'volumes' else 0
+            keep = np.arange(w.shape[1])[None, :] < upto[:, None] + shift
+            g, w = np.where(keep, g, 0), np.where(keep, w, 0)
+        if w.dtype.kind == 'f' and k not in decisions:
+            rel = np.abs(g - w) / np.maximum(np.abs(w), np.finfo(w.dtype).tiny)
+            err = max(err, float(np.where(g == w, 0.0, rel).max()))
+        elif not np.array_equal(g, w):
+            raise AssertionError(f'{core} {k}: the kernel\'s decisions '
+                                 'differ from the loop\'s before they part')
+    return err
+
+
+def run_tumor_cases(cases, dev_ms, device):
+    """Each tumour-simulator kernel (`ops/tumor_sim.py`) at its case's
+    shape: its device time beside its bound, the call time and the Python
+    loop's it replaced (CUDA events, medians of 20 and 3), f32; then f32
+    and f64 against the loop on the same tensors (`tumor_parting`,
+    `tumor_value_error` within `TUMOR_SIM_RTOL`), one launch a call, two
+    calls bit-identical. Returns {tag: numbers}."""
+    import torch
+    from insite_tpu_torch.ops import tumor_sim
+    from insite_tpu_torch.sim import tumor
+    out = {}
+    for tag, (p, rvs) in cases.items():
+        core, B, noise_len = TUMOR_CASES[tag]
+        kernel = getattr(tumor_sim, core)
+        loop = getattr(tumor, f'_{core}_loop')
+        bound, by = tumor_bound(p, rvs, kernel(p, rvs, TUMOR_T, TUMOR_WINDOW,
+                                               0), core)
+        t = out[tag] = {'B': B, 'T': TUMOR_T, 'noise_len': noise_len,
+                        'device_ms': dev_ms[tag], 'bound_ms': bound,
+                        'bound_by': by}
+        t['ms'] = time_ms(lambda k=kernel, p=p, r=rvs: k(
+            p, r, TUMOR_T, TUMOR_WINDOW, 0))
+        params = dict(zip(tumor.PARAM_KEYS, p))
+        t['plain_ms'] = time_ms(lambda f=loop, q=params, r=rvs: f(
+            q, r, TUMOR_T, TUMOR_WINDOW, 0), reps=3, warmup=1)
+        log(f'  {tag} B={B} T={TUMOR_T} noise {noise_len} f32 device time '
+            f'per call (profiler, median of 20) {t["device_ms"]:.4f} ms; '
+            f'bound {bound:.4f} ms ({by}), '
+            f'{100 * bound / t["device_ms"]:.2f} % of it; call '
+            f'{t["ms"]:.4f} ms; the Python loop {t["plain_ms"]:.2f} ms')
+        for dt_tag, dtype in (('f32', torch.float32),
+                              ('f64', torch.float64)):
+            q, r = ((p, rvs) if dtype == torch.float32 else
+                    tumor_inputs(tag, dtype, device))
+            tumor_sim.SIM_LAUNCHES = 0
+            a = kernel(q, r, TUMOR_T, TUMOR_WINDOW, 0)
+            b = kernel(q, r, TUMOR_T, TUMOR_WINDOW, 0)
+            want = loop(dict(zip(tumor.PARAM_KEYS, q)), r, TUMOR_T,
+                        TUMOR_WINDOW, 0)
+            torch.cuda.synchronize()
+            if tumor_sim.SIM_LAUNCHES != 2 or any(
+                    not torch.equal(a[k], b[k]) for k in a):
+                raise AssertionError(f'{tag} {dt_tag}: '
+                                     f'{tumor_sim.SIM_LAUNCHES} launches '
+                                     'counted, or two calls differ')
+            got = {k: v.cpu().numpy() for k, v in a.items()}
+            want = {k: v.cpu().numpy() for k, v in want.items()}
+            h = {k: v.cpu().numpy().astype(float) for k, v in r.items()}
+            upto = tumor_parting(core, got, want, h,
+                                 [x.cpu().numpy().astype(float) for x in q])
+            parted = int((upto < want['chemo_application'].shape[1]).sum())
+            if dt_tag == 'f64' and parted:
+                raise AssertionError(f'{tag} f64: {parted} patients\' '
+                                     'decisions part from the loop\'s')
+            err = tumor_value_error(core, got, want, upto)
+            if not err <= TUMOR_SIM_RTOL[dt_tag]:
+                raise AssertionError(f'{tag} {dt_tag}: values {err:.3e} '
+                                     f'from the loop\'s (> '
+                                     f'{TUMOR_SIM_RTOL[dt_tag]})')
+            t[f'max_rel_err_{dt_tag}'] = err
+            t[f'patients_parted_{dt_tag}'] = parted
+            log(f'  {tag} {dt_tag}: values within {err:.3e} of the loop\'s '
+                f'(limit {TUMOR_SIM_RTOL[dt_tag]}), {parted} of {B} '
+                f'patients part at a draw within {TUMOR_TIE} of its '
+                'threshold, 1 launch a call, two calls bit-identical')
+    return out
+
+
 def ptxas_report(log_text):
     """Per kernel in nvcc's -Xptxas -v output: (label, registers, stack
     bytes, spill store bytes, spill load bytes)."""
@@ -1209,7 +1450,14 @@ def ptxas_report(log_text):
             frame = tuple(map(int, m.groups()))
         m = re.search(r'Used (\d+) registers', line)
         if m and name and frame and 'kernel' in name:
-            if 'tsqr_' in name:
+            if 'tumor_' in name:
+                kernel = ('tumor_cf_factual_kernel'
+                          if 'tumor_cf_factual_kernel' in name
+                          else 'tumor_factual_kernel')
+                real = ('double' if f'{len(kernel)}{kernel}Id' in name
+                        else 'float')
+                label = f'{kernel}<{real}>'
+            elif 'tsqr_' in name:
                 kernel = ('tsqr_rows_kernel' if 'tsqr_rows_kernel' in name
                           else 'tsqr_merge_kernel')
                 real = ('double' if f'{len(kernel)}{kernel}Id' in name
@@ -1554,12 +1802,13 @@ def clip_flips(y_k, y_p, y_clip):
 
 def run_kernel_case(name, case, device, timed):
     import torch
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     out = {}
     for tag, dtype in (('f32', torch.float32), ('f64', torch.float64)):
         args = tensors(case, dtype, device)
         act, clip = case['active_idx'], case['y_clip']
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         y_k = rollout.batched_rollout(*args, y_clip=clip)
         ys_k, s_k = rollout.rollout_with_sens(*args, act, y_clip=clip)
         groups = -(-len(act) // rollout.kernel_bounds()['Kr'])
@@ -1617,6 +1866,7 @@ def run_fold_case(name, case, device):
     kernel, then ``s_eff @ M``) against the plain joint rollout and the
     plain joint sensitivity recurrence, f32 and f64, within `TOL`."""
     import torch
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     from insite_tpu_torch.ops.joint_fold import combination_index
     fold, lib = case['fold'], case['library']
@@ -1629,7 +1879,7 @@ def run_fold_case(name, case, device):
         f = dict(dtype=dtype, device=device)
         c, y0, u, tr = (torch.as_tensor(case[k], **f) for k in
                         ('coefs', 'y0', 'statics', 'treatments'))
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         y_k = fold.rollout(c, y0, u, arms, dt, y_clip=clip)
         ys_k, s_k = fold.rollout_with_sens(c, y0, u, arms, dt, act,
                                            y_clip=clip)
@@ -1816,6 +2066,7 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
     from insite_tpu_torch.harness.logging_utils import (
         create_logger_in_process, generate_log_file_path)
     from insite_tpu_torch.harness.runner import Experiment, sweep
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     records = []
     with tempfile.TemporaryDirectory() as log_dir:
@@ -1825,7 +2076,7 @@ def run_sweep(device, datasets, tag, methods=('sindy', 'insite'),
         logger = create_logger_in_process(log_path)
         with stage_timer(records, device):
             torch.cuda.synchronize(device)
-            rollout.reset_launch_counts()
+            ops.reset_launch_counts()
             t0 = perf_counter()
             rows, tables = sweep(cfg, Experiment[experiment], log=logger,
                                  device=device)
@@ -1921,9 +2172,18 @@ def run_main_table(device, keep_log=None):
 def run_tumor_table(device, keep_log=None):
     """Phase 6: the port's sweep over the tumor main table on the card,
     held to the JAX package's RMSEs at the same seed; its log copied to
-    ``keep_log`` where given."""
+    ``keep_log`` where given. Returns the rollout kernels' launches and the
+    tumour-simulator kernels' (`SIM_LAUNCHES`: four a run's collection,
+    the training and validation cohorts and the two test sets)."""
+    from insite_tpu_torch.ops import tumor_sim
+    # run_sweep zeroes every launch counter just before the sweep
     rows, records, launches = run_sweep(device, TUMOR_DATASETS, 'tumor',
                                         keep_log=keep_log)
+    sim_launches = tumor_sim.SIM_LAUNCHES
+    log(f'[tumor] tumour-simulator kernel launches: {sim_launches}')
+    if sim_launches != 4 * len(rows):
+        raise AssertionError(f'expected {4 * len(rows)} tumour-simulator '
+                             f'launches (4 a run), got {sim_launches}')
     want = expected_launches(rows, records)
     if want != {'rollout': 20, 'sens': 130}:
         empty = [r['dataset_name'] for r, rec in zip(rows, records)
@@ -1946,7 +2206,7 @@ def run_tumor_table(device, keep_log=None):
         if not (by[ds, 'insite']['encoder_test_rmse_orig'] <
                 by[ds, 'sindy']['encoder_test_rmse_orig']):
             raise AssertionError(f'{ds}: insite not below sindy at 1 step')
-    return launches
+    return launches, sim_launches
 
 
 def run_sindy_family(device):
@@ -2331,6 +2591,7 @@ def run_vectorized(device, table_rows, keep_log=None):
     from insite_tpu_torch.harness.logging_utils import (
         create_logger_in_process, generate_log_file_path)
     from insite_tpu_torch.harness.runner import vectorized_sweep
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     total = {'rollout': 0, 'sens': 0}
     by_column, one_step_means = {}, {}
@@ -2349,7 +2610,7 @@ def run_vectorized(device, table_rows, keep_log=None):
                             log_dir=log_dir, **settings)
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
-            rollout.reset_launch_counts()
+            ops.reset_launch_counts()
             t0 = perf_counter()
             rows, _ = vectorized_sweep(cfg, log=logger, device=device)
             torch.cuda.synchronize(device)
@@ -2461,6 +2722,7 @@ def run_vectorized_neural(device, insite_eq4d_column_mean):
     from insite_tpu_torch.harness.logging_utils import (
         create_logger_in_process, generate_log_file_path)
     from insite_tpu_torch.harness.runner import vectorized_sweep
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     log(f'[vectorized-neural] epochs {VEC_NEURAL_EPOCHS} (the JAX package '
         f'trains 100; cut to keep the script within its time limit)')
@@ -2476,7 +2738,7 @@ def run_vectorized_neural(device, insite_eq4d_column_mean):
                             debug_mode=True, log_dir=log_dir)
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
-            rollout.reset_launch_counts()
+            ops.reset_launch_counts()
             t0 = perf_counter()
             rows, _ = vectorized_sweep(cfg, log=logger, device=device)
             torch.cuda.synchronize(device)
@@ -2657,6 +2919,7 @@ def check_tune_card_against_host(device):
     from insite_tpu_torch.harness.config import sindy_params_for
     from insite_tpu_torch.harness.tuning import tune_insite_lam
     from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     coll = make_collection('EQ_4_D', {'train': 200, 'val': 100, 'test': 10},
                            seed=7, coeff=2.0, device=device)
@@ -2668,7 +2931,7 @@ def check_tune_card_against_host(device):
                             ('host', 'cpu', torch.float64)):
         m = SINDyRegressor(dataclasses.replace(cfg), coll, device=dev,
                            dtype=dtype).fit(coll.train_f)
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         t0 = perf_counter()
         best, scores = tune_insite_lam(m, coll.val_f)
         secs = perf_counter() - t0
@@ -2704,6 +2967,7 @@ def run_harness(device):
     import torch
     from insite_tpu_torch.harness import cache, isolated, runner, tuning
     from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import build, rollout
 
     def launches():
@@ -2724,7 +2988,7 @@ def run_harness(device):
 
         # 1. insite with the lam tune; then one tune card against host
         t0 = perf_counter()
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         row = runner.run_experiment(
             'EQ_4_D', 'insite', 0, 2.0,
             dataclasses.replace(base, tune_hparams=True), device=device)
@@ -2759,7 +3023,7 @@ def run_harness(device):
                     return out
                 return search
 
-            rollout.reset_launch_counts()
+            ops.reset_launch_counts()
             name = ('successive_halving_search' if algo == 'sha'
                     else 'grid_search')
             with patched(tuning, name, keep_trials):
@@ -2971,6 +3235,7 @@ def run_real_data(device):
     import torch
     from insite_tpu_torch.harness import checkpoint, runner
     from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     walls = {}
 
@@ -2994,7 +3259,7 @@ def run_real_data(device):
 
     cfg = RunConfig(epochs=REAL_EPOCHS)
     fitted = {}
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     for method in REAL_METHODS:
         t0 = perf_counter()
         coll = copy.deepcopy(base)
@@ -3072,7 +3337,7 @@ def run_real_data(device):
                     model.get_autoregressive_predictions(n_step))
             checkpoint.load_model(fresh, checkpoint.save_model(
                 model, f'{tmp}/{name}'))
-            rollout.reset_launch_counts()
+            ops.reset_launch_counts()
             got_one = fresh.get_predictions(coll.test_cf_one_step)
             if name == 'insite':
                 reload_launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
@@ -3177,6 +3442,7 @@ def run_bfgs_run(device, table_rows):
     import torch
     from insite_tpu_torch.harness import runner
     from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     cfg = RunConfig(model_overrides={'insite': dict(BFGS_OVERRIDES)})
     phase5 = {r['method_name']: r['encoder_test_rmse_orig']
@@ -3185,7 +3451,7 @@ def run_bfgs_run(device, table_rows):
     for tag, dtype in (('f32', None), ('f64', torch.float64)):
         records = []
         torch.cuda.synchronize(device)
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         t0 = perf_counter()
         with recording_bfgs(records):
             row = runner.run_experiment('EQ_4_D', 'insite', 0, 2.0, cfg,
@@ -3337,6 +3603,7 @@ def check_bfgs_tune_card_against_host(device):
     from insite_tpu_torch.harness.tuning import (INSITE_LAM_GRID,
                                                  tune_insite_lam)
     from insite_tpu_torch.models.sindy import SINDyConfig, SINDyRegressor
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     coll = make_collection('EQ_4_D', {'train': 200, 'val': 100, 'test': 10},
                            seed=7, coeff=2.0, device=device)
@@ -3351,7 +3618,7 @@ def check_bfgs_tune_card_against_host(device):
         m = SINDyRegressor(cfg, coll, device=dev, dtype=dtype).fit(
             coll.train_f)
         records = []
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         t0 = perf_counter()
         with recording_bfgs(records), one_host_thread():
             best, scores = tune_insite_lam(m, coll.val_f)
@@ -3390,6 +3657,7 @@ def run_xla_route(device):
     import torch
     from insite_tpu_torch.harness import runner
     from insite_tpu_torch.harness.config import RunConfig
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     cfg = RunConfig(model_overrides={'insite': {'rollout_backend': 'xla'}})
     coll = runner._collection_for('EQ_4_D', 'insite', 0, 2.0, cfg,
@@ -3397,7 +3665,7 @@ def run_xla_route(device):
     model = runner._build_model('insite', 'EQ_4_D', coll, cfg, device=device)
     ds = coll.test_cf_one_step
     torch.cuda.synchronize(device)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     t0 = perf_counter()
     model.fit(coll.train_f)
     t1 = perf_counter()
@@ -3614,6 +3882,7 @@ def bench_in_process(device, mode):
     launches, the warm-up's, the wall)."""
     import torch
     from insite_tpu_torch import bench
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     env = {'BENCH_MODE': mode, 'BENCH_PATIENTS': str(N_PATIENTS),
            'BENCH_DEVICE_REPEATS': str(BENCH_REPEATS)}
@@ -3628,7 +3897,7 @@ def bench_in_process(device, mode):
         return call
 
     torch.cuda.synchronize(device)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     t0 = perf_counter()
     with patched(bench, '_warmup', wrap), \
             contextlib.redirect_stdout(sys.stderr):
@@ -3768,10 +4037,11 @@ def check_entry(device):
     import torch
     from insite_tpu_torch.discovery.library import PolynomialLibrary
     from insite_tpu_torch.entry import DT, entry
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     fn, args = entry()
     torch.cuda.synchronize(device)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     y = fn(*args)
     torch.cuda.synchronize(device)
     launches = {'rollout': rollout.ROLLOUT_LAUNCHES,
@@ -3848,9 +4118,10 @@ def mesh_of(n_shards):
 def counted(device, fn):
     """(fn(), its kernel launches, its wall time to a synchronisation)."""
     import torch
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     torch.cuda.synchronize()
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     t0 = perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -3875,13 +4146,14 @@ def check_kernel_on_last_card(device):
     current, against their plain versions there within `TOL` (f32): on one
     card the same card, through the wrappers' device guard."""
     import torch
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import rollout
     last = torch.device('cuda', torch.cuda.device_count() - 1)
     case = eq4_case(2048, 60, True, 2)
     args = tensors(case, torch.float32, last)
     act = case['active_idx']
     with torch.cuda.device(0):
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         y = rollout.batched_rollout(*args)
         ys, s = rollout.rollout_with_sens(*args, act)
         current = torch.cuda.current_device()
@@ -4277,6 +4549,7 @@ def main():
               'run needs an NVIDIA card', file=sys.stderr)
         return 1
     from insite_tpu_torch.harness.northstar import fused_northstar
+    from insite_tpu_torch import ops
     from insite_tpu_torch.ops import build, qr_reduce, rollout
 
     # 1. device
@@ -4301,8 +4574,8 @@ def main():
             f'{spill_st} / {spill_ld} bytes spill stores / loads')
         if 'SmallModel' in label and (stack or spill_st or spill_ld):
             raise AssertionError(f'{label} uses a stack or spills')
-        if 'tsqr_' in label and label.endswith(', 8>') and (
-                stack or spill_st or spill_ld):
+        if ('tsqr_' in label and label.endswith(', 8>') or
+                'tumor_' in label) and (stack or spill_st or spill_ld):
             raise AssertionError(f'{label} uses a stack or spills')
     if sorted(r[0] for r in report) != sorted(PTXAS_KERNELS):
         raise AssertionError(f'ptxas reported {[r[0] for r in report]}; '
@@ -4338,6 +4611,7 @@ def main():
     # phase 13's lam tune: the validation cohort once per grid value
     tune_cases = {'tuning_b700': tuning_case(device)}
     qr_cases, qr_timing_jobs = qr_jobs(device)
+    sim_cases, sim_timing_jobs = tumor_jobs(device)
     log('[kernels] device time per call, f32, before any plain version '
         'runs')
     dev_times = kernel_times({'northstar': northstar_case,
@@ -4347,10 +4621,14 @@ def main():
                               **tumor_cases, **sindy_family_cases,
                               **insight_cases, **stacked, **tune_cases,
                               **half_shard},
-                             device, qr_timing_jobs)
+                             device, qr_timing_jobs + sim_timing_jobs)
+    extra_times = dev_times.pop('extra')
     log('[kernels] the QR reduction\'s TSQR kernels')
-    qr_res = run_qr_cases(qr_cases, dev_times.pop('extra'), device)
+    qr_res = run_qr_cases(qr_cases, extra_times, device)
     del qr_cases, qr_timing_jobs
+    log('[kernels] the tumour simulator\'s day-loop kernels')
+    sim_res = run_tumor_cases(sim_cases, extra_times, device)
+    del sim_cases, sim_timing_jobs
     log('[kernels] kernel vs plain PyTorch version on the card')
     main_case = run_kernel_case('northstar B=10000 T=59 per-patient',
                                 northstar_case, device, timed=True)
@@ -4388,7 +4666,7 @@ def main():
     check_small_cohort(device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     r = fused_northstar(N_PATIENTS, seed=0, equation_name='EQ_4_D',
                         projection_horizon=1, gn_iters=GN_ITERS,
                         device=device)
@@ -4431,7 +4709,8 @@ def main():
     # 6. tumor main table
     log('[tumor] sweep: sindy, insite x cancer_sim, EQ_5_A..D, seed 0, '
         '1000/100/100')
-    tumor_launches = run_tumor_table(device, kept_logs['tumor'])
+    tumor_launches, sim_launches_tumor = run_tumor_table(device,
+                                                         kept_logs['tumor'])
     log('[tumor] card f32 against host f64, one cancer_sim collection')
     check_card_against_host(device, 'cancer_sim')
 
@@ -4608,6 +4887,12 @@ def main():
         'library_ms': qr_res['qr_northstar']['library_ms'],
         **{f'{key}_{tag}': v for tag, t in qr_res.items()
            for key, v in t.items()}})
+    for tag, t in sim_res.items():
+        kernels.append({
+            'name': tag, 'route': 'cuda', 'source': TUMOR_SOURCE,
+            # the Python day loop it replaced is the plain version
+            'replaces': None, 'library_ms': None,
+            'launches_tumor_table': sim_launches_tumor, **t})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -1,11 +1,11 @@
 """Build the CUDA kernels of this package at first use.
 
 `nvcc` compiles `csrc/*.cu` for sm_90a into one shared library with a plain
-C interface, which `ops.rollout` and `ops.qr_reduce` load with ctypes. The
-library goes into `insite_tpu_torch/.kernel_build/<hash>/`, keyed by a hash
-of the sources and the flags, so an edited source is rebuilt and an
-unchanged one is built once per checkout. A missing `nvcc` or a failed build
-raises.
+C interface, which `ops.rollout`, `ops.qr_reduce` and `ops.tumor_sim` load
+with ctypes. The library goes into `insite_tpu_torch/.kernel_build/<hash>/`,
+keyed by a hash of the sources and the flags, so an edited source is
+rebuilt and an unchanged one is built once per checkout. A missing `nvcc`
+or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
 SOURCES = (PACKAGE / 'csrc' / 'rollout.cu',
-           PACKAGE / 'csrc' / 'qr_reduce.cu')
+           PACKAGE / 'csrc' / 'qr_reduce.cu',
+           PACKAGE / 'csrc' / 'tumor_sim.cu')
 BUILD_ROOT = PACKAGE / '.kernel_build'
 DEFAULT_NVCC = Path('/usr/local/cuda/bin/nvcc')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

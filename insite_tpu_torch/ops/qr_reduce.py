@@ -6,8 +6,8 @@ and raises on anything else: the host's reduction is numpy's LAPACK QR in
 `discovery/stlsq.py`, the JAX package's bit for bit, and
 `qr_reduce_plain` here is the float64 function the kernels compute, the
 reference of their tests. The module counts calls in `QR_LAUNCHES` (each
-call is the kernels' two launches), reset with the rollout counters by
-`ops.rollout.reset_launch_counts`. The kernels are built at their first
+call is the kernels' two launches), reset with the other kernels' counters
+by `ops.reset_launch_counts`. The kernels are built at their first
 call, not on import.
 """
 

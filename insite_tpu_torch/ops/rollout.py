@@ -35,19 +35,10 @@ import torch
 
 from insite_tpu_torch.core.constants import STEPS_FOR_DT
 from insite_tpu_torch.discovery.library import integer_powers
-from insite_tpu_torch.ops import build, qr_reduce
+from insite_tpu_torch.ops import build
 
 ROLLOUT_LAUNCHES = 0
 SENS_LAUNCHES = 0
-
-
-def reset_launch_counts() -> None:
-    """Zero the launch counters of the port's kernels: these two and
-    `ops.qr_reduce.QR_LAUNCHES`."""
-    global ROLLOUT_LAUNCHES, SENS_LAUNCHES
-    ROLLOUT_LAUNCHES = 0
-    SENS_LAUNCHES = 0
-    qr_reduce.QR_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------

@@ -11,11 +11,13 @@ a radio dose d in {0, 2}, and a sigmoid-confounded treatment assignment on
 the mean tumour diameter of the last 15 days.
 
 As in `insite_tpu.sim.tumor`, the cores take their random draws as
-arguments, so parity tests feed both packages the same draws. Each core
-carries the whole cohort through a Python loop over time on device
-tensors: an ``alive`` (factual) or ``active`` (counterfactual) mask stands
-for the reference's early exit on death or recovery, and a fixed-width
-rolling buffer holds the diameter window. The counterfactual rows of every
+arguments, so parity tests feed both packages the same draws. On CUDA
+tensors each core is one kernel launch (`ops.tumor_sim`, a thread a
+patient through every day). On the host it carries the whole cohort
+through a Python loop over time, the kernels' reference: an ``alive``
+(factual) or ``active`` (counterfactual) mask stands for the reference's
+early exit on death or recovery, and a fixed-width rolling buffer holds
+the diameter window. The counterfactual rows of every
 (patient, prefix, plan) are then built at once as broadcast tensors.
 
 The counterfactual generators window over the patient's own factual
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from insite_tpu_torch.utils.profiling import to_device
+from insite_tpu_torch.ops import tumor_sim
+from insite_tpu_torch.utils.profiling import count, to_device
 
 TUMOUR_CELL_DENSITY = 5.8e8
 CHEMO_AMT = 5.0
@@ -90,7 +93,27 @@ def factual_core(params, rvs, seq_length: int, window_size: int, lag: int):
     """The factual cohort: ``params`` holds [B] tensors (`PARAM_KEYS`),
     ``rvs`` the draws noise, recovery, chemo_rv and radio_rv, each [B, T].
     Returns the trajectory arrays [B, T], the sequence lengths [B] and the
-    death and recovery flags [B, T]."""
+    death and recovery flags [B, T]. On CUDA tensors one kernel launch
+    (`ops.tumor_sim.factual`), on the host the loop over days."""
+    return _core(tumor_sim.factual, _factual_loop, params, rvs, seq_length,
+                 window_size, lag)
+
+
+def _core(kernel, loop, params, rvs, seq_length, window_size, lag):
+    """Count the call (``sim.cores``, and ``sim.kernel_cores`` where the
+    kernel runs it) and run the kernel on CUDA tensors, else the loop."""
+    count('sim.cores')
+    if rvs['noise'].device.type != 'cuda':
+        return loop(params, rvs, seq_length, window_size, lag)
+    count('sim.kernel_cores')
+    p = _cast(params, rvs['noise'].dtype)
+    return kernel([p[k].contiguous() for k in PARAM_KEYS],
+                  {k: v.contiguous() for k, v in rvs.items()}, seq_length,
+                  window_size, lag)
+
+
+def _factual_loop(params, rvs, seq_length: int, window_size: int, lag: int):
+    """`factual_core` as a loop over days on [B] tensors."""
     dtype = rvs['noise'].dtype
     p = _cast(params, dtype)
     v0 = p['initial_volumes']
@@ -178,7 +201,16 @@ def cf_factual_core(params, rvs, seq_length: int, window_size: int,
                     lag: int):
     """Returns volumes [B, T] (V[t+1] emitted at step t, clipped), the
     dosages and applications at t [B, T-1], and ``active`` [B, T-1], the
-    steps the reference loop processed (it breaks after emitting rows)."""
+    steps the reference loop processed (it breaks after emitting rows). On
+    CUDA tensors one kernel launch (`ops.tumor_sim.cf_factual`), on the
+    host the loop over days."""
+    return _core(tumor_sim.cf_factual, _cf_factual_loop, params, rvs,
+                 seq_length, window_size, lag)
+
+
+def _cf_factual_loop(params, rvs, seq_length: int, window_size: int,
+                     lag: int):
+    """`cf_factual_core` as a loop over days on [B] tensors."""
     dtype = rvs['noise'].dtype
     p = _cast(params, dtype)
     v0 = p['initial_volumes']

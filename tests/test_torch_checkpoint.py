@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from insite_tpu_torch import ops
 from insite_tpu_torch.data.collection import PkpdDatasetCollection
 from insite_tpu_torch.harness import runner
 from insite_tpu_torch.harness.checkpoint import (STATE_FILE, load_model,
@@ -129,7 +130,7 @@ def test_insite_checkpoint_predicts_through_the_plain_kernels(tmp_path):
     want = model.get_predictions(coll.test_cf_one_step)
     _, fresh = _sindy(coll, insite=True)
     assert fresh.coefs is None and fresh.library is None
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     load_model(fresh, path)
     got = fresh.get_predictions(coll.test_cf_one_step)
     assert (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES) == (0, 0)

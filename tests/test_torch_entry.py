@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from __graft_entry__ import entry as jax_entry
+from insite_tpu_torch import ops
 from insite_tpu_torch.entry import entry
 from insite_tpu_torch.ops import rollout
 
@@ -21,7 +22,7 @@ def test_entry_matches_jax():
         assert got_a.device.type == 'cpu'
         np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
         assert got_a.numpy().dtype == np.asarray(want_a).dtype
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     got = fn(*args)
     assert (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES) == (0, 0)
     assert got.shape == want.shape == (64, 59)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from insite_tpu_torch import ops
 from insite_tpu_torch.discovery.library import PolynomialLibrary
 from insite_tpu_torch.ops import build, rollout
 from insite_tpu_torch.ops.joint_fold import JointFold, combination_index
@@ -190,7 +191,7 @@ def run_port(fn, case, *extra, device='cpu', dtype=torch.float32, **kw):
 
 
 def test_cpu_tensors_take_the_plain_path():
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     case = eq4_case(5, 9, False)
     out = run_port(rollout.batched_rollout, case)
     ref = run_port(rollout.batched_rollout_plain, case)
@@ -304,7 +305,7 @@ def test_kernels_match_plain_on_cuda(cuda, dtype, name):
     clip = (0.0, 10.0) if name == 'y_clip' else None
     act = active(case[1])
     rtol, atol = TOL[dtype]
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     out = run_port(rollout.batched_rollout, case, device=cuda, dtype=dtype,
                    y_clip=clip)
     ref = run_port(rollout.batched_rollout_plain, case, device=cuda,
@@ -410,7 +411,7 @@ def test_tumor_shape_matches_plain_on_cuda(cuda, dtype):
     case = tumor_case()
     act = active(case[1])
     rtol, atol = TOL[dtype]
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     out = run_port(rollout.batched_rollout, case, device=cuda, dtype=dtype,
                    y_clip=TUMOR_CLIP)
     ref = run_port(rollout.batched_rollout_plain, case, device=cuda,
@@ -437,7 +438,7 @@ def test_more_coordinates_than_the_bound_go_in_groups_on_cuda(cuda, dtype):
     bound = rollout.kernel_bounds()['Kr']
     assert len(act) == 100 > bound
     rtol, atol = TOL[dtype]
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     y, s = run_port(rollout.rollout_with_sens, case, act, device=cuda,
                     dtype=dtype)
     torch.cuda.synchronize()
@@ -466,7 +467,7 @@ def test_joint_fold_matches_plain_joint_on_cuda(cuda, dtype):
     act = tuple(range(11))
     assert len(fold.effective_active(act)[0]) == 16
     rtol, atol = TOL[dtype]
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     out = fold.rollout(c, y0_t, u, arms, dt, y_clip=TUMOR_CLIP)
     y, s = fold.rollout_with_sens(c, y0_t, u, arms, dt, act,
                                   y_clip=TUMOR_CLIP)
@@ -498,7 +499,7 @@ def test_kernels_launch_on_their_tensors_card(cuda, dtype):
     act = active(case[1])
     rtol, atol = TOL[dtype]
     with torch.cuda.device(0):
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         out = run_port(rollout.batched_rollout, case, device=last,
                        dtype=dtype)
         y, s = run_port(rollout.rollout_with_sens, case, act, device=last,
@@ -522,7 +523,7 @@ def test_entry_launches_the_rollout_kernel_once(cuda):
     one rollout launch, against the same step on the host."""
     from insite_tpu_torch.entry import entry
     fn, args = entry()
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     got = fn(*args)
     torch.cuda.synchronize()
     assert (rollout.ROLLOUT_LAUNCHES, rollout.SENS_LAUNCHES) == (1, 0)

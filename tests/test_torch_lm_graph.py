@@ -16,6 +16,7 @@ import torch
 
 from benchmark import cell as cells
 from benchmark.metrics import _program
+from insite_tpu_torch import ops
 from insite_tpu_torch.discovery.library import PolynomialLibrary
 from insite_tpu_torch.models import sindy
 from insite_tpu_torch.models.sindy import (insite_finetune_predict,
@@ -292,7 +293,7 @@ def test_an_empty_support_rolls_out_the_global_model_and_runs_no_chain(
 
     monkeypatch.setattr(sindy, 'rollout_with_sens', no_sensitivities)
     monkeypatch.setattr(sindy, 'rollout_with_sens_plain', no_sensitivities)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     with profiling.trace(tmp_path):
         out = fine_tune(*args, **kw)
     totals = profiling.totals()
@@ -385,11 +386,11 @@ def test_replayed_chain_equals_the_eager_loop(cuda, monkeypatch, tmp_path,
     calls = [make(cuda, dtype, seed) for seed in (11, 12, 13)]
     ref = eager(monkeypatch, calls[2])
     for call in calls[:2]:
-        rollout.reset_launch_counts()
+        ops.reset_launch_counts()
         insite_gn_finetune_predict(*call[0], **call[1])
         assert rollout.SENS_LAUNCHES == 13
         assert len(graphs(cuda)) == 1
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     with profiling.trace(tmp_path):
         preds, coefs = insite_gn_finetune_predict(*calls[2][0], **calls[2][1])
     totals = profiling.totals()
@@ -416,7 +417,7 @@ def test_a_launch_recorder_sees_every_launch_of_a_replayed_call(cuda,
                       *rest)
 
     monkeypatch.setattr(rollout, '_sens_cuda', sens_rec)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     insite_gn_finetune_predict(*call[0], **call[1])
     assert rollout.SENS_LAUNCHES == len(seen) == 13
     assert all(rest[-1][0] is graph.y and rest[-1][1] is graph.s
@@ -469,7 +470,7 @@ def test_a_jacobian_over_the_bound_runs_eagerly(cuda, monkeypatch, tmp_path):
     call = northstar_call(cuda, torch.float32, 41)
     monkeypatch.setattr(sindy, 'LM_GRAPH_MAX_JACOBIAN',
                         10_000 * 58 * 3 - 1)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     with profiling.trace(tmp_path):
         for _ in range(3):
             insite_gn_finetune_predict(*call[0], **call[1])

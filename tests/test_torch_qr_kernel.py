@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from insite_tpu_torch import ops
 from insite_tpu_torch.harness import northstar
 from insite_tpu_torch.ops import qr_reduce as qr
-from insite_tpu_torch.ops import rollout
 
 # the module: the subpackage exports the function `stlsq` under its name
 stlsq = importlib.import_module('insite_tpu_torch.discovery.stlsq')
@@ -97,7 +97,7 @@ def test_inputs_on_two_devices_raise():
 
 def test_reset_launch_counts_zeroes_the_qr_counter(monkeypatch):
     monkeypatch.setattr(qr, 'QR_LAUNCHES', 5)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     assert qr.QR_LAUNCHES == 0
 
 
@@ -275,7 +275,7 @@ def test_one_launch_per_design_qr_and_no_cusolver_on_cuda(cuda, monkeypatch):
         raise AssertionError('torch.linalg.qr called on the card path')
 
     monkeypatch.setattr(torch.linalg, 'qr', refuse)
-    rollout.reset_launch_counts()
+    ops.reset_launch_counts()
     tri = northstar.design_qr(cohort)
     torch.cuda.synchronize()
     assert qr.QR_LAUNCHES == 1 and tri.shape == (2, 8, 8)
